@@ -1,0 +1,217 @@
+"""Port rasterizer (splatt3r_slam_tpu_torch.splat) against the JAX package.
+
+Binning must agree exactly; the compositor's plain version
+(`composite_torch`, also what `render_tiles_cuda` runs for CPU tensors) is
+held against the Pallas kernel in interpret mode, the XLA tile compositor
+and the brute-force oracle at the JAX package's own bars
+(tests/test_pallas_rasterizer.py: 2e-3, and 3e-3 for the multi-chunk
+tile). The CUDA kernel itself runs only on the card: chip_smoke.py holds
+it against `composite_torch` there.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from splatt3r_slam_tpu.splat import rasterizer as jr
+from splatt3r_slam_tpu.splat.gaussians import build_covariance as j_cov
+from splatt3r_slam_tpu.splat.gaussians import cov_to_triu as j_triu
+from splatt3r_slam_tpu.splat.pallas_rasterizer import render_tiles_pallas
+from splatt3r_slam_tpu_torch.splat import cuda_rasterizer as cr
+from splatt3r_slam_tpu_torch.splat import gaussians as tg
+from splatt3r_slam_tpu_torch.splat import rasterizer as tr
+
+K = np.array([[80.0, 0, 32], [0, 80, 32], [0, 0, 1]], np.float32)
+VIEW = np.eye(4, dtype=np.float32)
+HW = (64, 64)
+
+
+def _scene(rng, G=180):
+    means = rng.normal(size=(G, 3)).astype(np.float32) * 2.0
+    means[:, 2] = np.abs(means[:, 2]) + 4.0
+    scales = (0.05 + 0.1 * rng.random((G, 3))).astype(np.float32)
+    q = rng.normal(size=(G, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    covt = np.asarray(j_triu(j_cov(jnp.asarray(scales), jnp.asarray(q))),
+                      np.float32)
+    colors = rng.random((G, 3)).astype(np.float32)
+    opa = (0.3 + 0.7 * rng.random(G)).astype(np.float32)
+    return means, covt, colors, opa
+
+
+def _t(*arrs):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+
+
+def _j(*arrs):
+    return [jnp.asarray(a, jnp.float32) for a in arrs]
+
+
+def test_covariance_and_triu_match(rng):
+    scales = (0.05 + rng.random((50, 3))).astype(np.float32)
+    q = rng.normal(size=(50, 4)).astype(np.float32)
+    want = np.asarray(j_cov(jnp.asarray(scales), jnp.asarray(q)))
+    got = tg.build_covariance(*_t(scales, q))
+    # fp32 einsum in both; 1e-5 relative covers summation order
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
+    # Σ is symmetric up to fp32 rounding of the two off-diagonal sums
+    np.testing.assert_allclose(tg.triu_to_cov(tg.cov_to_triu(got)).numpy(),
+                               got.numpy(), atol=1e-7)
+    rgb = rng.random((7, 3)).astype(np.float32)
+    np.testing.assert_allclose(tg.SH2RGB(tg.RGB2SH(torch.from_numpy(rgb))),
+                               rgb, atol=1e-6)
+
+
+def test_project_gaussians_matches(rng):
+    means, covt, colors, opa = _scene(rng)
+    a = jr.project_gaussians(*_j(means, covt, opa, VIEW, K), HW)
+    b = tr.project_gaussians(*_t(means, covt, opa, VIEW, K), HW)
+    for x, y in zip(a, b):
+        # component-wise fp32 arithmetic in the same order
+        np.testing.assert_allclose(y.numpy(), np.asarray(x), rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.parametrize("tiles_hw", [(64, 64), (128, 256)])
+def test_bin_tiles_exact(rng, tiles_hw):
+    """Identical gidx/valid/counts from the fused int32 key sort."""
+    means, covt, colors, opa = _scene(rng)
+    hw = tiles_hw
+    Kw = K.copy()
+    Kw[0, 2] = hw[1] / 2
+    jp = jr.project_gaussians(*_j(means, covt, opa, VIEW, Kw), hw)
+    m2, dep, rad, ok = (np.asarray(jp[i]) for i in (0, 2, 3, 4))
+    jg, jv, jc = jr.bin_tiles(*_j(m2, dep, rad), jnp.asarray(ok), hw, 4, 128)
+    tg_, tv, tc = tr.bin_tiles(*_t(m2, dep, rad), torch.from_numpy(ok), hw, 4,
+                               128)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    np.testing.assert_array_equal(tg_.numpy(), np.asarray(jg))
+
+
+def test_bin_tiles_two_operand_branch(rng):
+    """≥ 2^13 tiles: the int64-key branch equals the JAX two-key sort."""
+    hw = (16 * 64, 16 * 130)  # 8320 tiles
+    G = 300
+    m2 = np.stack([rng.random(G) * hw[1], rng.random(G) * hw[0]], -1)
+    m2 = m2.astype(np.float32)
+    dep = rng.random(G).astype(np.float32) + 1.0
+    dep[:20] = dep[20:40]  # equal depths must keep index order
+    rad = np.ceil(rng.random(G) * 30).astype(np.float32)
+    ok = rng.random(G) < 0.9
+    jg, jv, jc = jr.bin_tiles(*_j(m2, dep, rad), jnp.asarray(ok), hw, 4, 16)
+    tg_, tv, tc = tr.bin_tiles(*_t(m2, dep, rad), torch.from_numpy(ok), hw, 4,
+                               16)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(tg_.numpy()[tv.numpy()],
+                                  np.asarray(jg)[np.asarray(jv)])
+
+
+def _port(fn, means, covt, colors, opa, **kw):
+    return fn(*_t(means, covt, colors, opa, VIEW, K), HW, **kw).numpy()
+
+
+@pytest.mark.parametrize("port_fn", [tr.render_tiles, cr.render_tiles_cuda])
+def test_compositor_matches_pallas_and_xla(rng, port_fn):
+    means, covt, colors, opa = _scene(rng)
+    pal = np.asarray(render_tiles_pallas(*_j(means, covt, colors, opa, VIEW,
+                                             K), HW, interpret=True))
+    xla = np.asarray(jr.render_tiles(*_j(means, covt, colors, opa, VIEW, K),
+                                     HW, k_max=512))
+    got = _port(port_fn, means, covt, colors, opa)
+    # the Pallas bar (tests/test_pallas_rasterizer.py:40)
+    np.testing.assert_allclose(got, pal, atol=2e-3)
+    np.testing.assert_allclose(got, xla, atol=2e-3)
+
+
+def test_compositor_matches_bruteforce(rng):
+    means, covt, colors, opa = _scene(rng, G=120)
+    want = np.asarray(jr.render_bruteforce(*_j(means, covt, colors, opa, VIEW,
+                                               K), HW))
+    port_bf = _port(tr.render_bruteforce, means, covt, colors, opa)
+    # the exact oracles agree up to fp32 summation order
+    np.testing.assert_allclose(port_bf, want, atol=1e-5)
+    for fn in (tr.render_tiles, cr.render_tiles_cuda):
+        np.testing.assert_allclose(_port(fn, means, covt, colors, opa), want,
+                                   atol=2e-3)
+
+
+def test_compositor_background(rng):
+    means = np.zeros((1, 3), np.float32)
+    means[0, 2] = -1.0
+    covt = (np.eye(3, dtype=np.float32) * 0.01)[[0, 0, 0, 1, 1, 2],
+                                                 [0, 1, 2, 1, 2, 2]][None]
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    img = cr.render_tiles_cuda(*_t(means, covt, np.ones((1, 3), np.float32),
+                                   np.ones(1, np.float32), VIEW, K), HW,
+                               bg=bg).numpy()
+    np.testing.assert_allclose(img, np.broadcast_to([0.1, 0.2, 0.3],
+                                                    img.shape), atol=1e-5)
+
+
+def test_compositor_many_gaussians_one_tile(rng):
+    """A tile list longer than one 128-row chunk."""
+    G = 400
+    means = np.zeros((G, 3), np.float32)
+    means[:, 0] = rng.normal(size=G) * 0.02
+    means[:, 1] = rng.normal(size=G) * 0.02
+    means[:, 2] = np.linspace(2.0, 6.0, G)
+    covt = np.tile(np.array([1e-4, 0, 0, 1e-4, 0, 1e-4], np.float32), (G, 1))
+    colors = rng.random((G, 3)).astype(np.float32)
+    opa = np.full((G,), 0.05, np.float32)
+    want = np.asarray(jr.render_tiles(*_j(means, covt, colors, opa, VIEW, K),
+                                      HW, k_max=512))
+    pal = np.asarray(render_tiles_pallas(*_j(means, covt, colors, opa, VIEW,
+                                             K), HW, interpret=True))
+    got = _port(cr.render_tiles_cuda, means, covt, colors, opa)
+    # the multi-chunk bar (tests/test_pallas_rasterizer.py:82)
+    np.testing.assert_allclose(got, want, atol=3e-3)
+    np.testing.assert_allclose(got, pal, atol=3e-3)
+
+
+def test_composite_torch_against_sequential_loop(rng):
+    """The plain version equals a literal per-pixel front-to-back loop
+    (what the CUDA kernel does) within fp32 rounding, T_final included."""
+    T, k_max = 3, 40
+    rows = np.zeros((T * k_max, 9), np.float32)
+    rows[:, 0:2] = rng.random((T * k_max, 2)) * 16
+    rows[:, 2] = rows[:, 4] = 0.05 + 0.2 * rng.random(T * k_max)
+    rows[:, 3] = 0.01 * rng.normal(size=T * k_max)
+    rows[:, 5] = rng.random(T * k_max)
+    rows[:, 6:9] = rng.random((T * k_max, 3))
+    counts = np.array([0, 17, 40], np.int32)
+    origins = np.array([[0, 0], [16, 0], [32, 16]], np.int32)
+    bg = np.array([0.2, 0.4, 0.6], np.float32)
+    got = cr.composite(*_t(counts, origins, rows, bg)).numpy()
+    want = np.zeros((T * 256, 4), np.float32)
+    for t in range(T):
+        for p in range(256):
+            px = origins[t, 0] + p % 16 + 0.5
+            py = origins[t, 1] + p // 16 + 0.5
+            c = np.zeros(3, np.float64)
+            tr_ = 1.0
+            for r in rows[t * k_max: t * k_max + counts[t]]:
+                du, dv = px - r[0], py - r[1]
+                pw = -0.5 * (r[2] * du * du + r[4] * dv * dv) - r[3] * du * dv
+                a = min(0.99, r[5] * np.exp(pw))
+                if a < 1 / 255:
+                    continue
+                c += a * tr_ * r[6:9]
+                tr_ *= 1 - a
+            want[t * 256 + p, :3] = c + tr_ * bg
+            want[t * 256 + p, 3] = tr_
+    # fp32 cumprod vs a float64 sequential loop
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_composite_cpu_tensor_runs_plain_version():
+    """CPU tensors take the plain version and launch no kernel."""
+    counts = torch.zeros(2, dtype=torch.int32)
+    origins = torch.zeros(2, 2, dtype=torch.int32)
+    rows = torch.zeros(2 * 4, 9)
+    bg = torch.zeros(3)
+    before = cr.launches
+    out = cr.composite(counts, origins, rows, bg)
+    assert out.shape == (512, 4) and cr.launches == before
+    assert tr.default_rasterizer(rows) == "torch"
