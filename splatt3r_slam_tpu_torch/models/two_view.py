@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from splatt3r_slam_tpu_torch.models.heads import GaussianHead
 from splatt3r_slam_tpu_torch.models.layers import (
@@ -42,7 +43,10 @@ class TwoViewConfig(NamedTuple):
     rope_freq: float = 100.0
     dtype: str = "bfloat16"  # transformer compute dtype
     head_dtype: str = "bfloat16"  # DPT/MLP head trunk compute dtype
-    remat: bool = False  # training-only knob of the JAX package; unused
+    # recompute each encoder/decoder block on the backward pass instead of
+    # storing its activations (torch.utils.checkpoint); only takes effect
+    # where a block's parameters train, so inference is unaffected
+    remat: bool = False
     head_feature_dim: int = 256
     head_layer_dims: tuple = (96, 192, 384, 768)
     head_last_dim: int = 128
@@ -93,6 +97,13 @@ class Splatt3RModel(nn.Module):
         self.downstream_head1 = GaussianHead(**hkw)
         self.downstream_head2 = GaussianHead(**hkw)
 
+    def _block(self, blk, *args):
+        """Run one block, rematerialized when `cfg.remat` and it trains."""
+        if self.cfg.remat and torch.is_grad_enabled() and any(
+                p.requires_grad for p in blk.parameters()):
+            return checkpoint(blk, *args, use_reentrant=False)
+        return blk(*args)
+
     def _rope(self, pos, dim, heads):
         return rope_cos_sin(pos, dim // heads // 2, self.cfg.rope_freq)
 
@@ -103,7 +114,7 @@ class Splatt3RModel(nn.Module):
         cs = self._rope(pos, c.enc_embed_dim, c.enc_num_heads)
         x = x.to(c.tdtype)
         for blk in self.enc_blocks:
-            x = blk(x, cs)
+            x = self._block(blk, x, cs)
         return self.enc_norm(x), pos
 
     def decode(self, f1, pos1, f2, pos2):
@@ -117,7 +128,8 @@ class Splatt3RModel(nn.Module):
         h9 = 3 * c.dec_depth // 4 - 1
         keep1, keep2 = {}, {}
         for i, (b1, b2) in enumerate(zip(self.dec_blocks, self.dec_blocks2)):
-            x1, x2 = b1(x1, x2, cs1, cs2), b2(x2, x1, cs2, cs1)
+            x1, x2 = (self._block(b1, x1, x2, cs1, cs2),
+                      self._block(b2, x2, x1, cs2, cs1))
             if i in (h6, h9):
                 keep1[i], keep2[i] = x1.float(), x2.float()
         out1 = [f1, keep1[h6], keep1[h9], self.dec_norm(x1)]

@@ -1,19 +1,24 @@
-"""Hand-written CUDA tile compositor and its wrapper.
+"""Hand-written CUDA tile compositor (forward and backward) and its wrappers.
 
-Counterpart of `splatt3r_slam_tpu/splat/pallas_rasterizer.py` (forward):
-the kernel `csrc/composite.cu` replaces the TPU kernel `_composite_kernel`
-(see the note at the top of that source for what bounds it and how the
-design answers). Binning is shared with the plain compositor
-(`rasterizer.bin_tiles`); rows are packed row-major as (T·k_max, 9)
-[u v conic_a conic_b conic_c opacity r g b] — the TPU's transposed
+Counterpart of `splatt3r_slam_tpu/splat/pallas_rasterizer.py`: the kernel
+`csrc/composite.cu` replaces the TPU kernel `_composite_kernel`, and
+`csrc/composite_bwd.cu` replaces `_composite_bwd_kernel` (see the note at
+the top of each source for what bounds it and how the design answers).
+`Composite` is the `torch.autograd.Function` over the two, the counterpart
+of the JAX package's custom VJP `_composite`, so one function
+(`render_tiles_cuda`) serves rendering and the render-loss training step.
+Binning is shared with the plain compositor (`rasterizer.bin_tiles`); rows
+are packed row-major as (T·k_max, 9) [u v conic_a conic_b conic_c opacity
+r g b], and the gradient rows have the same layout — the TPU's transposed
 (16, T·k_max) layout existed only for Mosaic's (8, 128) tiling.
 
-The kernel is compiled with nvcc for sm_90a into a shared library with a
-plain C interface at first use (`build`), into `splatt3r_slam_tpu_torch/
-_build/`, and loaded with ctypes. `composite` launches it for CUDA tensors
-(and raises on failure) and runs the plain PyTorch version
-`composite_torch` for CPU tensors; there is no fallback from one to the
-other. `launches` counts kernel launches.
+Each source is compiled with nvcc for sm_90a into a shared library with a
+plain C interface at first use (`build`, one nvcc per source, started
+together), into `splatt3r_slam_tpu_torch/_build/`, and loaded with ctypes.
+`composite` / `composite_bwd` launch the kernels for CUDA tensors (and
+raise on failure) and run the plain PyTorch versions `composite_torch` /
+`composite_bwd_torch` for CPU tensors; there is no fallback from one to the
+other. `launches` and `bwd_launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import shutil
 import subprocess
 
 import torch
+from torch.autograd.function import once_differentiable
 from torch.profiler import record_function
 
 from splatt3r_slam_tpu_torch.splat.rasterizer import (
@@ -40,13 +46,19 @@ from splatt3r_slam_tpu_torch.splat.rasterizer import (
 NPIX = TILE * TILE
 ROWF = 9  # u v ca cb cc opa r g b
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-SOURCE = _PKG / "csrc" / "composite.cu"
+# kernel name → (source, C entry point, number of pointer arguments)
+KERNELS = {
+    "composite": (_PKG / "csrc" / "composite.cu", "composite_launch", 5),
+    "composite_bwd": (_PKG / "csrc" / "composite_bwd.cu",
+                      "composite_bwd_launch", 6),
+}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches = 0  # kernel launches made by `composite`
-_fn = None
+bwd_launches = 0  # kernel launches made by `composite_bwd`
+_fns: dict = {}
 
 
 def _nvcc() -> str:
@@ -57,39 +69,87 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (needs the CUDA toolkit, sm_90a)")
 
 
-def build() -> tuple[pathlib.Path, str]:
-    """Compile composite.cu (once per source hash) → (library, ptxas log)."""
-    src = SOURCE.read_bytes()
-    so = BUILD_DIR / f"libcomposite_{hashlib.sha256(src).hexdigest()[:12]}.so"
-    log = so.with_suffix(".log")
-    if so.exists():
-        return so, log.read_text() if log.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    log.write_text(r.stdout + r.stderr)
-    os.replace(tmp, so)
-    return so, r.stdout + r.stderr
+def build() -> dict:
+    """Compile every kernel source (once per source hash), one nvcc each,
+    all started together → {kernel name: (library, ptxas log)}."""
+    done, running = {}, []
+    for name, (source, _, _) in KERNELS.items():
+        digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
+        so = BUILD_DIR / f"lib{name}_{digest}.so"
+        log = so.with_suffix(".log")
+        if so.exists():
+            done[name] = (so, log.read_text() if log.exists() else "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        running.append((name, so, log, tmp, proc))
+    for name, so, log, tmp, proc in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed on {name} ({proc.returncode}):\n{stderr}")
+        log.write_text(stdout + stderr)
+        os.replace(tmp, so)
+        done[name] = (so, stdout + stderr)
+    return {name: done[name] for name in KERNELS}
 
 
-def _load():
-    global _fn
-    if _fn is None:
-        so, _ = build()
-        fn = ctypes.CDLL(str(so)).composite_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
+def _load(name: str):
+    if name not in _fns:
+        so, _ = build()[name]
+        _, entry, n_ptr = KERNELS[name]
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_int,
+                                                   ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return _fns[name]
+
+
+def _check(who, dev, specs):
+    """Raise unless every (name, tensor, dtype, shape) is a contiguous
+    tensor of that dtype and shape on `dev`."""
+    for name, t, dt, shape in specs:
+        if t.dtype != dt or tuple(t.shape) != shape or t.device != dev \
+                or not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be a contiguous {dt} "
+                             f"tensor of shape {shape} on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
+def _check_rows(who, rows, T):
+    if rows.dtype != torch.float32 or rows.dim() != 2 or \
+            rows.shape[1] != ROWF or T == 0 or rows.shape[0] % T != 0 or \
+            not rows.is_contiguous():
+        raise ValueError(f"{who}: rows must be a contiguous float32 "
+                         f"(T·k_max, {ROWF}) tensor, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    return rows.shape[0] // T
+
+
+def _alpha_terms(R, origins, counts, pix_local, kk):
+    """The compositor's per-(tile, row, pixel) terms for a slab of tiles,
+    in the kernels' own expression: (du, dv, expp, raw, alpha, live)."""
+    pix = origins[:, None, :].float() + pix_local[None]
+    du = pix[:, None, :, 0] - R[:, :, None, 0]  # (C, K, 256)
+    dv = pix[:, None, :, 1] - R[:, :, None, 1]
+    power = -0.5 * (R[:, :, None, 2] * du * du
+                    + R[:, :, None, 4] * dv * dv) \
+        - R[:, :, None, 3] * du * dv
+    expp = torch.exp(power)
+    raw = R[:, :, None, 5] * expp
+    alpha = torch.clamp(raw, max=0.99)
+    alpha = torch.where(alpha < 1.0 / 255.0, torch.zeros_like(alpha), alpha)
+    live = (kk[None, :] < counts[:, None])[:, :, None]
+    return du, dv, expp, raw, alpha * live, live
 
 
 def composite_torch(counts, origins, rows, bg, tile_chunk: int = 32):
-    """Plain PyTorch version of the kernel: per-tile exclusive cumulative
-    product over the depth axis. Same arguments and output as
+    """Plain PyTorch version of the forward kernel: per-tile exclusive
+    cumulative product over the depth axis. Same arguments and output as
     `composite`: counts (T,) int32, origins (T, 2) int32, rows
     (T·k_max, 9) f32, bg (3,) f32 → (T·256, 4) f32 [rgb + T·bg, T]."""
     T = counts.shape[0]
@@ -100,17 +160,8 @@ def composite_torch(counts, origins, rows, bg, tile_chunk: int = 32):
     out = []
     for t0 in range(0, T, tile_chunk):
         r = R[t0:t0 + tile_chunk]
-        pix = origins[t0:t0 + tile_chunk, None, :].float() + pix_local[None]
-        du = pix[:, None, :, 0] - r[:, :, None, 0]  # (C, K, 256)
-        dv = pix[:, None, :, 1] - r[:, :, None, 1]
-        power = -0.5 * (r[:, :, None, 2] * du * du
-                        + r[:, :, None, 4] * dv * dv) \
-            - r[:, :, None, 3] * du * dv
-        alpha = torch.clamp(r[:, :, None, 5] * torch.exp(power), max=0.99)
-        alpha = torch.where(alpha < 1.0 / 255.0, torch.zeros_like(alpha),
-                            alpha)
-        live = kk[None, :] < counts[t0:t0 + tile_chunk, None]
-        alpha = alpha * live[:, :, None]
+        alpha = _alpha_terms(r, origins[t0:t0 + tile_chunk],
+                             counts[t0:t0 + tile_chunk], pix_local, kk)[4]
         incl = torch.cumprod(1.0 - alpha, dim=1)
         excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
         rgb = torch.einsum("ckp,ckd->cpd", alpha * excl, r[..., 6:9])
@@ -119,30 +170,74 @@ def composite_torch(counts, origins, rows, bg, tile_chunk: int = 32):
     return torch.cat(out).reshape(T * NPIX, 4)
 
 
+def composite_bwd_torch(counts, origins, rows, gout, out,
+                        tile_chunk: int = 32):
+    """Plain PyTorch version of the backward kernel, its arithmetic written
+    out (no autograd): counts, origins, rows as `composite_torch`; gout,
+    out (T·256, 4) the output cotangent and the saved forward output →
+    grows (T·k_max, 9), zero at and beyond each tile's count.
+
+    Per pixel, with D = gout·out and front-to-back carries T_i (exclusive
+    transmittance) and A_i = Σ_{j≤i} (g_rgb·c_j)·α_j·T_j:
+    dL/dα_i = (g_rgb·c_i)·T_i − (D − A_i)/(1 − α_i), chained through
+    α = min(0.99, opacity·e^power) only where 1/255 ≤ opacity·e^power < 0.99,
+    and each row's nine partials are summed over the tile's 256 pixels."""
+    T = counts.shape[0]
+    k_max = rows.shape[0] // max(T, 1)
+    R = rows.reshape(T, k_max, ROWF)
+    G = gout.reshape(T, NPIX, 4)
+    O = out.reshape(T, NPIX, 4)
+    pix_local = _pixel_offsets(rows.device)
+    kk = torch.arange(k_max, device=rows.device)
+    grows = []
+    for t0 in range(0, T, tile_chunk):
+        r = R[t0:t0 + tile_chunk]
+        du, dv, expp, raw, alpha, live = _alpha_terms(
+            r, origins[t0:t0 + tile_chunk], counts[t0:t0 + tile_chunk],
+            pix_local, kk)
+        one_m = 1.0 - alpha
+        incl = torch.cumprod(one_m, dim=1)
+        t_excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]],
+                           dim=1)
+        w = alpha * t_excl  # (C, K, 256)
+        g = G[t0:t0 + tile_chunk]
+        g_rgb = g[..., :3]  # (C, 256, 3)
+        D = (g * O[t0:t0 + tile_chunk]).sum(-1)  # (C, 256)
+        gc = torch.einsum("cpd,ckd->ckp", g_rgb, r[..., 6:9])
+        a_incl = torch.cumsum(gc * w, dim=1)
+        d_alpha = gc * t_excl - (D[:, None, :] - a_incl) / one_m
+        active = (raw < 0.99) & (raw >= 1.0 / 255.0) & live
+        zero = torch.zeros_like(d_alpha)
+        pg = torch.where(active, d_alpha * alpha, zero)  # dL/dpower
+        ca, cb, cc = (r[:, :, None, i] for i in (2, 3, 4))
+        grows.append(torch.cat([
+            torch.stack([
+                (pg * (ca * du + cb * dv)).sum(-1),
+                (pg * (cc * dv + cb * du)).sum(-1),
+                (pg * (-0.5 * du * du)).sum(-1),
+                (pg * (-du * dv)).sum(-1),
+                (pg * (-0.5 * dv * dv)).sum(-1),
+                torch.where(active, d_alpha * expp, zero).sum(-1),
+            ], dim=-1),
+            torch.einsum("cpd,ckp->ckd", g_rgb, w),
+        ], dim=-1))  # (C, K, 9)
+    return torch.cat(grows).reshape(T * k_max, ROWF)
+
+
 def composite(counts, origins, rows, bg):
     """Tile compositor: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Arguments as `composite_torch`."""
+    version for CPU tensors. Arguments as `composite_torch`. Returns a
+    tensor with no graph; `Composite` is the differentiable form."""
     if not rows.is_cuda:
         return composite_torch(counts, origins, rows, bg)
     T = counts.shape[0]
     dev = rows.device
-    for name, t, dt, shape in (("counts", counts, torch.int32, (T,)),
-                               ("origins", origins, torch.int32, (T, 2)),
-                               ("bg", bg, torch.float32, (3,))):
-        if t.dtype != dt or tuple(t.shape) != shape or t.device != dev \
-                or not t.is_contiguous():
-            raise ValueError(f"composite: {name} must be a contiguous {dt} "
-                             f"tensor of shape {shape} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    if rows.dtype != torch.float32 or rows.dim() != 2 or \
-            rows.shape[1] != ROWF or T == 0 or rows.shape[0] % T != 0 or \
-            not rows.is_contiguous():
-        raise ValueError("composite: rows must be a contiguous float32 "
-                         f"(T·k_max, {ROWF}) tensor, got {rows.dtype} "
-                         f"{tuple(rows.shape)}")
-    k_max = rows.shape[0] // T
+    _check("composite", dev, (("counts", counts, torch.int32, (T,)),
+                              ("origins", origins, torch.int32, (T, 2)),
+                              ("bg", bg, torch.float32, (3,))))
+    k_max = _check_rows("composite", rows, T)
     out = torch.empty((T * NPIX, 4), dtype=torch.float32, device=dev)
-    fn = _load()
+    fn = _load("composite")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(counts.data_ptr(), origins.data_ptr(), rows.data_ptr(),
@@ -152,6 +247,59 @@ def composite(counts, origins, rows, bg):
     global launches
     launches += 1
     return out
+
+
+def composite_bwd(counts, origins, rows, gout, out):
+    """Backward tile compositor: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors. Arguments as `composite_bwd_torch`."""
+    if not rows.is_cuda:
+        return composite_bwd_torch(counts, origins, rows, gout, out)
+    T = counts.shape[0]
+    dev = rows.device
+    _check("composite_bwd", dev,
+           (("counts", counts, torch.int32, (T,)),
+            ("origins", origins, torch.int32, (T, 2)),
+            ("gout", gout, torch.float32, (T * NPIX, 4)),
+            ("out", out, torch.float32, (T * NPIX, 4))))
+    k_max = _check_rows("composite_bwd", rows, T)
+    # the kernel writes each tile's live rows only; the rest stay zero
+    # (through pack_rows' gather they scatter into real gaussians)
+    grows = torch.zeros_like(rows)
+    fn = _load("composite_bwd")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(counts.data_ptr(), origins.data_ptr(), rows.data_ptr(),
+                 gout.data_ptr(), out.data_ptr(), grows.data_ptr(), T, k_max,
+                 stream)
+    if err != 0:
+        raise RuntimeError(
+            f"composite_bwd kernel launch failed: cudaError {err}")
+    global bwd_launches
+    bwd_launches += 1
+    return grows
+
+
+class Composite(torch.autograd.Function):
+    """Differentiable tile compositor: `composite` forward, `composite_bwd`
+    backward. Gradients go to rows and bg; the gather that built rows and
+    the projection are left to autograd outside this boundary."""
+
+    @staticmethod
+    def forward(ctx, counts, origins, rows, bg):
+        out = composite(counts, origins, rows, bg)
+        ctx.save_for_backward(counts, origins, rows, out)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, gout):
+        counts, origins, rows, out = ctx.saved_tensors
+        # gout arrives as a view (the image's permute, column 3 untouched)
+        gout = gout.contiguous()
+        grows = composite_bwd(counts, origins, rows, gout, out)
+        # rgb += T_final·bg per pixel ⇒ d_bg = Σ_p g_rgb·T_final
+        d_bg = (gout[:, :3] * out[:, 3:4]).sum(0)
+        return None, None, grows, d_bg
 
 
 def pack_rows(means, cov_triu, colors, opa, view, K, hw, tpg_side=4,
@@ -170,14 +318,15 @@ def pack_rows(means, cov_triu, colors, opa, view, K, hw, tpg_side=4,
 
 def render_tiles_cuda(means, cov_triu, colors, opa, view, K, hw, bg=None,
                       tpg_side: int = 4, k_max: int = 512):
-    """Render (H, W, 3) through `composite`; binning as `render_tiles`."""
+    """Render (H, W, 3) through `Composite` (differentiable in means,
+    cov_triu, colors, opa and bg); binning as `render_tiles`."""
     if bg is None:
         bg = torch.zeros(3, device=means.device)
     with record_function("port.render.project_bin"):
         counts, origins, rows = pack_rows(means, cov_triu, colors, opa, view,
                                           K, hw, tpg_side, k_max)
     with record_function("port.render.composite"):
-        out = composite(counts, origins, rows,
-                        bg.to(device=means.device, dtype=torch.float32)
-                        .contiguous())
+        out = Composite.apply(counts, origins, rows,
+                              bg.to(device=means.device, dtype=torch.float32)
+                              .contiguous())
     return tiles_to_image(out[:, :3], hw)

@@ -5,10 +5,16 @@ Binning must agree exactly; the compositor's plain version
 held against the Pallas kernel in interpret mode, the XLA tile compositor
 and the brute-force oracle at the JAX package's own bars
 (tests/test_pallas_rasterizer.py: 2e-3, and 3e-3 for the multi-chunk
-tile). The CUDA kernel itself runs only on the card: chip_smoke.py holds
-it against `composite_torch` there.
+tile). The backward's plain version (`composite_bwd_torch`, what
+`Composite.backward` runs for CPU tensors) is held against the Pallas VJP
+in interpret mode, torch autograd through `composite_torch` and fp64
+finite differences, and the whole render's gradients against `jax.grad` of
+`render_tiles_pallas`, at the bar of tests/test_render_loss.py (atol
+1e-5·peak, rtol 1e-4). The CUDA kernels themselves run only on the card:
+chip_smoke.py holds them against the plain versions there.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,6 +23,7 @@ import torch
 from splatt3r_slam_tpu.splat import rasterizer as jr
 from splatt3r_slam_tpu.splat.gaussians import build_covariance as j_cov
 from splatt3r_slam_tpu.splat.gaussians import cov_to_triu as j_triu
+from splatt3r_slam_tpu.splat import pallas_rasterizer as jpal
 from splatt3r_slam_tpu.splat.pallas_rasterizer import render_tiles_pallas
 from splatt3r_slam_tpu_torch.splat import cuda_rasterizer as cr
 from splatt3r_slam_tpu_torch.splat import gaussians as tg
@@ -215,3 +222,210 @@ def test_composite_cpu_tensor_runs_plain_version():
     out = cr.composite(counts, origins, rows, bg)
     assert out.shape == (512, 4) and cr.launches == before
     assert tr.default_rasterizer(rows) == "torch"
+
+
+# -- the backward compositor ---------------------------------------------
+
+
+def _multi_chunk_scene(rng, G=400):
+    """One tile's list longer than a 128-row chunk."""
+    means = np.zeros((G, 3), np.float32)
+    means[:, 0] = rng.normal(size=G) * 0.02
+    means[:, 1] = rng.normal(size=G) * 0.02
+    means[:, 2] = np.linspace(2.0, 6.0, G)
+    covt = np.tile(np.array([1e-4, 0, 0, 1e-4, 0, 1e-4], np.float32), (G, 1))
+    return (means, covt, rng.random((G, 3)).astype(np.float32),
+            np.full((G,), 0.05, np.float32))
+
+
+def _background_scene(rng):
+    """A single gaussian behind the camera: every tile's count is 0."""
+    covt = np.array([[0.01, 0, 0, 0.01, 0, 0.01]], np.float32)
+    return (np.array([[0.0, 0.0, -1.0]], np.float32), covt,
+            np.ones((1, 3), np.float32), np.ones(1, np.float32))
+
+
+def _clamped_scene(rng, G=100):
+    """Wide, fully opaque gaussians: alpha sits on the 0.99 clamp at the
+    pixels near each centre, where the chain through alpha must stop."""
+    means, _, colors, _ = _scene(rng, G)
+    scales = (0.3 + 0.3 * rng.random((G, 3))).astype(np.float32)
+    q = rng.normal(size=(G, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    covt = np.asarray(j_triu(j_cov(jnp.asarray(scales), jnp.asarray(q))),
+                      np.float32)
+    return means, covt, colors, np.ones(G, np.float32)
+
+
+BWD_CASES = {"scene": (_scene, 256), "multi_chunk": (_multi_chunk_scene, 512),
+             "background": (_background_scene, 128),
+             "clamped": (_clamped_scene, 128)}
+
+
+def _bwd_inputs(case):
+    """(counts, origins, rows, bg, gout) for a named case; the cotangent's
+    transmittance column is non-zero."""
+    make, k_max = BWD_CASES[case]
+    rng = np.random.default_rng(0)
+    counts, origins, rows = cr.pack_rows(
+        *_t(*make(rng), VIEW, K), HW, k_max=k_max)
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    gout = torch.from_numpy(
+        rng.normal(size=(counts.shape[0] * 256, 4)).astype(np.float32))
+    return counts, origins, rows, bg, gout
+
+
+def _assert_grad_close(got, want, name):
+    """The bar of tests/test_render_loss.py: fp32 on both sides, sums in
+    another order."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert np.isfinite(got).all(), name
+    np.testing.assert_allclose(
+        got, want, atol=1e-5 * (np.abs(want).max() + 1e-8), rtol=1e-4,
+        err_msg=f"gradient mismatch for {name}")
+
+
+COLS = ("u", "v", "conic_a", "conic_b", "conic_c", "opacity", "r", "g", "b")
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_composite_bwd_matches_pallas_vjp(case):
+    """Plain backward == the Pallas VJP (`_composite_bwd_kernel` in
+    interpret mode) on the transposed rows, column by column, and the
+    tensor-code d_bg."""
+    counts, origins, rows, bg, gout = _bwd_inputs(case)
+    T = counts.shape[0]
+    k_max = rows.shape[0] // T
+    rows_t = np.zeros((jpal.ROWF, T * k_max), np.float32)
+    rows_t[:9] = rows.numpy().T
+    j_out, vjp = jax.vjp(
+        lambda r, b: jpal._composite(T, k_max // jpal.CHUNK, True,
+                                   jnp.asarray(counts.numpy()),
+                                   jnp.asarray(origins.numpy()), r, b),
+        jnp.asarray(rows_t), jnp.asarray(bg.numpy()).reshape(1, 3))
+    j_grows, j_dbg = vjp(jnp.asarray(gout.numpy()))
+    out = cr.composite_torch(counts, origins, rows, bg)
+    # forward first: the compositor bar of tests/test_pallas_rasterizer.py
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=2e-3)
+    grows = cr.composite_bwd(counts, origins, rows, gout, out)
+    assert grows.shape == rows.shape
+    if case == "background":
+        assert int(counts.sum()) == 0 and not grows.any()
+    if case == "clamped":
+        raw, live = cr._alpha_terms(
+            rows.reshape(T, k_max, 9), origins, counts,
+            tr._pixel_offsets("cpu"), torch.arange(k_max))[3::2]
+        assert int(((raw >= 0.99) & live).sum()) > 100
+    for i, name in enumerate(COLS):
+        _assert_grad_close(grows[:, i], np.asarray(j_grows)[i], name)
+    assert not np.asarray(j_grows)[9:].any()
+    d_bg = (gout[:, :3] * out[:, 3:4]).sum(0)
+    _assert_grad_close(d_bg, np.asarray(j_dbg).reshape(3), "bg")
+
+
+@pytest.mark.parametrize("case", list(BWD_CASES))
+def test_composite_bwd_matches_torch_autograd(case):
+    """Plain backward == torch autograd through `composite_torch`, and
+    `Composite` (what training runs) returns exactly the plain backward."""
+    counts, origins, rows, bg, gout = _bwd_inputs(case)
+    r1 = rows.clone().requires_grad_()
+    b1 = bg.clone().requires_grad_()
+    out = cr.composite_torch(counts, origins, r1, b1)
+    (out * gout).sum().backward()
+    grows = cr.composite_bwd_torch(counts, origins, rows, gout, out.detach())
+    for i, name in enumerate(COLS):
+        _assert_grad_close(grows[:, i], r1.grad[:, i], name)
+    # rows at and beyond each tile's count get exactly nothing
+    k_max = rows.shape[0] // counts.shape[0]
+    dead = (torch.arange(k_max)[None] >= counts[:, None]).reshape(-1)
+    assert not grows[dead].any()
+
+    r2 = rows.clone().requires_grad_()
+    b2 = bg.clone().requires_grad_()
+    before = (cr.launches, cr.bwd_launches)
+    (cr.Composite.apply(counts, origins, r2, b2) * gout).sum().backward()
+    assert (cr.launches, cr.bwd_launches) == before  # CPU: plain versions
+    assert torch.equal(r2.grad, grows)
+    _assert_grad_close(b2.grad, b1.grad, "bg")
+
+
+def test_composite_bwd_finite_differences_fp64():
+    """fp64 central differences on a tiny tile where no alpha sits at a
+    cut (every raw alpha in (0.02, 0.9): clear of 1/255 and of 0.99)."""
+    rng = np.random.default_rng(2)
+    T, k_max = 2, 6
+    rows = np.zeros((T * k_max, 9))
+    rows[:, 0:2] = 4 + 8 * rng.random((T * k_max, 2))
+    rows[:, 2] = rows[:, 4] = 0.004 + 0.004 * rng.random(T * k_max)
+    rows[:, 3] = 0.001 * rng.normal(size=T * k_max)
+    rows[:, 5] = 0.3 + 0.6 * rng.random(T * k_max)
+    rows[:, 6:9] = rng.random((T * k_max, 3))
+    counts = torch.tensor([6, 4], dtype=torch.int32)
+    origins = torch.tensor([[0, 0], [0, 0]], dtype=torch.int32)
+    rows = torch.from_numpy(rows)
+    bg = torch.tensor([0.2, 0.4, 0.6], dtype=torch.float64)
+    gout = torch.from_numpy(rng.normal(size=(T * 256, 4)))
+    out = cr.composite_torch(counts, origins, rows, bg)
+    assert out.dtype == torch.float64
+    grows = cr.composite_bwd_torch(counts, origins, rows, gout, out)
+    live = (torch.arange(k_max)[None] < counts[:, None]).reshape(-1)
+    eps = 1e-6
+    for idx in np.flatnonzero(live.numpy()):
+        for col in range(9):
+            d = torch.zeros_like(rows)
+            d[idx, col] = eps
+            hi = (cr.composite_torch(counts, origins, rows + d, bg)
+                  * gout).sum()
+            lo = (cr.composite_torch(counts, origins, rows - d, bg)
+                  * gout).sum()
+            fd = float(hi - lo) / (2 * eps)
+            # fp64 central difference: truncation error ~eps²
+            assert abs(fd - float(grows[idx, col])) <= 1e-6 * max(
+                1.0, abs(fd)), (idx, COLS[col], fd, float(grows[idx, col]))
+    assert not grows[~live].any()
+
+
+def test_render_gradients_match_pallas_and_autograd(rng):
+    """d(means, cov_triu, colors, opa, bg) of sum(render·cot): the port's
+    `render_tiles_cuda` on CPU tensors (`Composite` with its plain forward
+    and backward) against `jax.grad` of `render_tiles_pallas` in interpret
+    mode, and against torch autograd through the port's `render_tiles`.
+    k_max=256 runs the cross-chunk carries."""
+    means, covt, colors, opa = _scene(rng)
+    cot = rng.normal(size=(64, 64, 3)).astype(np.float32)
+    bg = np.array([0.1, 0.2, 0.3], np.float32)
+
+    def loss_p(m, c, col, o, b):
+        return jnp.sum(render_tiles_pallas(
+            m, c, col, o, jnp.asarray(VIEW), jnp.asarray(K), HW, b,
+            k_max=256, interpret=True) * jnp.asarray(cot))
+
+    want = jax.grad(loss_p, argnums=(0, 1, 2, 3, 4))(
+        *_j(means, covt, colors, opa, bg))
+
+    def port_grads(fn):
+        ins = [t.requires_grad_() for t in _t(means, covt, colors, opa, bg)]
+        img = fn(*ins[:4], *_t(VIEW, K), HW, ins[4], k_max=256)
+        (img * torch.from_numpy(cot)).sum().backward()
+        return [t.grad for t in ins]
+
+    got = port_grads(cr.render_tiles_cuda)
+    ref = port_grads(tr.render_tiles)
+    for name, g, w, r in zip(["means", "cov", "colors", "opa", "bg"], got,
+                             want, ref):
+        _assert_grad_close(g, w, name + " (vs pallas)")
+        _assert_grad_close(g, r, name + " (vs render_tiles autograd)")
+
+
+def test_composite_bwd_cpu_tensor_runs_plain_version():
+    """CPU tensors take the plain backward and launch no kernel; the
+    result is zero where no row is live."""
+    counts = torch.zeros(2, dtype=torch.int32)
+    origins = torch.zeros(2, 2, dtype=torch.int32)
+    rows = torch.rand(2 * 4, 9)
+    gout = torch.rand(512, 4)
+    out = cr.composite(counts, origins, rows, torch.zeros(3))
+    before = cr.bwd_launches
+    grows = cr.composite_bwd(counts, origins, rows, gout, out)
+    assert grows.shape == rows.shape and cr.bwd_launches == before
+    assert not grows.any()
