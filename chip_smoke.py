@@ -1,20 +1,23 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100, sm_90a).
 
-    python3 chip_smoke.py [--out results.json]
+    python3 chip_smoke.py [--out results.json] [--parent DIR]
 
 Phases, each printing one line of its own; any failure exits non-zero:
 
 1. build   — compile splatt3r_slam_tpu_torch/csrc/composite.cu and
-             composite_bwd.cu with nvcc (sm_90a) from this checkout, one
-             nvcc each, started together; print the build seconds and what
-             ptxas says of each kernel's registers and spills;
+             composite_bwd.cu (both include composite_common.cuh) with nvcc
+             (sm_90a) from this checkout, one nvcc each, started together;
+             print the build seconds and what ptxas says of each kernel's
+             registers, shared memory and spills;
 2. kernel  — hold the tile compositor against its plain PyTorch version
              (`composite_torch`) at the production shape (393,216 gaussians,
              384x512, tpg_side=4, k_max=512), on a tile list longer than one
-             chunk and on the background-only case, within 1e-4 (both fp32;
-             they differ only in summation order); time both with CUDA
-             events and compute the kernel's bound from this scene's counts;
+             chunk, on the background-only case, on tiles whose counts sit
+             on the chunk and ring boundaries (0, 1, 127, 128, 129, k_max)
+             and on a k_max that is no multiple of 4 (30), within 1e-4 (both
+             fp32; they differ only in summation order); time the kernel
+             and compute its bound from this scene's counts;
    kernel-bwd — hold the backward compositor against its plain version
              (`composite_bwd_torch`) at the production shape, at the
              training shape (196,608 gaussians, 256x384, k_max=256), on the
@@ -25,7 +28,11 @@ Phases, each printing one line of its own; any failure exits non-zero:
              that column's largest entry (both fp32; they differ in
              summation order, and (D - A)/(1 - alpha) cancels for deep
              rows, so the error over the rows at depth 384-511 of capped
-             tiles is reported on its own); time both, bound as above;
+             tiles is reported on its own); the boundary counts and the
+             unaligned k_max as above; in every case exact zeros in the
+             rows at and beyond each tile's count, although the wrapper
+             hands the kernel uninitialised memory, and the same bits from
+             two runs; time both, bound as above;
 3. slice   — the port's serving path at full width: TwoViewConfig() defaults
              (ViT-L encoder, 768x12 decoder, 256-wide DPT, bf16 trunk and
              heads) with seeded random weights, config/base.yaml defaults,
@@ -50,6 +57,20 @@ Phases, each printing one line of its own; any failure exits non-zero:
              versions, timed, on that step's own rows;
 5. device  — the card's name and power limit (nvidia-smi);
 then one JSON line with the kernel table and, last, the ok/device line.
+
+With `--parent DIR` it also builds the `composite.cu` and `composite_bwd.cu`
+found in DIR (an earlier commit's sources, e.g. written there with `git show
+REV:path`; same C entry points) and, after phase 2, times them in turns
+with this checkout's kernels at the production and the training shape, on
+the device alone, median of 7 rounds (`[compare]`). The earlier backward
+wrote live rows only, so it is timed with the memset it needs.
+
+Times. A kernel's `ms` is its time on the device alone: 20 launches enqueued
+back to back behind a device-side delay, so that the host is ahead of the
+card, between two CUDA events, divided by 20 (`device_ms`). Its `call_ms`
+is one isolated call on an empty queue with the Python wrapper included,
+which is what a main path with a few rows a tile pays. Plain versions are
+timed per call.
 
 Precision: torch.backends.cuda.matmul.allow_tf32 and
 torch.backends.cudnn.allow_tf32 are both set False, so fp32 matmuls and
@@ -95,10 +116,34 @@ ROW_BYTES = 9 * 4
 TRAIN_HW = (256, 384)
 TRAIN_STEPS = 3
 BWD_TOL = 1e-4  # of each gradient column's largest entry
+SLEEP_CYCLES = 3_000_000  # about 1.7 ms at 1.75 GHz
 
 
-def _events_ms(fn, reps, torch):
-    """Median per-call device time over `reps` calls (CUDA events)."""
+def device_ms(fn, torch, launches: int = 20, groups: int = 5) -> float:
+    """Device time of one `fn()`: `launches` calls enqueued back to back
+    behind a device-side delay, so the host runs ahead of the card and the
+    two events bracket the card's work alone; median over `groups`."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(groups):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(SLEEP_CYCLES)
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / launches)
+    return statistics.median(times)
+
+
+def call_ms(fn, torch, reps: int = 30) -> float:
+    """Time of one isolated call of `fn()`, Python wrapper included, on an
+    empty queue (CUDA events around one call, then a synchronise): what a
+    caller with little device work pays. Median over `reps`."""
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
@@ -109,6 +154,93 @@ def _events_ms(fn, reps, torch):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def seeded_scene(torch, hw, seed: int, layers: int = 2):
+    """Seeded scene: `layers` pointmap layers of H·W gaussians in front of a
+    max(H, W)-focal camera (what render_frame draws per frame, and what a
+    training render draws per view) → (means, scales, quats, colors, opa)."""
+    H, W = hw
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    G = layers * H * W
+    v, u = torch.meshgrid(torch.arange(H, device="cuda"),
+                          torch.arange(W, device="cuda"), indexing="ij")
+    uv = torch.stack([u, v], -1).reshape(-1, 2).float().repeat(layers, 1)
+    z = 1.0 + 2.0 * torch.rand(G, device="cuda", generator=g)
+    f = float(max(H, W))
+    means = torch.stack([(uv[:, 0] + 0.5 - W / 2) * z / f,
+                         (uv[:, 1] + 0.5 - H / 2) * z / f, z], -1)
+    scales = (0.5 + 2.0 * torch.rand(G, 3, device="cuda",
+                                     generator=g)) * (z / f)[:, None]
+    q = torch.randn(G, 4, device="cuda", generator=g)
+    q = q / q.norm(dim=-1, keepdim=True)
+    colors = torch.rand(G, 3, device="cuda", generator=g)
+    opa = 0.3 + 0.7 * torch.rand(G, device="cuda", generator=g)
+    return means, scales, q, colors, opa
+
+
+def bwd_errors(grows, want):
+    """(largest |grows - want| over a column's largest |want|, largest
+    absolute error): the backward's tolerance is per gradient column."""
+    err = (grows - want).abs().amax(0)
+    peak = want.abs().amax(0).clamp_min(1e-30)
+    return float((err / peak).max()), float(err.max())
+
+
+def _compare_with_parent(torch, cr, parent, shapes, bg, rounds=7):
+    """Build the two sources found in `parent` and time them in turns with
+    this checkout's kernels on `shapes` {name: (counts, origins, rows, gout,
+    out)} → {kernel: {shape: (parent ms, this checkout's ms)}}, each the
+    median over `rounds` of a device-only time of 20 launches."""
+    old = {}
+    for name, (source, _, _) in cr.KERNELS.items():
+        so = cr.BUILD_DIR / f"libparent_{name}.so"
+        cr.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([cr._nvcc(), *cr.NVCC_FLAGS, "-o", str(so),
+                        os.path.join(parent, source.name)], check=True,
+                       capture_output=True, timeout=600)
+        old[name] = cr._entry(so, name)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def pair(cnt, org, rw, gout, out):
+        """((earlier forward, this forward), (earlier backward, this
+        backward)) on one shape, each a function that enqueues one run."""
+        T, k_max = cnt.shape[0], rw.shape[0] // cnt.shape[0]
+        o_buf, g_buf = torch.empty_like(out), torch.empty_like(rw)
+
+        def old_fwd():
+            assert old["composite"](
+                cnt.data_ptr(), org.data_ptr(), rw.data_ptr(), bg.data_ptr(),
+                o_buf.data_ptr(), T, k_max, stream) == 0
+
+        def old_bwd():
+            g_buf.zero_()  # the earlier kernel writes live rows only
+            assert old["composite_bwd"](
+                cnt.data_ptr(), org.data_ptr(), rw.data_ptr(),
+                gout.data_ptr(), out.data_ptr(), g_buf.data_ptr(), T, k_max,
+                stream) == 0
+
+        old_fwd(), old_bwd()
+        assert float((o_buf - out).abs().max()) <= TOL
+        assert bwd_errors(g_buf, cr.composite_bwd(cnt, org, rw, gout,
+                                                  out))[0] <= BWD_TOL
+        return ((old_fwd, lambda: cr.composite(cnt, org, rw, bg)),
+                (old_bwd, lambda: cr.composite_bwd(cnt, org, rw, gout, out)))
+
+    runs = {}
+    for shape, tensors in shapes.items():
+        runs["composite", shape], runs["composite_bwd", shape] = \
+            pair(*tensors)
+    samples = {key: ([], []) for key in runs}
+    for _ in range(rounds):
+        for key, fns in runs.items():
+            for got, fn in zip(samples[key], fns):
+                got.append(device_ms(fn, torch, groups=1))
+    found: dict = {}
+    for (name, shape), got in samples.items():
+        found.setdefault(name, {})[shape] = tuple(
+            statistics.median(x) for x in got)
+    return found
 
 
 def _bound_ms(counts):
@@ -138,14 +270,6 @@ def _bound_bwd_ms(counts):
         / PEAK_BYTES * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                  else "bytes")
-
-
-def _bwd_errors(grows, want):
-    """(largest |grows - want| over a column's largest |want|, largest
-    absolute error): the backward's tolerance is per gradient column."""
-    err = (grows - want).abs().amax(0)
-    peak = want.abs().amax(0).clamp_min(1e-30)
-    return float((err / peak).max()), float(err.max())
 
 
 def _profile_frame(torch, run_frame):
@@ -180,33 +304,38 @@ def _profile_frame(torch, run_frame):
     return wall_ms, kernels, spans
 
 
-def _scene(torch, hw, seed):
-    """Seeded production-size scene: two pointmap layers of H·W gaussians
-    in front of a max(H, W)-focal camera (what render_frame draws per
-    frame, and what a training render draws per view)."""
-    H, W = hw
+def _boundary_tiles(torch, counts, k_max, seed):
+    """Tiles with the given counts and seeded random rows inside each tile
+    (rows at and beyond a count hold values too: the kernels must not read
+    them) → (counts, origins, rows)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    G = 2 * H * W
-    v, u = torch.meshgrid(torch.arange(H, device="cuda"),
-                          torch.arange(W, device="cuda"), indexing="ij")
-    uv = torch.stack([u, v], -1).reshape(-1, 2).float().repeat(2, 1)
-    z = 1.0 + 2.0 * torch.rand(G, device="cuda", generator=g)
-    f = float(max(H, W))
-    means = torch.stack([(uv[:, 0] + 0.5 - W / 2) * z / f,
-                         (uv[:, 1] + 0.5 - H / 2) * z / f, z], -1)
-    scales = (0.5 + 2.0 * torch.rand(G, 3, device="cuda", generator=g)) \
-        * (z / f)[:, None]
-    q = torch.randn(G, 4, device="cuda", generator=g)
-    q = q / q.norm(dim=-1, keepdim=True)
-    colors = torch.rand(G, 3, device="cuda", generator=g)
-    opa = 0.3 + 0.7 * torch.rand(G, device="cuda", generator=g)
-    return means, scales, q, colors, opa
+    T = len(counts)
+    n = T * k_max
+
+    def rand(*shape):
+        return torch.rand(*shape, device="cuda", generator=g)
+
+    origins = torch.tensor([[16 * (t % 3), 16 * (t // 3)] for t in range(T)],
+                           dtype=torch.int32, device="cuda")
+    rows = torch.empty(n, 9, device="cuda")
+    rows[:, 0:2] = (origins.float().repeat_interleave(k_max, 0)
+                    + 16 * rand(n, 2))
+    rows[:, 2] = 0.05 + 0.2 * rand(n)
+    rows[:, 4] = 0.05 + 0.2 * rand(n)
+    rows[:, 3] = 0.01 * (rand(n) - 0.5)
+    rows[:, 5] = 0.3 * rand(n)
+    rows[:, 6:9] = rand(n, 3)
+    return (torch.tensor(counts, dtype=torch.int32, device="cuda"), origins,
+            rows)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="also write the results as JSON to this path")
+    ap.add_argument("--parent", default=None,
+                    help="directory with an earlier composite.cu and "
+                         "composite_bwd.cu to time beside this checkout's")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -242,11 +371,15 @@ def main(argv=None) -> int:
     built = cr.build()
     build_s = time.perf_counter() - t0
     assert set(built) == {"composite", "composite_bwd"}, sorted(built)
+    for source, _, _ in cr.KERNELS.values():
+        assert '#include "composite_common.cuh"' in source.read_text(), source
     print(f"[build] {build_s:.2f} s | " + " | ".join(
         f"{os.path.relpath(so, root)}: " + " ".join(
             ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln)
         for so, log in built.values()))
+    assert all("0 bytes spill stores, 0 bytes spill loads" in log
+               for _, log in built.values()), "a kernel spills registers"
     results["build_s"] = build_s
 
     # -- 2. kernel against its plain version --------------------------------
@@ -255,7 +388,7 @@ def main(argv=None) -> int:
     K = torch.tensor([[512.0, 0, W / 2], [0, 512.0, H / 2], [0, 0, 1]],
                      device="cuda")
     view = torch.eye(4, device="cuda")
-    means, scales, q, colors, opa = _scene(torch, (H, W), seed=0)
+    means, scales, q, colors, opa = seeded_scene(torch, (H, W), seed=0)
     covt = cov_to_triu(build_covariance(scales, q))
     counts, origins, rows = cr.pack_rows(means, covt, colors, opa, view, K,
                                          (H, W), tpg_side=4, k_max=512)
@@ -292,22 +425,39 @@ def main(argv=None) -> int:
         extra_err = max(extra_err, float((a - b).abs().max()))
     assert int(cnt.sum()) == 0, "background case should bin no gaussians"
     assert extra_err <= TOL, f"multi-chunk/background max-abs {extra_err}"
+    # counts on the chunk and ring boundaries, and a k_max that is no
+    # multiple of 4 (its tiles' rows are not 16-byte aligned)
+    edges = [_boundary_tiles(torch, [0, 1, 127, 128, 129, 256], 256, seed=5),
+             _boundary_tiles(torch, [0, 1, 29, 30, 17, 30], 30, seed=6)]
+    edge_err = 0.0
+    for cnt, org, rw in edges:
+        a = cr.composite(cnt, org, rw, bg)
+        b = cr.composite_torch(cnt, org, rw, bg)
+        edge_err = max(edge_err, float((a - b).abs().max()))
+        assert bool((a[:256] == torch.cat([bg, bg.new_ones(1)])).all()), \
+            "an empty tile is not the background"
+    assert edge_err <= TOL, f"boundary counts/unaligned k_max {edge_err}"
 
-    ms = _events_ms(lambda: cr.composite(counts, origins, rows, bg), 30,
-                    torch)
-    plain_ms = _events_ms(
-        lambda: cr.composite_torch(counts, origins, rows, bg), 5, torch)
+    ms = device_ms(lambda: cr.composite(counts, origins, rows, bg), torch)
+    fwd_call_ms = call_ms(lambda: cr.composite(counts, origins, rows, bg),
+                          torch)
+    plain_ms = call_ms(
+        lambda: cr.composite_torch(counts, origins, rows, bg), torch, 5)
     n_rows = int(counts.sum())
     T = counts.shape[0]
     pairs = n_rows * 256
     bound_ms, bound_by = _bound_ms(counts)
     print(f"[kernel] composite_kernel max_abs_err {err:.3e} (production), "
-          f"{extra_err:.3e} (multi-chunk + background), tol {TOL:g} | "
-          f"{ms:.4f} ms (median of 30) vs plain {plain_ms:.3f} ms | "
+          f"{extra_err:.3e} (multi-chunk + background), {edge_err:.3e} "
+          f"(counts 0/1/127/128/129/k_max, and k_max 30), tol {TOL:g} | "
+          f"{ms:.4f} ms on the device (20 launches back to back, median of "
+          f"5), call_ms {fwd_call_ms:.4f} (one isolated call, wrapper "
+          f"included) vs plain {plain_ms:.3f} ms | "
           f"bound {bound_ms:.4f} ms by {bound_by} ({n_rows} rows, "
           f"{pairs} pairs, mean count {n_rows / T:.1f}, "
           f"{int((counts == 512).sum())}/{T} tiles at the cap)")
-    results["kernel"] = dict(max_abs_err=err, extra_err=extra_err, ms=ms,
+    results["kernel"] = dict(max_abs_err=err, extra_err=extra_err,
+                             edge_err=edge_err, ms=ms, call_ms=fwd_call_ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, rows=n_rows, tiles=T)
 
@@ -321,40 +471,58 @@ def main(argv=None) -> int:
         gk = cr.composite_bwd(cnt, org, rw, gout, out)
         torch.cuda.synchronize()
         assert torch.isfinite(gk).all(), "backward kernel output not finite"
+        k_max = rw.shape[0] // cnt.shape[0]
+        dead = (torch.arange(k_max, device="cuda")[None]
+                >= cnt[:, None]).reshape(-1)
+        assert not bool(gk[dead].any()), \
+            "gradient in rows at or beyond a tile's count"
+        # the wrapper hands the kernel uninitialised memory: a second run,
+        # launched as the wrapper launches it but into memory filled with
+        # NaN, must write every row and give the same bits
+        again = torch.full_like(rw, float("nan"))
+        cr._launch("composite_bwd", rw.device, cnt.data_ptr(),
+                   org.data_ptr(), rw.data_ptr(), gout.data_ptr(),
+                   out.data_ptr(), again.data_ptr(), cnt.shape[0], k_max)
+        assert torch.equal(gk, again), \
+            "two runs of the backward kernel differ, or a row is not written"
         return gout, out, gk, cr.composite_bwd_torch(cnt, org, rw, gout, out)
 
     gout, out_k, gk, gp = bwd_case(counts, origins, rows, 10)
-    bwd_rel, bwd_abs = _bwd_errors(gk, gp)
+    bwd_rel, bwd_abs = bwd_errors(gk, gp)
     # the deep rows of capped tiles, where (D - A)/(1 - alpha) cancels most
     deep = ((counts == 512)[:, None]
             & (torch.arange(512, device="cuda") >= 384)[None]).reshape(-1)
     assert bool(deep.any()), "no tile at the cap in the production scene"
     deep_rel = float(((gk - gp)[deep].abs().amax(0)
                       / gp.abs().amax(0).clamp_min(1e-30)).max())
-    dead = (torch.arange(512, device="cuda")[None]
-            >= counts[:, None]).reshape(-1)
-    assert not bool(gk[dead].any()), "gradient in rows beyond a tile's count"
     assert bwd_rel <= BWD_TOL, f"backward kernel vs plain {bwd_rel} (cap)"
 
     # the training shape: one view's render of two 256x384 pointmap layers
     Kt = torch.tensor([[384.0, 0, TRAIN_HW[1] / 2],
                        [0, 384.0, TRAIN_HW[0] / 2], [0, 0, 1]], device="cuda")
-    tm, ts, tq, tc, to = _scene(torch, TRAIN_HW, seed=2)
+    tm, ts, tq, tc, to = seeded_scene(torch, TRAIN_HW, seed=2)
     t_cnt, t_org, t_rows = cr.pack_rows(
         tm, cov_to_triu(build_covariance(ts, tq)), tc, to, view, Kt,
         TRAIN_HW, tpg_side=4, k_max=256)
     t_gout, t_out, t_gk, t_gp = bwd_case(t_cnt, t_org, t_rows, 11)
-    train_rel, train_abs = _bwd_errors(t_gk, t_gp)
+    train_rel, train_abs = bwd_errors(t_gk, t_gp)
     assert train_rel <= BWD_TOL, f"backward kernel vs plain {train_rel} " \
         "(training shape)"
 
     small_rel = small_abs = 0.0
     for i, (cnt, org, rw) in enumerate(small):
         s_gout, _, s_gk, s_gp = bwd_case(cnt, org, rw, 12 + i)
-        rel, ab = _bwd_errors(s_gk, s_gp)
+        rel, ab = bwd_errors(s_gk, s_gp)
         small_rel, small_abs = max(small_rel, rel), max(small_abs, ab)
     assert not bool(s_gk.any()), "background-only case has a gradient"
     assert small_rel <= BWD_TOL, f"multi-chunk/background backward {small_rel}"
+    edge_rel = edge_abs = 0.0
+    for i, (cnt, org, rw) in enumerate(edges):
+        _, _, e_gk, e_gp = bwd_case(cnt, org, rw, 20 + i)
+        rel, ab = bwd_errors(e_gk, e_gp)
+        edge_rel, edge_abs = max(edge_rel, rel), max(edge_abs, ab)
+    assert edge_rel <= BWD_TOL, \
+        f"boundary counts/unaligned k_max backward {edge_rel}"
     # and against torch autograd through the plain forward, on the
     # multi-chunk scene (small enough for the plain version's graph), with
     # d_bg as `Composite` takes it
@@ -369,53 +537,80 @@ def main(argv=None) -> int:
                          .manual_seed(14))
     (out_a * a_gout).sum().backward()
     (cr.Composite.apply(cnt, org, rw_k, bg_k) * a_gout).sum().backward()
-    auto_rel, _ = _bwd_errors(rw_k.grad, rw_a.grad)
+    auto_rel, _ = bwd_errors(rw_k.grad, rw_a.grad)
     auto_bg = float((bg_k.grad - bg_a.grad).abs().max()
                     / bg_a.grad.abs().max())
     assert auto_rel <= BWD_TOL and auto_bg <= BWD_TOL, \
         f"Composite vs autograd: rows {auto_rel}, bg {auto_bg}"
 
-    bwd_ms = _events_ms(
-        lambda: cr.composite_bwd(counts, origins, rows, gout, out_k), 30,
-        torch)
-    bwd_plain_ms = _events_ms(
-        lambda: cr.composite_bwd_torch(counts, origins, rows, gout, out_k), 3,
-        torch)
+    def run_bwd():
+        return cr.composite_bwd(counts, origins, rows, gout, out_k)
+
+    def run_t_fwd():
+        return cr.composite(t_cnt, t_org, t_rows, bg)
+
+    def run_t_bwd():
+        return cr.composite_bwd(t_cnt, t_org, t_rows, t_gout, t_out)
+
+    bwd_ms = device_ms(run_bwd, torch)
+    bwd_call_ms = call_ms(run_bwd, torch)
+    bwd_plain_ms = call_ms(
+        lambda: cr.composite_bwd_torch(counts, origins, rows, gout, out_k),
+        torch, 3)
     bwd_bound_ms, bwd_bound_by = _bound_bwd_ms(counts)
-    t_fwd_ms = _events_ms(lambda: cr.composite(t_cnt, t_org, t_rows, bg), 30,
-                          torch)
-    t_bwd_ms = _events_ms(
-        lambda: cr.composite_bwd(t_cnt, t_org, t_rows, t_gout, t_out), 30,
-        torch)
-    t_bwd_plain_ms = _events_ms(
+    t_fwd_ms = device_ms(run_t_fwd, torch)
+    t_fwd_call_ms = call_ms(run_t_fwd, torch)
+    t_bwd_ms = device_ms(run_t_bwd, torch)
+    t_bwd_call_ms = call_ms(run_t_bwd, torch)
+    t_bwd_plain_ms = call_ms(
         lambda: cr.composite_bwd_torch(t_cnt, t_org, t_rows, t_gout, t_out),
-        3, torch)
+        torch, 3)
     t_bwd_bound_ms, t_bwd_bound_by = _bound_bwd_ms(t_cnt)
     t_fwd_bound_ms, _ = _bound_ms(t_cnt)
     print(f"[kernel-bwd] composite_bwd_kernel max error / column peak "
           f"{bwd_rel:.3e} (production; {deep_rel:.3e} over rows 384-511 of "
           f"the {int((counts == 512).sum())} capped tiles), {train_rel:.3e} "
           f"(training shape), {small_rel:.3e} (multi-chunk + background), "
+          f"{edge_rel:.3e} (counts 0/1/127/128/129/k_max, and k_max 30), "
           f"{auto_rel:.3e} rows / {auto_bg:.3e} bg (Composite vs autograd "
-          f"through composite_torch), tol {BWD_TOL:g} | at the cap "
-          f"{bwd_ms:.4f} ms (median of 30) vs plain {bwd_plain_ms:.3f} ms, "
+          f"through composite_torch), tol {BWD_TOL:g}; rows at and beyond "
+          f"each count exactly 0 and two runs bit-identical in every case | "
+          f"at the cap {bwd_ms:.4f} ms on the device, call_ms "
+          f"{bwd_call_ms:.4f} vs plain {bwd_plain_ms:.3f} ms, "
           f"bound {bwd_bound_ms:.4f} ms by {bwd_bound_by} | training shape "
           f"({int(t_cnt.sum())} rows, mean count "
           f"{float(t_cnt.float().mean()):.1f}, "
           f"{int((t_cnt == 256).sum())}/{t_cnt.shape[0]} tiles at the cap) "
-          f"{t_bwd_ms:.4f} ms vs plain {t_bwd_plain_ms:.3f} ms, bound "
-          f"{t_bwd_bound_ms:.4f} ms by {t_bwd_bound_by}; forward there "
-          f"{t_fwd_ms:.4f} ms, bound {t_fwd_bound_ms:.4f} ms")
+          f"{t_bwd_ms:.4f} ms on the device, call_ms {t_bwd_call_ms:.4f} vs "
+          f"plain {t_bwd_plain_ms:.3f} ms, bound {t_bwd_bound_ms:.4f} ms by "
+          f"{t_bwd_bound_by}; forward there {t_fwd_ms:.4f} ms on the device, "
+          f"call_ms {t_fwd_call_ms:.4f}, bound {t_fwd_bound_ms:.4f} ms")
     results["kernel_bwd"] = dict(
         rel_err=bwd_rel, abs_err=bwd_abs, deep_rel_err=deep_rel,
         train_rel_err=train_rel, train_abs_err=train_abs,
-        small_rel_err=small_rel, autograd_rel_err=auto_rel,
-        autograd_bg_rel_err=auto_bg, ms=bwd_ms, plain_ms=bwd_plain_ms,
+        small_rel_err=small_rel, edge_rel_err=edge_rel,
+        autograd_rel_err=auto_rel, autograd_bg_rel_err=auto_bg, ms=bwd_ms,
+        call_ms=bwd_call_ms, plain_ms=bwd_plain_ms,
         bound_ms=bwd_bound_ms, bound_by=bwd_bound_by,
         train_shape=dict(rows=int(t_cnt.sum()), tiles=t_cnt.shape[0],
-                         ms=t_bwd_ms, plain_ms=t_bwd_plain_ms,
+                         ms=t_bwd_ms, call_ms=t_bwd_call_ms,
+                         plain_ms=t_bwd_plain_ms,
                          bound_ms=t_bwd_bound_ms, bound_by=t_bwd_bound_by,
-                         fwd_ms=t_fwd_ms, fwd_bound_ms=t_fwd_bound_ms))
+                         fwd_ms=t_fwd_ms, fwd_call_ms=t_fwd_call_ms,
+                         fwd_bound_ms=t_fwd_bound_ms))
+    if args.parent:
+        found = _compare_with_parent(
+            torch, cr, args.parent,
+            {"cap": (counts, origins, rows, gout, out_k),
+             "training shape": (t_cnt, t_org, t_rows, t_gout, t_out)}, bg)
+        print("[compare] device ms, the sources in --parent → this "
+              "checkout's, in turns, median of 7 rounds of 20 launches | "
+              + " | ".join(
+                  f"{name} {shape}: {a:.4f} → {b:.4f}"
+                  for name, by_shape in found.items()
+                  for shape, (a, b) in by_shape.items())
+              + " (the earlier backward with the memset it needs)")
+        results["compare"] = found
     del gk, gp, t_gk, t_gp, gout, out_k, t_gout, t_out
 
     # -- 3. the main path at full width -------------------------------------
@@ -465,9 +660,9 @@ def main(argv=None) -> int:
         gauss_ms.append(t_gauss)
         render_ms.append(t_render)
         last = (frame, kf)
-    launches = cr.launches
+    launches, serving_bwd_launches = cr.launches, cr.bwd_launches
     assert launches == renders, f"{launches} launches for {renders} renders"
-    assert cr.bwd_launches == 0, "the serving path launched a backward"
+    assert serving_bwd_launches == 0, "the serving path launched a backward"
 
     # right on the main path's own data: the kernel against its plain
     # version on the last frame's gaussians (read after the launch count,
@@ -481,10 +676,10 @@ def main(argv=None) -> int:
     b = cr.composite_torch(cnt, org, rw, zero)
     path_err = float((a - b).abs().max())
     assert path_err <= TOL, f"main-path kernel vs plain {path_err}"
-    path_ms = _events_ms(lambda: cr.composite(cnt, org, rw, zero), 30,
-                         torch)
-    path_plain_ms = _events_ms(
-        lambda: cr.composite_torch(cnt, org, rw, zero), 5, torch)
+    path_ms = device_ms(lambda: cr.composite(cnt, org, rw, zero), torch)
+    path_call_ms = call_ms(lambda: cr.composite(cnt, org, rw, zero), torch)
+    path_plain_ms = call_ms(
+        lambda: cr.composite_torch(cnt, org, rw, zero), torch, 5)
     path_bound_ms, path_bound_by = _bound_ms(cnt)
     # render_tiles (the JAX XLA path's counterpart) evaluates the power in
     # another order, so alpha's 1/255 cut can fall elsewhere: reported, not
@@ -503,8 +698,10 @@ def main(argv=None) -> int:
           f"{sysm.pool.n} | compositor launches {launches} = renders "
           f"{renders} | modes {','.join(modes)} | last frame: kernel vs "
           f"plain {path_err:.2e}, render vs render_tiles {tiles_err:.2e}, "
-          f"mean count {float(cnt.float().mean()):.1f}, kernel "
-          f"{path_ms:.4f} ms vs plain {path_plain_ms:.3f} ms, bound "
+          f"mean count {float(cnt.float().mean()):.1f}, largest "
+          f"{int(cnt.max())}, kernel "
+          f"{path_ms:.4f} ms on the device, call_ms {path_call_ms:.4f} vs "
+          f"plain {path_plain_ms:.3f} ms, bound "
           f"{path_bound_ms:.5f} ms by {path_bound_by}")
     results["slice"] = dict(frames=FRAMES, track_ms=track_ms,
                             gauss_ms=gauss_ms, render_ms=render_ms,
@@ -513,7 +710,10 @@ def main(argv=None) -> int:
                             pool=sysm.pool.n, launches=launches,
                             kernel_vs_plain=path_err,
                             render_vs_render_tiles=tiles_err,
-                            kernel_ms=path_ms, plain_ms=path_plain_ms,
+                            mean_count=float(cnt.float().mean()),
+                            max_count=int(cnt.max()),
+                            kernel_ms=path_ms, call_ms=path_call_ms,
+                            plain_ms=path_plain_ms,
                             bound_ms=path_bound_ms)
     # one more frame under the profiler (after the launch count is read)
     wall, busy, spans = _profile_frame(torch, lambda: run_frame(FRAMES))
@@ -603,7 +803,7 @@ def main(argv=None) -> int:
     assert s_fwd_err <= TOL, f"training-path forward vs plain {s_fwd_err}"
     s_gk = cr.composite_bwd(s_cnt, s_org, s_rows, s_gout, s_out)
     s_gp = cr.composite_bwd_torch(s_cnt, s_org, s_rows, s_gout, s_out)
-    s_rel, s_abs = _bwd_errors(s_gk, s_gp)
+    s_rel, s_abs = bwd_errors(s_gk, s_gp)
     s_peak = float(s_gp.abs().max())
     assert s_rel <= BWD_TOL, f"training-path backward vs plain {s_rel}"
     # autograd launches the backward's kernels from its own thread, so the
@@ -611,14 +811,19 @@ def main(argv=None) -> int:
     t_bwd_dev = t_busy - sum(d for k, (_, d) in t_spans.items()
                              if k.startswith("port.train.")
                              and k != "port.train.backward")
-    s_bwd_ms = _events_ms(
-        lambda: cr.composite_bwd(s_cnt, s_org, s_rows, s_gout, s_out), 30,
-        torch)
-    s_fwd_ms = _events_ms(lambda: cr.composite(s_cnt, s_org, s_rows, zero),
-                          30, torch)
-    s_bwd_plain_ms = _events_ms(
+    def run_s_bwd():
+        return cr.composite_bwd(s_cnt, s_org, s_rows, s_gout, s_out)
+
+    def run_s_fwd():
+        return cr.composite(s_cnt, s_org, s_rows, zero)
+
+    s_bwd_ms = device_ms(run_s_bwd, torch)
+    s_bwd_call_ms = call_ms(run_s_bwd, torch)
+    s_fwd_ms = device_ms(run_s_fwd, torch)
+    s_fwd_call_ms = call_ms(run_s_fwd, torch)
+    s_bwd_plain_ms = call_ms(
         lambda: cr.composite_bwd_torch(s_cnt, s_org, s_rows, s_gout, s_out),
-        3, torch)
+        torch, 3)
     s_bound_ms, s_bound_by = _bound_bwd_ms(s_cnt)
     print(f"[train] {TRAIN_STEPS} steps {th}x{tw} B={B} V={V} ViT-L bf16, "
           f"gaussian heads only (setup {train_setup_s:.1f} s) | step ms "
@@ -632,9 +837,12 @@ def main(argv=None) -> int:
           f"unchanged | eval {eval_ms:.1f} ms: "
           + ", ".join(f"{k} {v:.4f}" for k, v in emetrics.items())
           + f" | a step's own rows ({int(s_cnt.sum())} rows, mean count "
-          f"{float(s_cnt.float().mean()):.1f}): backward {s_bwd_ms:.4f} ms "
-          f"vs plain {s_bwd_plain_ms:.3f} ms, bound {s_bound_ms:.5f} ms by "
-          f"{s_bound_by}, forward {s_fwd_ms:.4f} ms; kernel vs plain "
+          f"{float(s_cnt.float().mean()):.1f}, largest {int(s_cnt.max())}): "
+          f"backward {s_bwd_ms:.4f} ms "
+          f"on the device, call_ms {s_bwd_call_ms:.4f} vs plain "
+          f"{s_bwd_plain_ms:.3f} ms, bound {s_bound_ms:.5f} ms by "
+          f"{s_bound_by}, forward {s_fwd_ms:.4f} ms on the device, call_ms "
+          f"{s_fwd_call_ms:.4f}; kernel vs plain "
           f"forward {s_fwd_err:.2e}, backward {s_rel:.2e} of column peak "
           f"({s_abs:.2e} absolute, largest gradient entry {s_peak:.2e})")
     print(f"[train-profile] one step: wall {t_wall:.2f} ms, device kernels "
@@ -649,8 +857,10 @@ def main(argv=None) -> int:
         peak_gib=peak_gb, launches=train_launches,
         bwd_launches=train_bwd_launches, head_moved=head_moved,
         eval_ms=eval_ms, eval=emetrics,
-        own_rows=dict(rows=int(s_cnt.sum()), bwd_ms=s_bwd_ms,
-                      fwd_ms=s_fwd_ms, bwd_plain_ms=s_bwd_plain_ms,
+        own_rows=dict(rows=int(s_cnt.sum()), max_count=int(s_cnt.max()),
+                      bwd_ms=s_bwd_ms,
+                      bwd_call_ms=s_bwd_call_ms, fwd_ms=s_fwd_ms,
+                      fwd_call_ms=s_fwd_call_ms, bwd_plain_ms=s_bwd_plain_ms,
                       bound_ms=s_bound_ms, bound_by=s_bound_by,
                       fwd_err=s_fwd_err, bwd_rel_err=s_rel,
                       bwd_abs_err=s_abs, bwd_peak=s_peak),
@@ -671,25 +881,32 @@ def main(argv=None) -> int:
         "source": "splatt3r_slam_tpu_torch/csrc/composite.cu",
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:61",
         "launches": launches + train_launches,
-        "max_abs_err": max(err, extra_err, path_err, s_fwd_err), "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None,
+        "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err),
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None, "call_ms": fwd_call_ms,
+        "ms_training_shape": t_fwd_ms,
+        "bound_ms_training_shape": t_fwd_bound_ms,
+        "ms_serving_rows": path_ms, "call_ms_serving_rows": path_call_ms,
+        "ms_training_rows": s_fwd_ms, "call_ms_training_rows": s_fwd_call_ms,
         "launches_serving": launches, "launches_training": train_launches,
     }, {
         "name": "composite_bwd_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:202",
-        "launches": train_bwd_launches,
+        "launches": serving_bwd_launches + train_bwd_launches,
         # on the seeded scenes, whose cotangent is unit normal; a training
         # step's own gradients are held relative to their peak (below)
-        "max_abs_err": max(bwd_abs, train_abs, small_abs),
+        "max_abs_err": max(bwd_abs, train_abs, small_abs, edge_abs),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
+        "call_ms": bwd_call_ms,
         "max_err_over_column_peak": max(bwd_rel, train_rel, small_rel,
-                                        s_rel),
+                                        edge_rel, s_rel),
         "ms_training_shape": t_bwd_ms,
         "bound_ms_training_shape": t_bwd_bound_ms,
-        "launches_serving": 0, "launches_training": train_bwd_launches,
+        "ms_training_rows": s_bwd_ms, "call_ms_training_rows": s_bwd_call_ms,
+        "launches_serving": serving_bwd_launches,
+        "launches_training": train_bwd_launches,
     }]
     results["kernels"] = kernels
     if args.out:

@@ -18,94 +18,178 @@
 // chip_smoke.py); the bytes are the rows (36 B each, sum(counts) of them)
 // plus 16 B of output per pixel. At the cap (768 tiles * 512 rows) that is
 // 1.0e8 pairs, ~2.5e9 fp32 operations (~38 us at 67 TFLOP/s) against
-// ~14 MB of rows and 3 MB of output (~5 us at 3.35 TB/s): compute-bound.
+// ~14 MB of rows and 3 MB of output (~5 us at 3.35 TB/s): bound by
+// operations. The bound counts every operation at the FMA rate (two a lane
+// a clock); `power` is kept in single multiplies and adds (see
+// composite_common.cuh) and the exponential is a handful of instructions,
+// so a pair runs about as many instructions as the bound counts
+// operations and the kernel cannot come closer to it than about 2x.
 // chip_smoke.py recomputes the bound from the counts the run measures.
 //
-// What the design does about it. One CTA per tile, one thread per pixel
-// (256 threads). Rows are staged through shared memory in chunks of 128,
-// loaded cooperatively and coalesced (a chunk is 1152 contiguous floats)
-// and stored structure-of-arrays so each broadcast read is one bank. Each
-// thread keeps its transmittance as a sequential carry, so the TPU
-// kernel's log-cumsum-by-triangular-matmul (a workaround for Mosaic's
-// missing cumsum) is gone: per pair there is one exp and a handful of
-// FMAs, nothing else. The loop runs ceil(count / CHUNK) chunks, so sparse
-// tiles finish early, as on the TPU. The power is computed without FMA
-// contraction so that alpha's 1/255 cut falls where the plain version's
-// does; only the colour and transmittance sums are taken in another order.
+// What the design does about it. One CTA per tile; a thread owns P = 2
+// pixels of one pixel row, reads a row from shared memory once into
+// registers and uses it for both, and computes what depends only on the
+// pixel row (dv, (cc*dv)*dv) once. Rows are staged through a two-buffer
+// ring with cp.async, chunk c+1 in flight while chunk c is consumed, one
+// __syncthreads() a chunk (composite_common.cuh): in 16-byte pieces where
+// every tile's rows are 16-byte aligned (k_max % 4 == 0), element by
+// element for any other input, into the same layout. A thread takes ROWS =
+// 4 rows at a time through their loads and `power`, which do not depend on
+// one another, and a warp skips a row, before any exponential, when every
+// one of its pixels lies under a floor that leaves alpha under the 1/255
+// cut for certain (`power_floor`). The rows that are left are composited in
+// order; each pixel takes its alpha from `alpha_of`, and a pixel under the
+// cut composites with alpha = 0, which leaves its sums and its
+// transmittance bit for bit as they were, so the body has no divergent
+// branch. The TPU kernel's log-cumsum-by-triangular-matmul (a workaround
+// for Mosaic's missing cumsum) is gone: each pixel's transmittance is a
+// sequential carry. The loop runs ceil(count / CHUNK) chunks, so sparse
+// tiles finish early, as on the TPU.
+//
+// What limits it now, by instruction count (cuobjdump -sass): a step of
+// four rows runs 272 instructions per thread for its eight pixel-row
+// pairs, 34 a pair: 14 before the skip (the row's loads, du, dv, `power`,
+// the floor, the test and the vote) and 20 after it (8 for expf, 12 for
+// alpha, the weight, the three sums and the transmittance). At four
+// warp-instructions a clock on each of 132 SMs the cap's 1.0e8 pairs need
+// 0.10-0.12 ms at 1.98-1.75 GHz if no row is skipped; the kernel is at that
+// limit, and what it gains on it is the rows it skips. Measured slower on
+// an NVIDIA H100 80GB HBM3 (PERF.md): 1, 4 and 8 pixels a thread, one row a
+// step, no skip, and rows padded to 12 floats in shared memory.
+// ptxas -v (sm_90a): 48 registers and 9,216 bytes of shared memory with
+// either staging; no spills.
 
-#include <cuda_runtime.h>
+#include "composite_common.cuh"
+
+#include <cstdint>
+
+using namespace compositor;
 
 namespace {
 
-constexpr int TILE = 16;
-constexpr int NPIX = TILE * TILE;
-constexpr int CHUNK = 128;
-constexpr int ROWF = 9;
+constexpr int ROWS = 4;  // rows a thread takes through `power` together
 
-__global__ void __launch_bounds__(NPIX)
+// Composite rows j .. j+R-1 of a ring buffer onto a thread's P pixels. The
+// loads, the powers and the skip votes of the R rows do not depend on one
+// another and overlap; the rows that are needed are then composited in
+// order, each pixel's transmittance carried from one to the next.
+template <int R>
+__device__ __forceinline__ void rows_step(const float* s, int j,
+                                          const float (&px)[P], float py,
+                                          float (&r)[P], float (&g)[P],
+                                          float (&b)[P], float (&T)[P]) {
+  float row[R][ROWF], power[R][P];
+  bool need[R];
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+#pragma unroll
+    for (int f = 0; f < ROWF; ++f) row[q][f] = s[(j + q) * ROWF + f];
+    const float dv = py - row[q][1];
+    const float cdv2 = row_cdv2(row[q][4], dv);
+    // can a pixel of this warp reach the cut?
+    const float lowest = power_floor(row[q][5]);
+    bool mine = false;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      power[q][k] = power_of(row[q][2], row[q][3], px[k] - row[q][0], dv,
+                             cdv2);
+      mine |= !(power[q][k] < lowest);
+    }
+    need[q] = __any_sync(FULL, mine);
+  }
+#pragma unroll
+  for (int q = 0; q < R; ++q) {
+    if (!need[q]) continue;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float alpha = alpha_of(power[q][k], row[q][5]).alpha;
+      const float w = alpha * T[k];
+      r[k] = fmaf(w, row[q][6], r[k]);
+      g[k] = fmaf(w, row[q][7], g[k]);
+      b[k] = fmaf(w, row[q][8], b[k]);
+      T[k] *= (1.0f - alpha);
+    }
+  }
+}
+
+// VEC: stage in 16-byte pieces (the launcher has checked the alignment).
+template <bool VEC>
+__device__ __forceinline__ void stage(float* dst, const float* src, int m,
+                                      int tid) {
+  if constexpr (VEC) {
+    stage_rows_16(dst, src, m, tid);
+  } else {
+    stage_rows<ROWF>(dst, src, m, tid);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(NT)
 composite_kernel(const int* __restrict__ counts,
                  const int* __restrict__ origins,
                  const float* __restrict__ rows,
                  const float* __restrict__ bg,
                  float* __restrict__ out,
                  int k_max) {
-  __shared__ float s[ROWF][CHUNK];
+  __shared__ __align__(16) float sbuf[2][CHUNK * ROWF];
   const int t = blockIdx.x;
-  const int p = threadIdx.x;
-  const int n = counts[t];
-  const float px = static_cast<float>(origins[2 * t] + (p % TILE)) + 0.5f;
-  const float py = static_cast<float>(origins[2 * t + 1] + (p / TILE)) + 0.5f;
+  const int tid = threadIdx.x;
+  const int n = min(counts[t], k_max);
   const float* base = rows + static_cast<size_t>(t) * k_max * ROWF;
+  float px[P], py;
+  pixel_centres(origins, t, tid, px, py);
 
-  float r = 0.f, g = 0.f, b = 0.f, T = 1.f;
-  for (int c0 = 0; c0 < n; c0 += CHUNK) {
-    const int m = min(CHUNK, n - c0);
-    __syncthreads();  // previous chunk fully consumed
-    for (int i = p; i < m * ROWF; i += NPIX) {
-      s[i % ROWF][i / ROWF] = base[static_cast<size_t>(c0) * ROWF + i];
-    }
+  float r[P], g[P], b[P], T[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) r[k] = g[k] = b[k] = 0.f, T[k] = 1.f;
+
+  if (n > 0) stage<VEC>(sbuf[0], base, min(CHUNK, n), tid);
+  int buf = 0;
+  for (int c0 = 0; c0 < n; c0 += CHUNK, buf ^= 1) {
+    // this chunk has landed for every thread, and every thread is done
+    // with the other buffer, which the next chunk now overwrites
+    cp_async_wait_all();
     __syncthreads();
-    for (int j = 0; j < m; ++j) {
-      const float du = px - s[0][j];
-      const float dv = py - s[1][j];
-      // -0.5 (a du du + c dv dv) - b du dv, left to right with every
-      // product and sum rounded on its own (the _rn intrinsics are never
-      // contracted into FMAs), as the plain version and the TPU kernel
-      // evaluate it. With a contracted FMA the power differs by an ulp,
-      // and where that moves alpha across the 1/255 cut the pixel changes
-      // by up to 1/255 times its transmittance.
-      const float q = __fadd_rn(__fmul_rn(__fmul_rn(s[2][j], du), du),
-                                __fmul_rn(__fmul_rn(s[4][j], dv), dv));
-      const float power = __fsub_rn(__fmul_rn(-0.5f, q),
-                                    __fmul_rn(__fmul_rn(s[3][j], du), dv));
-      float alpha = fminf(0.99f, s[5][j] * expf(power));
-      if (alpha < (1.0f / 255.0f)) continue;
-      const float w = alpha * T;
-      r = fmaf(w, s[6][j], r);
-      g = fmaf(w, s[7][j], g);
-      b = fmaf(w, s[8][j], b);
-      T *= (1.0f - alpha);
+    const int next = c0 + CHUNK;
+    if (next < n) {
+      stage<VEC>(sbuf[buf ^ 1], base + static_cast<size_t>(next) * ROWF,
+                 min(CHUNK, n - next), tid);
     }
+    const float* s = sbuf[buf];
+    const int m = min(CHUNK, n - c0);
+    int j = 0;
+    for (; j + ROWS <= m; j += ROWS) rows_step<ROWS>(s, j, px, py, r, g, b, T);
+    for (; j < m; ++j) rows_step<1>(s, j, px, py, r, g, b, T);
   }
-  float* o = out + (static_cast<size_t>(t) * NPIX + p) * 4;
-  o[0] = r + T * bg[0];
-  o[1] = g + T * bg[1];
-  o[2] = b + T * bg[2];
-  o[3] = T;
+  const float b0 = bg[0], b1 = bg[1], b2 = bg[2];
+  float4* o = reinterpret_cast<float4*>(out)
+      + static_cast<size_t>(t) * NPIX + tid * P;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    o[k] = make_float4(r[k] + T[k] * b0, g[k] + T[k] * b1, b[k] + T[k] * b2,
+                       T[k]);
+  }
 }
 
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Launches on `stream` and returns
-// cudaGetLastError() so the caller can raise on a refused launch.
+// cudaGetLastError() so the caller can raise on a refused launch. Rows that
+// are 16-byte aligned tile by tile take the 16-byte staging, any other
+// k_max or base pointer the element-wise staging of the same kernel.
 extern "C" int composite_launch(const int* counts, const int* origins,
                                 const float* rows, const float* bg,
                                 float* out, int num_tiles, int k_max,
                                 void* stream) {
   if (num_tiles > 0) {
-    composite_kernel<<<num_tiles, NPIX, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        counts, origins, rows, bg, out, k_max);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (k_max % 4 == 0 && reinterpret_cast<uintptr_t>(rows) % 16 == 0) {
+      composite_kernel<true><<<num_tiles, NT, 0, st>>>(
+          counts, origins, rows, bg, out, k_max);
+    } else {
+      composite_kernel<false><<<num_tiles, NT, 0, st>>>(
+          counts, origins, rows, bg, out, k_max);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -15,10 +15,17 @@ r g b], and the gradient rows have the same layout — the TPU's transposed
 Each source is compiled with nvcc for sm_90a into a shared library with a
 plain C interface at first use (`build`, one nvcc per source, started
 together), into `splatt3r_slam_tpu_torch/_build/`, and loaded with ctypes.
-`composite` / `composite_bwd` launch the kernels for CUDA tensors (and
-raise on failure) and run the plain PyTorch versions `composite_torch` /
+Both sources include `csrc/composite_common.cuh` (the staging ring and the
+one evaluation of alpha), so a library's name carries a hash of its source,
+of every header beside it and of the compiler flags. `composite` /
+`composite_bwd` launch the kernels for CUDA tensors (and raise on failure)
+and run the plain PyTorch versions `composite_torch` /
 `composite_bwd_torch` for CPU tensors; there is no fallback from one to the
-other. `launches` and `bwd_launches` count kernel launches.
+other. Any `k_max` is taken: inside the forward's library the launcher
+picks the staging by what it is given, 16-byte copies where every tile's
+rows are 16-byte aligned (`k_max % 4 == 0`) and element-wise copies of the
+same kernel otherwise; the backward stages element-wise throughout.
+`launches` and `bwd_launches` count kernel launches.
 """
 
 from __future__ import annotations
@@ -69,13 +76,21 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (needs the CUDA toolkit, sm_90a)")
 
 
+def _digest(source: pathlib.Path, flags) -> str:
+    """Hash of a source, of the headers beside it and of the flags."""
+    h = hashlib.sha256()
+    for p in (source, *sorted(source.parent.glob("*.cuh"))):
+        h.update(p.read_bytes())
+    h.update("\0".join(flags).encode())
+    return h.hexdigest()[:12]
+
+
 def build() -> dict:
-    """Compile every kernel source (once per source hash), one nvcc each,
-    all started together → {kernel name: (library, ptxas log)}."""
+    """Compile every kernel of `KERNELS` (once per `_digest`), one nvcc
+    each, all started together → {name: (library, ptxas log)}."""
     done, running = {}, []
     for name, (source, _, _) in KERNELS.items():
-        digest = hashlib.sha256(source.read_bytes()).hexdigest()[:12]
-        so = BUILD_DIR / f"lib{name}_{digest}.so"
+        so = BUILD_DIR / f"lib{name}_{_digest(source, NVCC_FLAGS)}.so"
         log = so.with_suffix(".log")
         if so.exists():
             done[name] = (so, log.read_text() if log.exists() else "")
@@ -97,16 +112,29 @@ def build() -> dict:
     return {name: done[name] for name in KERNELS}
 
 
-def _load(name: str):
-    if name not in _fns:
-        so, _ = build()[name]
-        _, entry, n_ptr = KERNELS[name]
-        fn = getattr(ctypes.CDLL(str(so)), entry)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fns[name] = fn
-    return _fns[name]
+def _entry(so, name: str):
+    """The C entry point of kernel `name` in the library `so`."""
+    _, entry, n_ptr = KERNELS[name]
+    fn = getattr(ctypes.CDLL(str(so)), entry)
+    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_int,
+                                               ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, dev, *args):
+    """Launch kernel `name` on `dev`'s current stream; raise if refused.
+    The entry point is resolved once."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = _entry(build()[name][0], name)
+    if dev.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def _check(who, dev, specs):
@@ -132,19 +160,23 @@ def _check_rows(who, rows, T):
 
 def _alpha_terms(R, origins, counts, pix_local, kk):
     """The compositor's per-(tile, row, pixel) terms for a slab of tiles,
-    in the kernels' own expression: (du, dv, expp, raw, alpha, live)."""
+    in the kernels' own expression: (du, dv, expp, raw, alpha, live, r).
+    r is R with the rows at and beyond each tile's count set to zero: the
+    kernels never read those rows, so whatever they hold (a huge conic
+    whose power overflows to NaN) must not reach a sum."""
+    live = (kk[None, :] < counts[:, None])[:, :, None]
+    r = torch.where(live, R, torch.zeros_like(R))
     pix = origins[:, None, :].float() + pix_local[None]
-    du = pix[:, None, :, 0] - R[:, :, None, 0]  # (C, K, 256)
-    dv = pix[:, None, :, 1] - R[:, :, None, 1]
-    power = -0.5 * (R[:, :, None, 2] * du * du
-                    + R[:, :, None, 4] * dv * dv) \
-        - R[:, :, None, 3] * du * dv
+    du = pix[:, None, :, 0] - r[:, :, None, 0]  # (C, K, 256)
+    dv = pix[:, None, :, 1] - r[:, :, None, 1]
+    power = -0.5 * (r[:, :, None, 2] * du * du
+                    + r[:, :, None, 4] * dv * dv) \
+        - r[:, :, None, 3] * du * dv
     expp = torch.exp(power)
-    raw = R[:, :, None, 5] * expp
+    raw = r[:, :, None, 5] * expp
     alpha = torch.clamp(raw, max=0.99)
     alpha = torch.where(alpha < 1.0 / 255.0, torch.zeros_like(alpha), alpha)
-    live = (kk[None, :] < counts[:, None])[:, :, None]
-    return du, dv, expp, raw, alpha * live, live
+    return du, dv, expp, raw, alpha, live, r
 
 
 def composite_torch(counts, origins, rows, bg, tile_chunk: int = 32):
@@ -159,9 +191,9 @@ def composite_torch(counts, origins, rows, bg, tile_chunk: int = 32):
     kk = torch.arange(k_max, device=rows.device)
     out = []
     for t0 in range(0, T, tile_chunk):
-        r = R[t0:t0 + tile_chunk]
-        alpha = _alpha_terms(r, origins[t0:t0 + tile_chunk],
-                             counts[t0:t0 + tile_chunk], pix_local, kk)[4]
+        alpha, _, r = _alpha_terms(
+            R[t0:t0 + tile_chunk], origins[t0:t0 + tile_chunk],
+            counts[t0:t0 + tile_chunk], pix_local, kk)[4:]
         incl = torch.cumprod(1.0 - alpha, dim=1)
         excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]], dim=1)
         rgb = torch.einsum("ckp,ckd->cpd", alpha * excl, r[..., 6:9])
@@ -191,10 +223,9 @@ def composite_bwd_torch(counts, origins, rows, gout, out,
     kk = torch.arange(k_max, device=rows.device)
     grows = []
     for t0 in range(0, T, tile_chunk):
-        r = R[t0:t0 + tile_chunk]
-        du, dv, expp, raw, alpha, live = _alpha_terms(
-            r, origins[t0:t0 + tile_chunk], counts[t0:t0 + tile_chunk],
-            pix_local, kk)
+        du, dv, expp, raw, alpha, live, r = _alpha_terms(
+            R[t0:t0 + tile_chunk], origins[t0:t0 + tile_chunk],
+            counts[t0:t0 + tile_chunk], pix_local, kk)
         one_m = 1.0 - alpha
         incl = torch.cumprod(one_m, dim=1)
         t_excl = torch.cat([torch.ones_like(incl[:, :1]), incl[:, :-1]],
@@ -226,24 +257,21 @@ def composite_bwd_torch(counts, origins, rows, gout, out,
 
 def composite(counts, origins, rows, bg):
     """Tile compositor: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors. Arguments as `composite_torch`. Returns a
-    tensor with no graph; `Composite` is the differentiable form."""
-    if not rows.is_cuda:
-        return composite_torch(counts, origins, rows, bg)
+    version for CPU tensors. Arguments as `composite_torch`; raises
+    ValueError on any other dtype, shape, device or a non-contiguous
+    tensor. Returns a tensor with no graph; `Composite` is the
+    differentiable form."""
     T = counts.shape[0]
     dev = rows.device
     _check("composite", dev, (("counts", counts, torch.int32, (T,)),
                               ("origins", origins, torch.int32, (T, 2)),
                               ("bg", bg, torch.float32, (3,))))
     k_max = _check_rows("composite", rows, T)
+    if not rows.is_cuda:
+        return composite_torch(counts, origins, rows, bg)
     out = torch.empty((T * NPIX, 4), dtype=torch.float32, device=dev)
-    fn = _load("composite")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(counts.data_ptr(), origins.data_ptr(), rows.data_ptr(),
-                 bg.data_ptr(), out.data_ptr(), T, k_max, stream)
-    if err != 0:
-        raise RuntimeError(f"composite kernel launch failed: cudaError {err}")
+    _launch("composite", dev, counts.data_ptr(), origins.data_ptr(),
+            rows.data_ptr(), bg.data_ptr(), out.data_ptr(), T, k_max)
     global launches
     launches += 1
     return out
@@ -251,9 +279,8 @@ def composite(counts, origins, rows, bg):
 
 def composite_bwd(counts, origins, rows, gout, out):
     """Backward tile compositor: the CUDA kernel for CUDA tensors, the
-    plain version for CPU tensors. Arguments as `composite_bwd_torch`."""
-    if not rows.is_cuda:
-        return composite_bwd_torch(counts, origins, rows, gout, out)
+    plain version for CPU tensors. Arguments as `composite_bwd_torch`,
+    checked as `composite` checks its own."""
     T = counts.shape[0]
     dev = rows.device
     _check("composite_bwd", dev,
@@ -262,18 +289,15 @@ def composite_bwd(counts, origins, rows, gout, out):
             ("gout", gout, torch.float32, (T * NPIX, 4)),
             ("out", out, torch.float32, (T * NPIX, 4))))
     k_max = _check_rows("composite_bwd", rows, T)
-    # the kernel writes each tile's live rows only; the rest stay zero
-    # (through pack_rows' gather they scatter into real gaussians)
-    grows = torch.zeros_like(rows)
-    fn = _load("composite_bwd")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(counts.data_ptr(), origins.data_ptr(), rows.data_ptr(),
-                 gout.data_ptr(), out.data_ptr(), grows.data_ptr(), T, k_max,
-                 stream)
-    if err != 0:
-        raise RuntimeError(
-            f"composite_bwd kernel launch failed: cudaError {err}")
+    if not rows.is_cuda:
+        return composite_bwd_torch(counts, origins, rows, gout, out)
+    # the kernel writes every row of every tile, zeros at and beyond each
+    # tile's count (through pack_rows' gather they scatter into real
+    # gaussians)
+    grows = torch.empty_like(rows)
+    _launch("composite_bwd", dev, counts.data_ptr(), origins.data_ptr(),
+            rows.data_ptr(), gout.data_ptr(), out.data_ptr(),
+            grows.data_ptr(), T, k_max)
     global bwd_launches
     bwd_launches += 1
     return grows
