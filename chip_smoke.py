@@ -36,14 +36,19 @@ Phases, each printing one line of its own; any failure exits non-zero:
 3. slice   — the port's serving path at full width: TwoViewConfig() defaults
              (ViT-L encoder, 768x12 decoder, 256-wide DPT, bf16 trunk and
              heads) with seeded random weights, config/base.yaml defaults,
-             InferenceEngine → SLAMSystem(backend=None) with main.py's
-             GaussianAccumulator → process_frame on panned synthetic
-             384x512 frames → ensure_gaussians + render_frame every frame;
-             the compositor's launch count must equal the number of renders;
-             then the kernel against its plain version on the last frame's
-             own gaussians, and one more frame under torch.profiler (host
-             time each `port.*` span was open, device time of the kernels
-             launched inside it, and the device's idle share);
+             InferenceEngine → SLAMSystem with main.py's GaussianAccumulator,
+             pose-graph backend (FactorGraph) and retrieval
+             (RetrievalDatabase, feat_dim = proj_dim = 1024, 65,536 words) →
+             process_frame on panned synthetic 384x512 frames, a keyframe
+             forced every other frame → ensure_gaussians + render_frame every
+             frame; the compositor's launch count must equal the number of
+             renders, and each keyframe after the first must add the
+             neighbour edge from the tracking half and run the stride-2 /
+             gn_stride 16 solve; then the kernel against its plain version
+             on the last frame's own gaussians, and one more (keyframe)
+             frame under torch.profiler (host time each `port.*` span was
+             open, device time of the kernels launched inside it, and the
+             device's idle share);
 4. train   — the port's training path at full width: the same model with
              seeded random weights under `Trainer` with
              TrainConfig(render_loss=True, ssim_weight=0.1,
@@ -55,7 +60,29 @@ Phases, each printing one line of its own; any failure exits non-zero:
              `make_eval_step` call; then one more step under torch.profiler
              (`port.train.*` spans), and both kernels against their plain
              versions, timed, on that step's own rows;
-5. device  — the card's name and power limit (nvidia-smi);
+5. cli     — `python -m splatt3r_slam_tpu_torch --dataset
+             tests/fixtures/tum/rgbd_dataset_freiburg1_fixture --config
+             tests/fixtures/tum/eval_fixture.yaml --no-viz --seed 0` run in
+             this process through the module's `main(argv)`, from a
+             temporary working directory: full width, --img-size 512 (the
+             fixture's 320x240 frames upscaled to 512x384), fp32 heads,
+             full-resolution matching and backend rows, retrieval on every
+             keyframe, a keyframe forced every frame and a relaxed RELOC
+             gate (the fixture config), 12 frames. It checks exit 0, one
+             trajectory row per keyframe with the timestamps of rgb.txt, a
+             PLY with vertices, the keyframe PNGs, one render PNG per frame,
+             forward compositor launches equal to the renders and no
+             backward launch, at least one solve and an edge to every
+             keyframe after the first, and the kernel against its plain
+             version on the last render's rows; it prints the mode sequence,
+             keyframes, edges, solves, Cholesky failures, relocalizations,
+             median host ms of process_frame, on_keyframe, the solve, the
+             retrieval update and render_frame (each timed with a
+             synchronise before and after), the run's seconds and the ATE
+             against groundtruth.txt (printed, not held: the weights are
+             random); then one more keyframe through the backend under
+             torch.profiler (`port.backend.*`, `port.retrieval`);
+6. device  — the card's name and power limit (nvidia-smi);
 then one JSON line with the kernel table and, last, the ok/device line.
 
 With `--parent DIR` it also builds the `composite.cu` and `composite_bwd.cu`
@@ -77,17 +104,22 @@ torch.backends.cudnn.allow_tf32 are both set False, so fp32 matmuls and
 convolutions (the pose solve, fp32 head projections) run in full fp32; the
 bf16 trunk is unaffected.
 
-Random weights give no valid matches, so every tracked frame fails its
-pose solve and the state machine enters RELOC, which needs the backend and
-retrieval (later slices). The run puts the system back into TRACKING after
-such a frame, so that each frame goes through the fused tracking step.
-The training data is synthetic (normal-noise images and targets), as the
-train CLI's dry runs use.
+Random weights give no valid matches, so a GN step of the pose solve
+always fails and sends the frame to RELOC. Phase 3 therefore runs the
+tracking solve with max_iters 0 and min_match_frac 0 (it passes the seeded
+pose through, as tests/test_torch_port_slice.py does), so that tracked
+frames succeed and the keyframes reach the backend; a frame whose
+relocalization the backend refused would be put back into TRACKING, and is
+counted. The cli phase keeps the fixture config's GN iterations: its
+tracked frames fail, and the relaxed RELOC gate of the fixture config lets
+the backend relocalize the next frame. The training data is synthetic
+(normal-noise images and targets), as the train CLI's dry runs use.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -329,6 +361,193 @@ def _boundary_tiles(torch, counts, k_max, seed):
             rows)
 
 
+def _time_calls(torch, owner, name, store, keep=None):
+    """Wrap `owner.name` (a class or an instance attribute) so that each
+    call appends its host ms, with a synchronise before and after, to
+    store[name]; `keep(args, result)` may record more. Returns a function
+    that restores the original."""
+    real = getattr(owner, name)
+    own = name in vars(owner)  # else a method found on the instance's class
+
+    def timed(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **kw)
+        torch.cuda.synchronize()
+        store.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        if keep is not None:
+            keep(a, out)
+        return out
+
+    setattr(owner, name, timed)
+
+    def restore():
+        if own:
+            setattr(owner, name, real)
+        else:  # drop the instance attribute (a bound method would keep
+            delattr(owner, name)  # the instance alive in a cycle)
+
+    return restore
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else float("nan")
+
+
+def _cli_phase(torch, root, cr, argv, device):
+    """Run the port's CLI in this process from a temporary working
+    directory, time its layers, check its outputs, and run one more
+    keyframe through the backend under the profiler → (line, results)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import cli
+    from splatt3r_slam_tpu_torch.backend.factor_graph import FactorGraph
+    from splatt3r_slam_tpu_torch.lie import sim3
+    from splatt3r_slam_tpu_torch.retrieval.database import RetrievalDatabase
+    from splatt3r_slam_tpu_torch.runtime import evaluate as ev
+    from splatt3r_slam_tpu_torch.runtime.dataloader import load_dataset
+    from splatt3r_slam_tpu_torch.runtime.frame import create_frame
+    from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
+    from splatt3r_slam_tpu_torch.splat import decoder
+    from splatt3r_slam_tpu_torch.splat.decoder import frame_gaussians
+
+    seq = os.path.join(root, "tests", "fixtures", "tum",
+                       "rgbd_dataset_freiburg1_fixture")
+    argv = ["--dataset", seq, "--config",
+            os.path.join(root, "tests", "fixtures", "tum",
+                         "eval_fixture.yaml"), "--no-viz", "--seed", "0",
+            *argv]
+    ms, seen = {}, {"modes": []}
+
+    def keep_mode(a, out):
+        seen["system"] = a[0]
+        seen["modes"].append(out[0].name)
+
+    def keep_render(a, out):
+        frame, ref = a[0], a[1]
+        seen["render"] = (frame.gaussian_pred, frame.gaussian_pred_cross,
+                          frame.img, ref.img, frame.T_WC, out.shape[:2])
+
+    restore = [
+        _time_calls(torch, SLAMSystem, "process_frame", ms, keep_mode),
+        _time_calls(torch, FactorGraph, "on_keyframe", ms),
+        _time_calls(torch, FactorGraph, "relocalize", ms),
+        _time_calls(torch, FactorGraph, "solve", ms),
+        _time_calls(torch, RetrievalDatabase, "update", ms),
+        _time_calls(torch, decoder, "render_frame", ms, keep_render)]
+    here = os.getcwd()
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    cr.launches = cr.bwd_launches = 0
+    try:
+        os.chdir(work)
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        run_s = time.perf_counter() - t0
+        launches, bwd_launches = cr.launches, cr.bwd_launches
+        logs = os.path.join(work, "logs")
+        name = "rgbd_dataset_freiburg1_fixture"
+        system = seen["system"]
+        backend = system.backend
+        n_kf = len(system.keyframes)
+        n_frames = len(seen["modes"])
+        assert rc == 0, f"cli exit {rc}"
+        rgb = open(os.path.join(seq, "rgb.txt")).read().split()
+        rows = open(os.path.join(logs, f"{name}.txt")).read().splitlines()
+        assert len(rows) == n_kf, f"{len(rows)} rows for {n_kf} keyframes"
+        assert all(r.split()[0] in rgb for r in rows), "a foreign timestamp"
+        pts, _ = ev.load_ply(os.path.join(logs, f"{name}.ply"))
+        assert len(pts) > 0, "empty PLY"
+        kf_pngs = os.listdir(os.path.join(logs, f"{name}_keyframes"))
+        assert len(kf_pngs) == n_kf, f"{len(kf_pngs)} keyframe PNGs"
+        renders = len(os.listdir(os.path.join(logs, f"{name}_renders")))
+        assert renders == n_frames == len(ms["render_frame"]), \
+            f"{renders} render PNGs for {n_frames} frames"
+        assert launches == renders, f"{launches} launches, {renders} renders"
+        assert bwd_launches == 0, "the cli run launched a backward"
+        st = backend.stats
+        assert st["solves"] >= 1, "no backend solve"
+        touched = set(backend.ii) | set(backend.jj)
+        assert all(k in touched for k in range(1, n_kf)), \
+            f"a keyframe without an edge: {sorted(touched)} of {n_kf}"
+        try:
+            ate = ev.ate_rmse(os.path.join(seq, "groundtruth.txt"),
+                              os.path.join(logs, f"{name}.txt"))
+        except ValueError as e:  # too few keyframes to align
+            ate = f"n/a ({e})"
+    finally:
+        for r in restore:
+            r()
+        os.chdir(here)
+        shutil.rmtree(work, ignore_errors=True)
+
+    # the kernel against its plain version on the last render's rows
+    # (after the counts were read, so these launches are not counted)
+    gp, gpc, img, ref_img, T_WC, hw = seen["render"]
+
+    class _F:
+        pass
+
+    fr, ref = _F(), _F()
+    fr.gaussian_pred, fr.gaussian_pred_cross, fr.img = gp, gpc, img
+    ref.img = ref_img
+    focal = float(max(hw))
+    K = torch.tensor([[focal, 0, hw[1] / 2], [0, focal, hw[0] / 2],
+                      [0, 0, 1]], device=img.device)
+    view = torch.linalg.inv(sim3.matrix(T_WC)) @ sim3.matrix(T_WC)
+    cnt, org, rw = cr.pack_rows(*frame_gaussians(fr, ref), view, K,
+                                tuple(hw))
+    zero = torch.zeros(3, device=img.device)
+    err = float((cr.composite(cnt, org, rw, zero)
+                 - cr.composite_torch(cnt, org, rw, zero)).abs().max())
+    assert err <= TOL, f"cli-path kernel vs plain {err}"
+
+    # one more keyframe through the backend, under the profiler
+    ds = load_dataset(seq)
+    ds.img_size = int(hw[1])
+    _, raw = ds[1]  # a frame the subsampled run skipped
+    frame = create_frame(len(rgb), raw, img_size=int(hw[1]), device=device)
+    X, C = system.engine.inference_mono(frame)
+    frame.update_pointmap(X, C)
+    system.keyframes.append(frame)
+    kf_idx = len(system.keyframes) - 1
+    before = (st["solves"], st["factor_edges"])
+    wall, busy, spans = _profile_frame(torch,
+                                       lambda: backend.on_keyframe(kf_idx))
+    assert st["solves"] == before[0] + 1
+    res = dict(rc=rc, modes=seen["modes"], keyframes=n_kf, frames=n_frames,
+               renders=renders, launches=launches, stats=dict(st),
+               tracker_fails=getattr(system.tracker, "fails", None),
+               ms={k: v for k, v in ms.items()}, run_s=run_s, ate=ate,
+               kernel_vs_plain=err, rows=int(cnt.sum()),
+               profile=dict(wall_ms=wall, device_ms=busy, spans=spans,
+                            edges_added=st["factor_edges"] - before[1]))
+    med = {k: _median(v) for k, v in ms.items()}
+    line = (
+        f"[cli] {n_frames} frames, exit {rc} in {run_s:.1f} s | modes "
+        f"{','.join(m[0] for m in seen['modes'])} | keyframes {n_kf}, edges "
+        f"{len(backend.ii)} (neighbour {st['neighbor_edges']}, matched "
+        f"{st['factor_edges']}), solves {st['solves']} ({st['iters']} GN "
+        f"iterations, {st['chol_fail']} Cholesky failures), tracking "
+        f"Cholesky failures {res['tracker_fails']}, relocalizations "
+        f"{st['reloc_ok']}/{st['reloc_tried']} | median host ms: "
+        f"process_frame {med['process_frame']:.2f}, on_keyframe "
+        f"{med.get('on_keyframe', float('nan')):.2f} "
+        f"({len(ms.get('on_keyframe', []))} calls), relocalize "
+        f"{med.get('relocalize', float('nan')):.2f} "
+        f"({len(ms.get('relocalize', []))} calls), solve "
+        f"{med['solve']:.2f}, retrieval update {med['update']:.2f}, "
+        f"render_frame {med['render_frame']:.2f} | renders {renders} = "
+        f"launches {launches}, backward 0 | trajectory {len(rows)} rows, "
+        f"PLY {len(pts)} vertices, {len(kf_pngs)} keyframe PNGs | kernel vs "
+        f"plain on the last render ({int(cnt.sum())} rows) {err:.2e} | ATE "
+        f"{ate if isinstance(ate, str) else f'{ate:.4f} m'} (random "
+        f"weights, not held)")
+    return line, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -348,8 +567,10 @@ def main(argv=None) -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from splatt3r_slam_tpu_torch import config as cfgmod
+    from splatt3r_slam_tpu_torch.backend import FactorGraph
     from splatt3r_slam_tpu_torch.lie import sim3
     from splatt3r_slam_tpu_torch.models import TwoViewConfig, init_model
+    from splatt3r_slam_tpu_torch.retrieval import RetrievalDatabase
     from splatt3r_slam_tpu_torch.runtime.frame import Mode, create_frame
     from splatt3r_slam_tpu_torch.runtime.inference import InferenceEngine
     from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
@@ -615,30 +836,48 @@ def main(argv=None) -> int:
 
     # -- 3. the main path at full width -------------------------------------
     cfgmod.reset_config()  # config/base.yaml defaults
+    # random weights: a GN step always fails (see the module docstring)
+    cfgmod.config["tracking"]["max_iters"] = 0
+    cfgmod.config["tracking"]["min_match_frac"] = 0.0
     t0 = time.perf_counter()
     model = init_model(TwoViewConfig(), seed=0, device="cuda")
     engine = InferenceEngine(model, H, W)
+    retrieval = RetrievalDatabase(feat_dim=1024, proj_dim=1024,
+                                  device="cuda")
     sysm = SLAMSystem(engine, H, W, gaussian_module=GaussianAccumulator(
         spatial_stride=4, depth_max_percentile=0.98, max_scale=0.5,
         min_confidence=1.5))
+    sysm.backend = FactorGraph(engine, sysm.keyframes, retrieval=retrieval)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
     base = (rng.random((2 * H, 2 * W, 3)) * 255).astype(np.uint8)
+    backend_ms: dict = {}
+    restore = [_time_calls(torch, sysm.backend, name, backend_ms)
+               for name in ("on_keyframe", "solve")]
+    restore.append(_time_calls(torch, retrieval, "update", backend_ms))
 
     cr.launches = cr.bwd_launches = 0
     track_ms, gauss_ms, render_ms, modes, renders = [], [], [], [], 0
+    refused = forced = 0
     last = None
 
     def run_frame(i):
-        """One frame as main.py runs it: track, then render."""
+        """One frame as main.py runs it: track (a keyframe forced every
+        other frame), then render."""
+        nonlocal refused, forced
         img = base[i: i + H, 2 * i: 2 * i + W]
         frame = create_frame(i, img, img_size=W, device="cuda")
         ta = time.perf_counter()
-        mode, _ = sysm.process_frame(frame)
+        was = sysm.mode
+        n_kf = len(sysm.keyframes)
+        mode, _ = sysm.process_frame(frame, force_keyframe=bool(i % 2))
         torch.cuda.synchronize()
         tb = time.perf_counter()
-        if mode == Mode.RELOC:
+        forced += int(bool(i % 2) and len(sysm.keyframes) > n_kf)
+        if was == Mode.RELOC and mode == Mode.RELOC:
+            # the backend refused this frame's relocalization
+            refused += 1
             sysm.mode = Mode.TRACKING  # see the module docstring
         engine.ensure_gaussians(frame)
         torch.cuda.synchronize()
@@ -663,6 +902,13 @@ def main(argv=None) -> int:
     launches, serving_bwd_launches = cr.launches, cr.bwd_launches
     assert launches == renders, f"{launches} launches for {renders} renders"
     assert serving_bwd_launches == 0, "the serving path launched a backward"
+    st = sysm.backend.stats
+    n_kf = len(sysm.keyframes)
+    assert n_kf >= 2 and st["neighbor_edges"] == n_kf - 1, \
+        f"{st['neighbor_edges']} neighbour edges for {n_kf} keyframes"
+    assert st["solves"] == n_kf and st["iters"] > 0, st
+    assert sysm.backend._stride_params()[0] == 2 and \
+        sysm.backend._stride_params()[2] == 4, "not the base.yaml strides"
 
     # right on the main path's own data: the kernel against its plain
     # version on the last frame's gaussians (read after the launch count,
@@ -694,7 +940,15 @@ def main(argv=None) -> int:
           f"median {statistics.median(gauss_ms[steady]):.2f} ms, "
           f"render_frame median {statistics.median(render_ms[steady]):.2f} "
           f"ms (frames 2+; tf32 off for matmul and cudnn) | keyframes "
-          f"{len(sysm.keyframes)} | pool "
+          f"{n_kf} ({forced} forced), edges {len(sysm.backend.ii)} "
+          f"(neighbour {st['neighbor_edges']}, matched "
+          f"{st['factor_edges']}), solves {st['solves']} ({st['iters']} GN "
+          f"iterations, {st['chol_fail']} Cholesky failures), relocalizations "
+          f"{st['reloc_ok']}/{st['reloc_tried']}, refused and put back "
+          f"{refused} | median host ms: on_keyframe "
+          f"{_median(backend_ms['on_keyframe']):.2f}, solve "
+          f"{_median(backend_ms['solve']):.2f}, retrieval update "
+          f"{_median(backend_ms['update']):.2f} | pool "
           f"{sysm.pool.n} | compositor launches {launches} = renders "
           f"{renders} | modes {','.join(modes)} | last frame: kernel vs "
           f"plain {path_err:.2e}, render vs render_tiles {tiles_err:.2e}, "
@@ -705,7 +959,9 @@ def main(argv=None) -> int:
           f"{path_bound_ms:.5f} ms by {path_bound_by}")
     results["slice"] = dict(frames=FRAMES, track_ms=track_ms,
                             gauss_ms=gauss_ms, render_ms=render_ms,
-                            modes=modes,
+                            modes=modes, backend_ms=backend_ms,
+                            backend_stats=dict(st), refused=refused,
+                            forced=forced,
                             keyframes=len(sysm.keyframes),
                             pool=sysm.pool.n, launches=launches,
                             kernel_vs_plain=path_err,
@@ -715,8 +971,11 @@ def main(argv=None) -> int:
                             kernel_ms=path_ms, call_ms=path_call_ms,
                             plain_ms=path_plain_ms,
                             bound_ms=path_bound_ms)
-    # one more frame under the profiler (after the launch count is read)
-    wall, busy, spans = _profile_frame(torch, lambda: run_frame(FRAMES))
+    # one more (forced keyframe) frame under the profiler, after the launch
+    # count is read
+    for r in restore:
+        r()
+    wall, busy, spans = _profile_frame(torch, lambda: run_frame(FRAMES + 1))
     print(f"[profile] one frame: wall {wall:.2f} ms, device kernels "
           f"{busy:.2f} ms (idle {max(0.0, 1 - busy / wall):.1%}) | "
           + ", ".join(f"{k} {h:.2f} ms open / {d:.2f} ms on the device"
@@ -728,7 +987,8 @@ def main(argv=None) -> int:
     from splatt3r_slam_tpu_torch.parallel import TrainConfig, Trainer
     from splatt3r_slam_tpu_torch.train import synthetic_batches
 
-    del model, engine, sysm, last, frame, kf, cat
+    del model, engine, sysm, last, frame, kf, cat, retrieval, restore
+    gc.collect()  # phase 3's keyframes, backend and model: not in the peak
     torch.cuda.empty_cache()
     th, tw = TRAIN_HW
     B = V = 1
@@ -867,7 +1127,24 @@ def main(argv=None) -> int:
         profile=dict(wall_ms=t_wall, device_ms=t_busy, spans=t_spans,
                      backward_device_ms_by_remainder=t_bwd_dev))
 
-    # -- 5. device ----------------------------------------------------------
+    # -- 5. the CLI's SLAM run at full width ----------------------------------
+    del trainer, step, named, batches, seen
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_line, cli_res = _cli_phase(torch, root, cr, [], "cuda")
+    cli_launches = cli_res["launches"]
+    print(cli_line)
+    p = cli_res["profile"]
+    print(f"[cli-profile] one more keyframe through the backend "
+          f"(on_keyframe: {p['edges_added']} edges matched, one solve): wall "
+          f"{p['wall_ms']:.2f} ms, device kernels {p['device_ms']:.2f} ms "
+          f"(idle {max(0.0, 1 - p['device_ms'] / p['wall_ms']):.1%}) | "
+          + ", ".join(f"{k} {h:.2f} ms open / {d:.2f} ms on the device"
+                      for k, (h, d) in sorted(p["spans"].items(),
+                                              key=lambda kv: -kv[1][0])))
+    results["cli"] = cli_res
+
+    # -- 6. device ----------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -880,8 +1157,9 @@ def main(argv=None) -> int:
         "name": "composite_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/composite.cu",
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:61",
-        "launches": launches + train_launches,
-        "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err),
+        "launches": launches + train_launches + cli_launches,
+        "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err,
+                           cli_res["kernel_vs_plain"]),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None, "call_ms": fwd_call_ms,
         "ms_training_shape": t_fwd_ms,
@@ -889,6 +1167,7 @@ def main(argv=None) -> int:
         "ms_serving_rows": path_ms, "call_ms_serving_rows": path_call_ms,
         "ms_training_rows": s_fwd_ms, "call_ms_training_rows": s_fwd_call_ms,
         "launches_serving": launches, "launches_training": train_launches,
+        "launches_cli": cli_launches,
     }, {
         "name": "composite_bwd_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/composite_bwd.cu",
@@ -907,6 +1186,7 @@ def main(argv=None) -> int:
         "ms_training_rows": s_bwd_ms, "call_ms_training_rows": s_bwd_call_ms,
         "launches_serving": serving_bwd_launches,
         "launches_training": train_bwd_launches,
+        "launches_cli": 0,
     }]
     results["kernels"] = kernels
     if args.out:

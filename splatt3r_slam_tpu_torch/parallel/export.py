@@ -2,39 +2,21 @@
 
 Counterpart of `splatt3r_slam_tpu/parallel/export.py`: periodic dumps of
 (context, target, rendered) image grids, and `save_as_ply` for predicted
-Gaussians in the standard 3DGS PLY layout. The PNG is written with the
-standard library (zlib + struct), so no image package is needed.
+Gaussians in the standard 3DGS PLY layout. PNGs are written by
+`utils/image.py::write_png` (zlib + struct), so no image package is needed.
 """
 
 from __future__ import annotations
 
 import pathlib
-import struct
-import zlib
 
 import numpy as np
+
+from splatt3r_slam_tpu_torch.utils.image import write_png
 
 
 def _np(x):
     return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
-
-
-def write_png(path, rgb_u8):
-    """(H, W, 3) uint8 RGB → an 8-bit truecolour PNG file."""
-    h, w, _ = rgb_u8.shape
-
-    def chunk(tag, data):
-        body = tag + data
-        return (struct.pack(">I", len(data)) + body
-                + struct.pack(">I", zlib.crc32(body)))
-
-    raw = b"".join(b"\x00" + np.ascontiguousarray(row).tobytes()
-                   for row in rgb_u8)  # filter type 0 per scanline
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw))
-                + chunk(b"IEND", b""))
 
 
 def save_batch_visuals(out_dir, step: int, batch: dict, rendered):

@@ -19,6 +19,7 @@ import torch
 
 from splatt3r_slam_tpu_torch import resolve_device
 from splatt3r_slam_tpu_torch.lie import sim3
+from splatt3r_slam_tpu_torch.utils.image import resize_img
 
 
 class Mode(Enum):
@@ -166,34 +167,33 @@ class FramePrefetcher:
         self._ex.shutdown(wait=False, cancel_futures=True)
 
 
+def uimg01(frame_or_arr) -> np.ndarray:
+    """Frame.uimg (stored uint8) as float [0, 1]."""
+    u = frame_or_arr.uimg if hasattr(frame_or_arr, "uimg") else frame_or_arr
+    u = np.asarray(u)
+    return u.astype(np.float32) / 255.0 if u.dtype == np.uint8 else u
+
+
 def create_frame(i, img, T_WC=None, img_size=512, downsample=1,
                  device="cuda") -> Frame:
-    """Frame from an (H, W, 3) image already at the working geometry
-    (long side == img_size, both sides multiples of 16, not square).
+    """Frame from an (H, W, 3) uint8 or float [0, 1] image of any size.
 
-    Normalisation is u8/127.5 − 1 on the device. Host resizing (PIL or the
-    native helper) is ported with the CLI in a later slice; until then a
-    frame that needs it raises NotImplementedError."""
+    The image is resized and cropped on the host to the working geometry
+    (`utils/image.py::resize_img`, the native helper's bilinear pixels) and
+    normalised as u8/127.5 − 1 on the device."""
     dev = resolve_device(device)
-    H0, W0 = img.shape[:2]
-    if not (img_size != 224 and max(H0, W0) == img_size and H0 % 16 == 0
-            and W0 % 16 == 0 and H0 != W0):
-        raise NotImplementedError(
-            f"frame of shape {(H0, W0)} needs resizing to img_size="
-            f"{img_size}; host resizing is ported together with the CLI "
-            "and dataloader (later slice)")
-    u8 = (img if img.dtype == np.uint8
-          else np.uint8(np.clip(img, 0, 1) * 255))
+    out = resize_img(img, img_size)
+    u8 = out["unnormalized_img"]
     rgb = torch.from_numpy(np.ascontiguousarray(u8)).to(dev).float()[None]
     rgb = rgb / 127.5 - 1.0
-    img_shape = np.int32([[H0, W0]])
+    img_shape = out["true_shape"].copy()
     uimg = u8
     if downsample > 1:
         uimg = uimg[::downsample, ::downsample]
         img_shape = img_shape // downsample
     return Frame(i, rgb, img_shape, img_shape.copy(), uimg,
                  T_WC if T_WC is not None else sim3.identity(device=dev),
-                 portrait=H0 > W0)
+                 portrait=rgb.shape[1] > rgb.shape[2])
 
 
 class KeyframeBuffer:
@@ -215,6 +215,10 @@ class KeyframeBuffer:
             kf.K = self.K
         return kf
 
+    def __setitem__(self, idx, value: Frame):
+        self.frames[idx] = value
+        self.is_dirty[idx] = True
+
     def append(self, value: Frame):
         if len(self.frames) == self.buffer:
             print(f"WARNING: keyframe count exceeds the reference buffer "
@@ -223,13 +227,32 @@ class KeyframeBuffer:
         self.frames.append(value)
         self.is_dirty.append(True)
 
+    def pop_last(self):
+        self.frames.pop()
+        self.is_dirty.pop()
+
     def last_keyframe(self) -> Optional[Frame]:
         return self.frames[-1] if self.frames else None
+
+    def update_T_WCs(self, T_WCs: torch.Tensor, idx) -> None:
+        """Write solved poses back: row k of T_WCs to keyframe idx[k], with
+        one host pull for the host copies of the translations."""
+        rows = T_WCs.detach().cpu().numpy()
+        for k, i in enumerate(np.atleast_1d(np.asarray(idx))):
+            self.frames[int(i)].T_WC = T_WCs[k]
+            self.frames[int(i)].T_WC_host = rows[k][:3].copy()
+            self.is_dirty[int(i)] = True
 
     def release_older_transients(self):
         """Release prediction buffers on all but the newest keyframe."""
         for f in self.frames[:-1]:
             f.release_transients()
+
+    def get_dirty_idx(self):
+        idx = [i for i, d in enumerate(self.is_dirty) if d]
+        for i in idx:
+            self.is_dirty[i] = False
+        return idx
 
     def set_intrinsics(self, K):
         self.K = torch.as_tensor(K, dtype=torch.float32)

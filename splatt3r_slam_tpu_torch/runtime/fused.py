@@ -213,6 +213,7 @@ class FusedTracker:
         self.pipeline_lag = int(config["tracking"].get("pipeline_lag", 0))
         self._pending = None
         self.last_T_WC_host = None
+        self.fails = 0  # frames whose pose solve failed
 
     def step(self, img, kf, T_WCf_init, idx_init, K=None):
         return fused_track_step(
@@ -290,6 +291,7 @@ class FusedTracker:
         self.last_T_WC_host = frame.T_WC_host
         if try_reloc > 0:
             if fail > 0:
+                self.fails += 1
                 print(f"Cholesky failed {frame.frame_id}")
             else:
                 print(f"Skipped frame {frame.frame_id}")

@@ -1,16 +1,18 @@
 """SLAM system: mode state machine + frame loop orchestration.
 
 Counterpart of `splatt3r_slam_tpu/runtime/system.py`: INIT → TRACKING
-(→ RELOC) through the fused tracker, Gaussian accumulation policy, and an
-optional backend invoked inline after keyframe events (the reference's
-`single_thread: True` mode). This slice ports the single-thread path; the
-pose-graph backend, retrieval and the modular tracker come in later
-slices, and with `backend=None` RELOC cannot succeed.
+(→ RELOC) through the fused tracker (or the modular one for the other
+filtering modes and `fused=False`), the Gaussian accumulation policy, and
+a backend (`backend/factor_graph.py`) run after each keyframe event:
+inline with `single_thread: True`, or on a worker thread whose failure is
+raised again on the main thread. RELOC succeeds only through the
+backend's retrieval-anchored `relocalize`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 
 import numpy as np
@@ -77,14 +79,20 @@ class SLAMSystem:
         if K is not None:
             self.keyframes.set_intrinsics(K)
         mode = config["tracking"]["filtering_mode"]
-        if not fused or mode != "weighted_pointmap":
-            raise NotImplementedError(
-                "the modular tracker (filtering modes other than "
-                "weighted_pointmap, or fused=False) is ported in a later "
-                "slice")
-        from splatt3r_slam_tpu_torch.runtime.fused import FusedTracker
+        if fused and mode == "weighted_pointmap":
+            from splatt3r_slam_tpu_torch.runtime.fused import FusedTracker
 
-        self.tracker = FusedTracker(engine, self.keyframes, config)
+            self.tracker = FusedTracker(engine, self.keyframes, config)
+        else:
+            if fused:
+                print(
+                    "[splatt3r-slam-tpu] filtering_mode="
+                    f"{mode!r} has no fused frontend; falling back to the "
+                    "modular tracker (~5x slower per frame). "
+                    "weighted_pointmap restores the fast path.")
+            from splatt3r_slam_tpu_torch.runtime.tracker import FrameTracker
+
+            self.tracker = FrameTracker(engine, self.keyframes)
         self.backend = backend
         self.gaussian_module = gaussian_module
         self.pool = GaussianPool(max_gaussians, device=engine.device)
@@ -95,10 +103,87 @@ class SLAMSystem:
         self._last_frame_T_WC = None
         self.last_gs_frame_id = None
         self.last_gs_T_WC = None
+        self.single_thread = bool(config.get("single_thread", True))
+        self._backend_lock = threading.Lock()
+        self._backend_queue: list[int] = []
+        self._backend_thread = None
+        self._backend_busy = False
+        self._backend_error: Exception | None = None
+        self._stop = False
+
+    def prewarm(self, background: bool = True):
+        """Nothing to compile ahead in eager PyTorch (the JAX package
+        compiles its backend's shapes here)."""
+        return None
+
+    def _run_backend_task(self, kf_idx: int):
+        if self.backend is None:
+            return True
+        return self.backend.on_keyframe(kf_idx)
 
     def _dispatch_backend(self, kf_idx: int):
-        if self.backend is not None:
-            self.backend.on_keyframe(kf_idx)
+        if self.backend is None:
+            return
+        if self.single_thread:
+            self._run_backend_task(kf_idx)
+            return
+        with self._backend_lock:
+            self._backend_queue.append(kf_idx)
+            if self._backend_thread is None or \
+                    not self._backend_thread.is_alive():
+                self._backend_thread = threading.Thread(
+                    target=self._backend_worker, daemon=True,
+                    name="backend")
+                self._backend_thread.start()
+
+    def _backend_worker(self):
+        while not self._stop:
+            with self._backend_lock:
+                task = (self._backend_queue.pop(0) if self._backend_queue
+                        else None)
+                self._backend_busy = task is not None
+            if task is None:
+                time.sleep(0.002)
+                continue
+            try:
+                self._run_backend_task(task)
+            except Exception as e:  # raised on the main thread by drain
+                with self._backend_lock:
+                    self._backend_error = e
+                    self._backend_busy = False
+                    self._backend_queue.clear()
+                    self._backend_thread = None  # dispatch respawns
+                return
+            with self._backend_lock:
+                self._backend_busy = False
+
+    def _drain_backend(self):
+        """Block until the worker is idle; raise any worker failure."""
+        while True:
+            with self._backend_lock:
+                if self._backend_error is not None:
+                    err, self._backend_error = self._backend_error, None
+                    raise err
+                if not self._backend_queue and not self._backend_busy:
+                    return
+                if (self._backend_queue and not self._backend_busy
+                        and (self._backend_thread is None
+                             or not self._backend_thread.is_alive())):
+                    raise RuntimeError(
+                        "backend worker died with "
+                        f"{len(self._backend_queue)} pending task(s)")
+            time.sleep(0.002)
+
+    def close(self):
+        """Finish the backend's queued work (raising a worker's failure)
+        and stop its worker."""
+        try:
+            if not self.single_thread:
+                self._drain_backend()
+        finally:
+            self._stop = True
+            if self._backend_thread is not None:
+                self._backend_thread.join(timeout=10)
 
     def _append_gaussians(self, frame: Frame, kf_idx: int):
         if self.gaussian_module is None:
@@ -138,7 +223,8 @@ class SLAMSystem:
                 return self.mode, False
             if frame.T_WC_host is None:
                 # pipeline_lag=1: reuse the last consumed host pose
-                frame.T_WC_host = self.tracker.last_T_WC_host
+                frame.T_WC_host = getattr(self.tracker, "last_T_WC_host",
+                                          None)
             if should_append_gaussians(frame, new_kf, self.last_gs_frame_id,
                                        self.last_gs_T_WC):
                 self._append_gaussians(frame, len(self.keyframes) - 1)
@@ -166,15 +252,16 @@ class SLAMSystem:
 
         raise RuntimeError(f"bad mode {self.mode}")
 
-    def run(self, images, max_frames=None, verbose=True):
-        """Process a sequence of (H, W, 3) images at the working size."""
-        n = len(images) if max_frames is None else min(len(images),
-                                                       max_frames)
+    def run(self, dataset, max_frames=None, verbose=True):
+        """Process a dataset: item i is (timestamp, (H, W, 3) image)."""
+        n = len(dataset) if max_frames is None else min(len(dataset),
+                                                        max_frames)
         downsample = config["dataset"]["img_downsample"]
         img_size = max(self.h, self.w)
 
         def load(i):
-            return create_frame(i, images[i], img_size=img_size,
+            _, img = dataset[i]
+            return create_frame(i, img, img_size=img_size,
                                 downsample=downsample,
                                 device=self.engine.device)
 
@@ -192,6 +279,7 @@ class SLAMSystem:
                           f"mode={self.mode}")
         finally:
             prefetch.close()
+        self.close()
         elapsed = time.time() - t0
         return SLAMResult(self.keyframes, self.pool, n,
                           n / elapsed if elapsed > 0 else 0.0)

@@ -159,7 +159,8 @@ def test_run_loop_matches_process_frame(engines):
     _, te = engines
     tcfg.config["tracking"]["max_iters"] = 0
     imgs = _frames()
-    res = SLAMSystem(te, H, W, max_gaussians=1 << 16).run(imgs,
+    dataset = [(f"{i}", img) for i, img in enumerate(imgs)]  # (ts, image)
+    res = SLAMSystem(te, H, W, max_gaussians=1 << 16).run(dataset,
                                                           verbose=False)
     ref = SLAMSystem(te, H, W, max_gaussians=1 << 16)
     for i, img in enumerate(imgs):
@@ -189,12 +190,16 @@ def test_port_imports_no_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert len(mods) >= 36
+    assert len(mods) >= 50
     assert {"splatt3r_slam_tpu_torch." + m for m in (
         "train", "parallel", "parallel.trainer", "parallel.loss_mask",
         "parallel.logging", "parallel.workspace", "parallel.export",
         "utils.metrics", "utils.lpips", "splat.decoder",
-        "splat.cuda_rasterizer")} <= set(mods)
+        "splat.cuda_rasterizer", "__main__", "cli", "utils.image",
+        "runtime.dataloader", "runtime.evaluate", "runtime.tracker",
+        "ops.pose_graph", "backend", "backend.factor_graph", "retrieval",
+        "retrieval.model", "retrieval.asmk", "retrieval.database")
+    } <= set(mods)
 
 
 def test_cuda_requested_without_gpu_raises(monkeypatch):
@@ -207,12 +212,17 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
 
 
 def test_create_frame_matches_jax_and_refuses_resizing():
-    img = _frames()[1]
-    f = create_frame(3, img, img_size=W, device="cpu")
-    jf = j_create_frame(3, img, img_size=W)
-    np.testing.assert_allclose(f.img.numpy(), np.asarray(jf.img), atol=1e-6)
-    np.testing.assert_array_equal(f.img_shape, np.asarray(jf.img_shape))
-    np.testing.assert_array_equal(f.uimg, np.asarray(jf.uimg))
-    with pytest.raises(NotImplementedError, match="resiz"):
-        create_frame(0, np.zeros((40, 60, 3), np.uint8), img_size=64,
-                     device="cpu")
+    """At the working size and for a frame that needs resizing (which the
+    port refused before it had host resizing): the same image, shape and
+    uint8 pixels as the JAX create_frame (tests/test_torch_port_io.py
+    holds the resize itself within one uint8 step of the native helper;
+    on these frames it is exact)."""
+    rng = np.random.default_rng(3)
+    for img, size in ((_frames()[1], W),
+                      ((rng.random((40, 60, 3)) * 255).astype(np.uint8), 64)):
+        f = create_frame(3, img, img_size=size, device="cpu")
+        jf = j_create_frame(3, img, img_size=size)
+        np.testing.assert_allclose(f.img.numpy(), np.asarray(jf.img),
+                                   atol=1e-6)
+        np.testing.assert_array_equal(f.img_shape, np.asarray(jf.img_shape))
+        np.testing.assert_array_equal(f.uimg, np.asarray(jf.uimg))
