@@ -49,7 +49,37 @@ Phases, each printing one line of its own; any failure exits non-zero:
              frame under torch.profiler (host time each `port.*` span was
              open, device time of the kernels launched inside it, and the
              device's idle share);
-4. train   — the port's training path at full width: the same model with
+4. closed-loop — the SLAM loop closed on the plane-scene oracle at full
+             width: PlaneSceneOracle(inner=engine, plane (0.12, 0.08, 1) ·
+             X = 2, stride 2) around an engine on phase 3's model, base.yaml
+             unchanged (bf16 trunk, match stride 2, gn_stride 16, normal GN
+             iterations, no keyframe forced), the fused frontend with the
+             oracle's geometry swapped in on the device, FactorGraph with
+             OracleRetrieval(inner=RetrievalDatabase(65,536 words)), and
+             ensure_gaussians + render_frame every frame, over
+             pan_trajectory(40, 512). The real encoder, decoder, heads and
+             matcher run on every frame and are paid for; tracking, the
+             keyframe criterion, the backend's solves and RELOC run on exact
+             geometry. It checks no RELOC and no GN failure, 4-10 keyframes,
+             an edge to every keyframe after the first, a solve of more than
+             one GN iteration, compositor launches equal to the renders,
+             real encoder features beyond [0, 0, 0], the Sim(3)-aligned
+             keyframe ATE below 0.16 m (the JAX package's CI budget), and
+             the kernel against its plain version on the last frame's rows;
+             it prints median host ms of process_frame on tracked frames and
+             on keyframes, on_keyframe, the solve's GN iterations and
+             render_frame, then one tracked frame and one keyframe under
+             torch.profiler. Then the noisy kidnapped-camera variant:
+             reloc_pan_trajectory(30, 512, (16, 20)), noise 0.01, conf_noise
+             0.2, an occlusion window at frames 16-19; it must enter RELOC
+             through the tracking gate and not before frame 16, relocalize
+             at least once, end in TRACKING with 4-12 keyframes, and keep
+             the ATE over the keyframes outside the window below 0.25 m (the
+             ATE over all keyframes is printed: a blacked-out frame that
+             relocalizes onto the last keyframe through the consecutive
+             edge, which is never gated, keeps the seed keyframe's pose,
+             as in the JAX package);
+5. train   — the port's training path at full width: the same model with
              seeded random weights under `Trainer` with
              TrainConfig(render_loss=True, ssim_weight=0.1,
              mast3r_loss_weight=1.0, k_max=256), 3 steps of
@@ -60,7 +90,7 @@ Phases, each printing one line of its own; any failure exits non-zero:
              `make_eval_step` call; then one more step under torch.profiler
              (`port.train.*` spans), and both kernels against their plain
              versions, timed, on that step's own rows;
-5. cli     — `python -m splatt3r_slam_tpu_torch --dataset
+6. cli     — `python -m splatt3r_slam_tpu_torch --dataset
              tests/fixtures/tum/rgbd_dataset_freiburg1_fixture --config
              tests/fixtures/tum/eval_fixture.yaml --no-viz --seed 0` run in
              this process through the module's `main(argv)`, from a
@@ -82,7 +112,18 @@ Phases, each printing one line of its own; any failure exits non-zero:
              against groundtruth.txt (printed, not held: the weights are
              random); then one more keyframe through the backend under
              torch.profiler (`port.backend.*`, `port.retrieval`);
-6. device  — the card's name and power limit (nvidia-smi);
+7. calib   — the same CLI with calibrated input, with the checks of 6: the
+             fixture with `--calib` pointing at a YAML written here (width
+             320, height 240, fr1's calibration halved: 258.65, 258.25,
+             159.3, 127.65, and fr1's five distortion coefficients), and a
+             EuRoC `mav0/cam0` layout written here (12 seeded 752x480
+             grayscale PNGs, data.csv, the sensor.yaml of EuRoC cam0 with
+             its published intrinsics and distortion) under the fixture
+             config with use_calib on. Each must undistort every frame on
+             the host and run calibrated tracking solves and
+             `solve_GN_calib`; it prints the undistortion's host ms per
+             frame;
+8. device  — the card's name and power limit (nvidia-smi);
 then one JSON line with the kernel table and, last, the ok/device line.
 
 With `--parent DIR` it also builds the `composite.cu` and `composite_bwd.cu`
@@ -104,16 +145,18 @@ torch.backends.cudnn.allow_tf32 are both set False, so fp32 matmuls and
 convolutions (the pose solve, fp32 head projections) run in full fp32; the
 bf16 trunk is unaffected.
 
-Random weights give no valid matches, so a GN step of the pose solve
-always fails and sends the frame to RELOC. Phase 3 therefore runs the
-tracking solve with max_iters 0 and min_match_frac 0 (it passes the seeded
-pose through, as tests/test_torch_port_slice.py does), so that tracked
-frames succeed and the keyframes reach the backend; a frame whose
-relocalization the backend refused would be put back into TRACKING, and is
-counted. The cli phase keeps the fixture config's GN iterations: its
-tracked frames fail, and the relaxed RELOC gate of the fixture config lets
-the backend relocalize the next frame. The training data is synthetic
-(normal-noise images and targets), as the train CLI's dry runs use.
+Random weights give no valid matches, so on the network's own outputs a
+GN step of the pose solve always fails and sends the frame to RELOC. Phase
+3 therefore runs the tracking solve with max_iters 0 and min_match_frac 0
+(it passes the seeded pose through, as tests/test_torch_port_slice.py
+does), so that tracked frames succeed and the keyframes reach the backend;
+a frame whose relocalization the backend refused would be put back into
+TRACKING, and is counted. Phase 4 is how tracking, keyframing, the backend's
+solves and RELOC run as users run them: on the oracle's exact geometry. The
+cli phases keep the fixture config's GN iterations: their tracked frames
+fail, and the relaxed RELOC gate of the fixture config lets the backend
+relocalize the next frame. The training data is synthetic (normal-noise
+images and targets), as the train CLI's dry runs use.
 """
 
 from __future__ import annotations
@@ -364,8 +407,8 @@ def _boundary_tiles(torch, counts, k_max, seed):
 def _time_calls(torch, owner, name, store, keep=None):
     """Wrap `owner.name` (a class or an instance attribute) so that each
     call appends its host ms, with a synchronise before and after, to
-    store[name]; `keep(args, result)` may record more. Returns a function
-    that restores the original."""
+    store[name]; `keep(args, kwargs, result)` may record more. Returns a
+    function that restores the original."""
     real = getattr(owner, name)
     own = name in vars(owner)  # else a method found on the instance's class
 
@@ -376,7 +419,7 @@ def _time_calls(torch, owner, name, store, keep=None):
         torch.cuda.synchronize()
         store.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
         if keep is not None:
-            keep(a, out)
+            keep(a, kw, out)
         return out
 
     setattr(owner, name, timed)
@@ -394,48 +437,325 @@ def _median(xs):
     return statistics.median(xs) if xs else float("nan")
 
 
-def _cli_phase(torch, root, cr, argv, device):
-    """Run the port's CLI in this process from a temporary working
-    directory, time its layers, check its outputs, and run one more
-    keyframe through the backend under the profiler → (line, results)."""
+def _keyframe_ate(torch, sysm, oracle, skip=()):
+    """Sim(3)-aligned RMSE of the keyframe positions against the oracle's
+    ground truth, over the keyframes whose frame id is not in `skip`."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch.lie import sim3
+    from splatt3r_slam_tpu_torch.runtime.evaluate import umeyama_alignment
+
+    kfs = [sysm.keyframes[k] for k in range(len(sysm.keyframes))
+           if sysm.keyframes[k].frame_id not in skip]
+    est = np.stack([sim3.matrix(kf.T_WC).float().cpu().numpy()[:3, 3]
+                    for kf in kfs]).astype(np.float64)
+    gt = np.stack([oracle.gt[kf.frame_id][:3, 3] for kf in kfs])
+    s, R, t = umeyama_alignment(est, gt)
+    err = (s * (R @ est.T)).T + t - gt
+    return float(np.sqrt((err ** 2).sum(axis=1).mean()))
+
+
+def _closed_loop_phase(torch, cr, model, device="cuda"):
+    """The SLAM loop closed on the plane-scene oracle at full width (the
+    real network runs and is paid for; its outputs are swapped for exact
+    geometry), noise-free over a 40-frame pan, then the noisy kidnapped-
+    camera variant with an occlusion window → (lines, results)."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import config as cfgmod
+    from splatt3r_slam_tpu_torch.backend import FactorGraph
+    from splatt3r_slam_tpu_torch.retrieval import RetrievalDatabase
+    from splatt3r_slam_tpu_torch.runtime import oracle as orc
+    from splatt3r_slam_tpu_torch.runtime.frame import Mode, create_frame
+    from splatt3r_slam_tpu_torch.runtime.fused import FusedTracker
+    from splatt3r_slam_tpu_torch.runtime.inference import InferenceEngine
+    from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
+    from splatt3r_slam_tpu_torch.splat import GaussianAccumulator
+    from splatt3r_slam_tpu_torch.splat.decoder import render_frame
+
+    rng = np.random.default_rng(1)
+    texture = (rng.random((2 * H, 2 * W, 3)) * 255).astype(np.uint8)
+
+    def build(**noise):
+        """base.yaml unchanged; oracle around the real engine; backend with
+        the oracle's retrieval ranking around the real database."""
+        cfgmod.reset_config()
+        engine = InferenceEngine(model, H, W)
+        oracle = orc.PlaneSceneOracle(H, W, plane_n=(0.12, 0.08, 1.0),
+                                      plane_d=2.0, inner=engine,
+                                      stride=2, **noise)
+        sysm = SLAMSystem(oracle, H, W, gaussian_module=GaussianAccumulator(
+            spatial_stride=4, depth_max_percentile=0.98, max_scale=0.5,
+            min_confidence=1.5))
+        dim = model.cfg.enc_embed_dim  # 1024 for ViT-L, as cli.py sizes it
+        retrieval = orc.OracleRetrieval(oracle, inner=RetrievalDatabase(
+            feat_dim=dim, proj_dim=min(dim, 1024), device=device))
+        sysm.backend = FactorGraph(oracle, sysm.keyframes,
+                                   retrieval=retrieval)
+        return oracle, sysm
+
+    def drive(oracle, sysm, poses, first, ms, seen):
+        """Frames first.. of `poses` as main.py runs them (track, then
+        render), no keyframe forced; host ms per frame by kind."""
+        for i in range(first, len(poses)):
+            oracle.register(i, poses[i])
+            j = i % 40
+            frame = create_frame(i, texture[j: j + H, 2 * j: 2 * j + W],
+                                 img_size=W, device=device)
+            was, n_kf = sysm.mode, len(sysm.keyframes)
+            torch.cuda.synchronize()
+            ta = time.perf_counter()
+            mode, ok = sysm.process_frame(frame)
+            torch.cuda.synchronize()
+            tb = time.perf_counter()
+            oracle.ensure_gaussians(frame)
+            kf = sysm.keyframes.last_keyframe()
+            out = render_frame(frame, kf if kf is not None else frame)
+            torch.cuda.synchronize()
+            tc = time.perf_counter()
+            assert out is not None and out.shape == (H, W, 3), "no render"
+            assert torch.isfinite(out).all(), f"render {i} not finite"
+            kind = ("reloc" if was == Mode.RELOC else
+                    "keyframe" if len(sysm.keyframes) > n_kf else "tracked")
+            ms.setdefault(kind, []).append((tb - ta) * 1e3)
+            ms.setdefault("render", []).append((tc - tb) * 1e3)
+            seen["modes"].append(mode.name)
+            seen["reloc_ok"] += int(was == Mode.RELOC and bool(ok))
+            seen["last"] = (frame, kf)
+            seen["renders"] += 1
+
+    def backend_timers(sysm, ms):
+        """Host ms of on_keyframe, relocalize and the solve, and the GN
+        iterations of each solve."""
+        st = sysm.backend.stats
+        return [_time_calls(torch, sysm.backend, "on_keyframe", ms),
+                _time_calls(torch, sysm.backend, "relocalize", ms),
+                _time_calls(torch, sysm.backend, "solve", ms,
+                            lambda a, kw, out: ms.setdefault(
+                                "iters_cum", []).append(st["iters"]))]
+
+    def solve_iters(ms):
+        cum = [0] + ms.get("iters_cum", [])
+        return [b - a for a, b in zip(cum, cum[1:])]
+
+    # -- noise-free pan: 40 frames, then profiled frames -----------------
+    n_frames, n_extra = 40, 12
+    poses = orc.pan_trajectory(n_frames + n_extra, W)
+    oracle, sysm = build()
+    assert isinstance(sysm.tracker, FusedTracker) and \
+        sysm.tracker.oracle is oracle, "not the fused oracle frontend"
+    ms: dict = {}
+    seen = {"modes": [], "reloc_ok": 0, "renders": 0}
+    restore = backend_timers(sysm, ms)
+    cr.launches = cr.bwd_launches = 0
+    t0 = time.perf_counter()
+    drive(oracle, sysm, poses[:n_frames], 0, ms, seen)
+    run_s = time.perf_counter() - t0
+    launches, bwd = cr.launches, cr.bwd_launches
+    for r in restore:
+        r()
+    st = dict(sysm.backend.stats)
+    n_kf = len(sysm.keyframes)
+    kf_ids = [sysm.keyframes[k].frame_id for k in range(n_kf)]
+    iters = solve_iters(ms)
+    touched = set(sysm.backend.ii) | set(sysm.backend.jj)
+    feat = sysm.keyframes.last_keyframe().feat
+    assert "RELOC" not in seen["modes"], f"RELOC: {seen['modes']}"
+    assert sysm.tracker.fails == 0, f"{sysm.tracker.fails} GN failures"
+    assert 4 <= n_kf <= 10, f"{n_kf} keyframes: {kf_ids}"
+    assert all(k in touched for k in range(1, n_kf)), \
+        f"a keyframe without an edge: {sorted(touched)} of {n_kf}"
+    assert max(iters) > 1, f"no solve ran more than one GN iteration: {iters}"
+    assert launches == seen["renders"] == n_frames and bwd == 0, \
+        f"{launches} launches, {seen['renders']} renders"
+    assert feat.numel() > 1 and float(feat[0, 1:].abs().max()) > 0, \
+        "no real encoder features"
+    ate = _keyframe_ate(torch, sysm, oracle)
+    assert ate < 0.16, f"closed-loop ATE {ate} m"
+
+    # the kernel against its plain version on the last frame's rows (after
+    # the count was read)
+    from splatt3r_slam_tpu_torch.lie import sim3
+    from splatt3r_slam_tpu_torch.splat.decoder import frame_gaussians
+
+    frame, kf = seen["last"]
+    K = torch.tensor([[float(W), 0, W / 2], [0, float(W), H / 2], [0, 0, 1]],
+                     device=device)
+    view = torch.linalg.inv(sim3.matrix(frame.T_WC)) @ sim3.matrix(frame.T_WC)
+    cnt, org, rw = cr.pack_rows(*frame_gaussians(frame, kf), view, K, (H, W))
+    zero = torch.zeros(3, device=device)
+    err = float((cr.composite(cnt, org, rw, zero)
+                 - cr.composite_torch(cnt, org, rw, zero)).abs().max())
+    assert err <= TOL, f"closed-loop kernel vs plain {err}"
+    k_ms = device_ms(lambda: cr.composite(cnt, org, rw, zero), torch)
+    k_call_ms = call_ms(lambda: cr.composite(cnt, org, rw, zero), torch)
+    k_plain_ms = call_ms(lambda: cr.composite_torch(cnt, org, rw, zero),
+                         torch, 5)
+    k_bound_ms, k_bound_by = _bound_ms(cnt)
+
+    # one tracked frame and one keyframe under the profiler
+    modes, renders = list(seen["modes"]), seen["renders"]
+    profiles = {}
+    for i in range(n_frames, n_frames + n_extra):
+        n_before = len(sysm.keyframes)
+        p_ms: dict = {}
+        p = _profile_frame(torch, lambda: drive(
+            oracle, sysm, poses[:i + 1], i, p_ms, seen))
+        kind = "keyframe" if len(sysm.keyframes) > n_before else "tracked"
+        profiles.setdefault(kind, p)
+        if len(profiles) == 2:
+            break
+    assert set(profiles) == {"tracked", "keyframe"}, sorted(profiles)
+
+    med = {k: _median(v) for k, v in ms.items() if k != "iters_cum"}
+    line = (
+        f"[closed-loop] {n_frames} frames {H}x{W} on PlaneSceneOracle("
+        f"inner=engine, stride 2), base.yaml, fused frontend, no keyframe "
+        f"forced ({run_s:.1f} s) | modes "
+        f"{''.join(m[0] for m in modes)} | keyframes {n_kf} at "
+        f"frames {kf_ids}, GN failures 0, edges {len(sysm.backend.ii)} "
+        f"(neighbour {st['neighbor_edges']}, matched {st['factor_edges']}), "
+        f"solves {st['solves']} with GN iterations {iters} | keyframe ATE "
+        f"{ate * 1e3:.2f} mm (Sim(3)-aligned, held < 160 mm; the JAX "
+        f"package's TPU-era record at production size, ROADMAP Recent: 3.8 "
+        f"mm) | "
+        f"median host ms: process_frame tracked "
+        f"{med.get('tracked', float('nan')):.2f} "
+        f"({len(ms.get('tracked', []))}), keyframe "
+        f"{med.get('keyframe', float('nan')):.2f} "
+        f"({len(ms.get('keyframe', []))}), on_keyframe "
+        f"{med.get('on_keyframe', float('nan')):.2f}, solve "
+        f"{med.get('solve', float('nan')):.2f}, render "
+        f"{med['render']:.2f} | compositor launches {launches} = renders "
+        f"{renders} | last frame: kernel vs plain {err:.2e}, "
+        f"{int(cnt.sum())} rows (mean count {float(cnt.float().mean()):.1f}, "
+        f"largest {int(cnt.max())}), kernel {k_ms:.4f} ms on the device, "
+        f"call_ms {k_call_ms:.4f} vs plain {k_plain_ms:.3f} ms, bound "
+        f"{k_bound_ms:.5f} ms by {k_bound_by}")
+    prof_lines = []
+    for kind in ("tracked", "keyframe"):
+        wall, busy, spans = profiles[kind]
+        prof_lines.append(
+            f"[closed-loop-profile] one {kind} frame (process_frame + "
+            f"render): wall {wall:.2f} ms, device kernels {busy:.2f} ms "
+            f"(idle {max(0.0, 1 - busy / wall):.1%}) | "
+            + ", ".join(f"{k} {h:.2f} ms open / {d:.2f} ms on the device"
+                        for k, (h, d) in sorted(spans.items(),
+                                                key=lambda kv: -kv[1][0])))
+    res = dict(frames=n_frames, modes=modes, keyframes=kf_ids,
+               stats=st, solve_iters=iters, ate_m=ate, run_s=run_s,
+               ms={k: v for k, v in ms.items()}, launches=launches,
+               kernel_vs_plain=err, rows=int(cnt.sum()),
+               max_count=int(cnt.max()), kernel_ms=k_ms, call_ms=k_call_ms,
+               plain_ms=k_plain_ms, bound_ms=k_bound_ms,
+               profiles={k: dict(wall_ms=w, device_ms=b, spans=s)
+                         for k, (w, b, s) in profiles.items()})
+    del oracle, sysm, frame, kf, seen
+
+    # -- the noisy kidnapped-camera run ----------------------------------
+    blackout = (16, 20)
+    poses = orc.reloc_pan_trajectory(30, W, blackout)
+    oracle, sysm = build(noise=0.01, conf_noise=0.2, blackout=blackout)
+    n_ms: dict = {}
+    seen = {"modes": [], "reloc_ok": 0, "renders": 0}
+    restore = backend_timers(sysm, n_ms)
+    cr.launches = 0
+    t0 = time.perf_counter()
+    drive(oracle, sysm, poses, 0, n_ms, seen)
+    n_run_s = time.perf_counter() - t0
+    n_launches = cr.launches
+    for r in restore:
+        r()
+    modes = seen["modes"]
+    nst = dict(sysm.backend.stats)
+    n_ids = [sysm.keyframes[k].frame_id for k in range(len(sysm.keyframes))]
+    assert "RELOC" in modes, "the blackout never tripped the tracking gate"
+    assert "RELOC" not in modes[:blackout[0]], f"RELOC too early: {modes}"
+    assert seen["reloc_ok"] >= 1, "no successful relocalization"
+    assert modes[-1] == "TRACKING", "never recovered from RELOC"
+    assert 4 <= len(n_ids) <= 12, f"{len(n_ids)} keyframes: {n_ids}"
+    assert n_launches == seen["renders"] == len(poses)
+    # a blacked-out frame carries no geometry; when it relocalizes onto the
+    # last keyframe through the consecutive edge (never gated, as in the
+    # reference) its pose is a copy of the seed keyframe's, whatever the
+    # camera did: held on the keyframes the camera saw, reported on all
+    seen_ate = _keyframe_ate(torch, sysm, oracle, skip=range(*blackout))
+    all_ate = _keyframe_ate(torch, sysm, oracle)
+    assert seen_ate < 0.25, f"noisy closed-loop ATE {seen_ate} m"
+    nmed = {k: _median(v) for k, v in n_ms.items() if k != "iters_cum"}
+    n_line = (
+        f"[closed-loop-noisy] reloc_pan_trajectory(30, {W}, {blackout}), "
+        f"noise 0.01, conf_noise 0.2 ({n_run_s:.1f} s) | modes "
+        f"{''.join(m[0] for m in modes)} | keyframes {n_ids}, "
+        f"relocalizations {seen['reloc_ok']} ({nst['reloc_ok']}/"
+        f"{nst['reloc_tried']} tried), tracking GN failures "
+        f"{sysm.tracker.fails}, solves {nst['solves']} with GN iterations "
+        f"{solve_iters(n_ms)} | keyframe ATE {seen_ate * 1e3:.2f} mm over "
+        f"the keyframes outside the blackout (held < 250 mm), "
+        f"{all_ate * 1e3:.2f} mm over all | median host ms: relocalize "
+        f"{nmed.get('relocalize', float('nan')):.2f} "
+        f"({len(n_ms.get('relocalize', []))} calls), process_frame tracked "
+        f"{nmed.get('tracked', float('nan')):.2f}, keyframe "
+        f"{nmed.get('keyframe', float('nan')):.2f}, RELOC frame "
+        f"{nmed.get('reloc', float('nan')):.2f} | compositor launches "
+        f"{n_launches} = renders {seen['renders']}")
+    res["noisy"] = dict(modes=modes, keyframes=n_ids, stats=nst,
+                        reloc_ok=seen["reloc_ok"], ate_seen_m=seen_ate,
+                        ate_all_m=all_ate, run_s=n_run_s,
+                        ms={k: v for k, v in n_ms.items()},
+                        launches=n_launches,
+                        solve_iters=solve_iters(n_ms))
+    return [line, *prof_lines, n_line], res
+
+
+def _cli_phase(torch, root, cr, device, seq, config, argv=(),
+               profile=True):
+    """Run the port's CLI on `seq` with `config` in this process from a
+    temporary working directory, time its layers (and, for calibrated
+    input, count the calibrated solves and time the undistortion), check
+    its outputs, and, with `profile`, run one more keyframe through the
+    backend under the profiler → (line, results)."""
     import shutil
     import tempfile
-
-    import numpy as np
 
     from splatt3r_slam_tpu_torch import cli
     from splatt3r_slam_tpu_torch.backend.factor_graph import FactorGraph
     from splatt3r_slam_tpu_torch.lie import sim3
     from splatt3r_slam_tpu_torch.retrieval.database import RetrievalDatabase
     from splatt3r_slam_tpu_torch.runtime import evaluate as ev
-    from splatt3r_slam_tpu_torch.runtime.dataloader import load_dataset
+    from splatt3r_slam_tpu_torch.runtime import fused
+    from splatt3r_slam_tpu_torch.runtime.dataloader import (
+        Intrinsics,
+        load_dataset,
+    )
     from splatt3r_slam_tpu_torch.runtime.frame import create_frame
     from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
     from splatt3r_slam_tpu_torch.splat import decoder
     from splatt3r_slam_tpu_torch.splat.decoder import frame_gaussians
 
-    seq = os.path.join(root, "tests", "fixtures", "tum",
-                       "rgbd_dataset_freiburg1_fixture")
-    argv = ["--dataset", seq, "--config",
-            os.path.join(root, "tests", "fixtures", "tum",
-                         "eval_fixture.yaml"), "--no-viz", "--seed", "0",
+    name = os.path.basename(seq.rstrip(os.sep))
+    argv = ["--dataset", seq, "--config", config, "--no-viz", "--seed", "0",
             *argv]
     ms, seen = {}, {"modes": []}
 
-    def keep_mode(a, out):
+    def keep_mode(a, kw, out):
         seen["system"] = a[0]
         seen["modes"].append(out[0].name)
 
-    def keep_render(a, out):
+    def keep_render(a, kw, out):
         frame, ref = a[0], a[1]
         seen["render"] = (frame.gaussian_pred, frame.gaussian_pred_cross,
-                          frame.img, ref.img, frame.T_WC, out.shape[:2])
+                          frame.img, ref.img, frame.T_WC, out.shape[:2],
+                          kw.get("K"))
 
     restore = [
         _time_calls(torch, SLAMSystem, "process_frame", ms, keep_mode),
         _time_calls(torch, FactorGraph, "on_keyframe", ms),
         _time_calls(torch, FactorGraph, "relocalize", ms),
         _time_calls(torch, FactorGraph, "solve", ms),
+        _time_calls(torch, FactorGraph, "solve_GN_calib", ms),
+        _time_calls(torch, fused, "opt_pose_calib_sim3", ms),
+        _time_calls(torch, Intrinsics, "remap", ms),
         _time_calls(torch, RetrievalDatabase, "update", ms),
         _time_calls(torch, decoder, "render_frame", ms, keep_render)]
     here = os.getcwd()
@@ -448,16 +768,16 @@ def _cli_phase(torch, root, cr, argv, device):
         run_s = time.perf_counter() - t0
         launches, bwd_launches = cr.launches, cr.bwd_launches
         logs = os.path.join(work, "logs")
-        name = "rgbd_dataset_freiburg1_fixture"
         system = seen["system"]
         backend = system.backend
         n_kf = len(system.keyframes)
         n_frames = len(seen["modes"])
         assert rc == 0, f"cli exit {rc}"
-        rgb = open(os.path.join(seq, "rgb.txt")).read().split()
+        stamps = {str(t) for t in load_dataset(seq).timestamps}
         rows = open(os.path.join(logs, f"{name}.txt")).read().splitlines()
         assert len(rows) == n_kf, f"{len(rows)} rows for {n_kf} keyframes"
-        assert all(r.split()[0] in rgb for r in rows), "a foreign timestamp"
+        assert all(r.split()[0] in stamps for r in rows), \
+            "a foreign timestamp"
         pts, _ = ev.load_ply(os.path.join(logs, f"{name}.ply"))
         assert len(pts) > 0, "empty PLY"
         kf_pngs = os.listdir(os.path.join(logs, f"{name}_keyframes"))
@@ -475,8 +795,9 @@ def _cli_phase(torch, root, cr, argv, device):
         try:
             ate = ev.ate_rmse(os.path.join(seq, "groundtruth.txt"),
                               os.path.join(logs, f"{name}.txt"))
-        except ValueError as e:  # too few keyframes to align
-            ate = f"n/a ({e})"
+        except (OSError, ValueError, IndexError) as e:  # no ground truth,
+            # or too few rows to align
+            ate = f"n/a ({type(e).__name__})"
     finally:
         for r in restore:
             r()
@@ -485,7 +806,7 @@ def _cli_phase(torch, root, cr, argv, device):
 
     # the kernel against its plain version on the last render's rows
     # (after the counts were read, so these launches are not counted)
-    gp, gpc, img, ref_img, T_WC, hw = seen["render"]
+    gp, gpc, img, ref_img, T_WC, hw, K = seen["render"]
 
     class _F:
         pass
@@ -493,9 +814,10 @@ def _cli_phase(torch, root, cr, argv, device):
     fr, ref = _F(), _F()
     fr.gaussian_pred, fr.gaussian_pred_cross, fr.img = gp, gpc, img
     ref.img = ref_img
-    focal = float(max(hw))
-    K = torch.tensor([[focal, 0, hw[1] / 2], [0, focal, hw[0] / 2],
-                      [0, 0, 1]], device=img.device)
+    if K is None:  # render_frame's default camera
+        focal = float(max(hw))
+        K = torch.tensor([[focal, 0, hw[1] / 2], [0, focal, hw[0] / 2],
+                          [0, 0, 1]], device=img.device)
     view = torch.linalg.inv(sim3.matrix(T_WC)) @ sim3.matrix(T_WC)
     cnt, org, rw = cr.pack_rows(*frame_gaussians(fr, ref), view, K,
                                 tuple(hw))
@@ -504,29 +826,40 @@ def _cli_phase(torch, root, cr, argv, device):
                  - cr.composite_torch(cnt, org, rw, zero)).abs().max())
     assert err <= TOL, f"cli-path kernel vs plain {err}"
 
-    # one more keyframe through the backend, under the profiler
-    ds = load_dataset(seq)
-    ds.img_size = int(hw[1])
-    _, raw = ds[1]  # a frame the subsampled run skipped
-    frame = create_frame(len(rgb), raw, img_size=int(hw[1]), device=device)
-    X, C = system.engine.inference_mono(frame)
-    frame.update_pointmap(X, C)
-    system.keyframes.append(frame)
-    kf_idx = len(system.keyframes) - 1
-    before = (st["solves"], st["factor_edges"])
-    wall, busy, spans = _profile_frame(torch,
-                                       lambda: backend.on_keyframe(kf_idx))
-    assert st["solves"] == before[0] + 1
     res = dict(rc=rc, modes=seen["modes"], keyframes=n_kf, frames=n_frames,
                renders=renders, launches=launches, stats=dict(st),
                tracker_fails=getattr(system.tracker, "fails", None),
                ms={k: v for k, v in ms.items()}, run_s=run_s, ate=ate,
                kernel_vs_plain=err, rows=int(cnt.sum()),
-               profile=dict(wall_ms=wall, device_ms=busy, spans=spans,
-                            edges_added=st["factor_edges"] - before[1]))
+               calib_solves=len(ms.get("solve_GN_calib", [])),
+               calib_tracking_steps=len(ms.get("opt_pose_calib_sim3", [])),
+               undistorted=len(ms.get("remap", [])))
+    if profile:
+        # one more keyframe through the backend, under the profiler
+        ds = load_dataset(seq)
+        ds.img_size = int(hw[1])
+        _, raw = ds[1]  # a frame the subsampled run skipped
+        frame = create_frame(len(ds), raw, img_size=int(hw[1]),
+                             device=device)
+        X, C = system.engine.inference_mono(frame)
+        frame.update_pointmap(X, C)
+        system.keyframes.append(frame)
+        kf_idx = len(system.keyframes) - 1
+        before = (st["solves"], st["factor_edges"])
+        wall, busy, spans = _profile_frame(
+            torch, lambda: backend.on_keyframe(kf_idx))
+        assert st["solves"] == before[0] + 1
+        res["profile"] = dict(wall_ms=wall, device_ms=busy, spans=spans,
+                              edges_added=st["factor_edges"] - before[1])
     med = {k: _median(v) for k, v in ms.items()}
     line = (
-        f"[cli] {n_frames} frames, exit {rc} in {run_s:.1f} s | modes "
+        f"[cli] {name}: {n_frames} frames, exit {rc} in {run_s:.1f} s | "
+        + (f"calibrated: {res['undistorted']} frames undistorted "
+           f"({med['remap']:.2f} host ms each), "
+           f"{res['calib_tracking_steps']} calibrated tracking solves, "
+           f"{res['calib_solves']} solve_GN_calib | "
+           if res["undistorted"] else "") +
+        f"modes "
         f"{','.join(m[0] for m in seen['modes'])} | keyframes {n_kf}, edges "
         f"{len(backend.ii)} (neighbour {st['neighbor_edges']}, matched "
         f"{st['factor_edges']}), solves {st['solves']} ({st['iters']} GN "
@@ -546,6 +879,88 @@ def _cli_phase(torch, root, cr, argv, device):
         f"{ate if isinstance(ate, str) else f'{ate:.4f} m'} (random "
         f"weights, not held)")
     return line, res
+
+
+EUROC_SENSOR_YAML = """%YAML:1.0
+---
+sensor_type: camera
+comment: VI-Sensor cam0 (MT9M034)
+T_BS:
+  cols: 4
+  rows: 4
+  data: [0.0148655429818, -0.999880929698, 0.00414029679422, -0.0216401454975,
+         0.999557249008, 0.0149672133247, 0.025715529948, -0.064676986768,
+        -0.0257744366974, 0.00375618835797, 0.999660727178, 0.00981073058949,
+         0.0, 0.0, 0.0, 1.0]
+rate_hz: 20
+resolution: [752, 480]
+camera_model: pinhole
+intrinsics: [458.654, 457.296, 367.215, 248.375] #fu, fv, cu, cv
+distortion_model: radial-tangential
+distortion_coefficients: [-0.28340811, 0.07395907, 0.00019359, 1.76187114e-05]
+"""
+
+
+def _calibrated_phase(torch, root, cr, device="cuda", argv=()):
+    """The CLI with calibrated input: the TUM fixture with `--calib` (fr1's
+    calibration halved for its 320x240 frames, fr1's five distortion
+    coefficients), then a EuRoC `mav0/cam0` layout of seeded 752x480
+    grayscale frames (always undistorted) under the fixture config with
+    use_calib on → (lines, results)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch.utils.image import write_png
+
+    fixture = os.path.join(root, "tests", "fixtures", "tum")
+    config = os.path.join(fixture, "eval_fixture.yaml")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_calib_")
+    try:
+        calib = os.path.join(tmp, "calib.yaml")
+        with open(calib, "w") as f:
+            f.write("width: 320\nheight: 240\ncalibration: [258.65, 258.25, "
+                    "159.3, 127.65, 0.2624, -0.9531, -0.0054, 0.0026, "
+                    "1.1633]\n")
+        lines, res = [], {}
+        tum_line, res["tum"] = _cli_phase(
+            torch, root, cr, device,
+            os.path.join(fixture, "rgbd_dataset_freiburg1_fixture"), config,
+            ["--calib", calib, *argv], profile=False)
+        lines.append(tum_line.replace("[cli]", "[cli-calib]", 1))
+
+        cam = os.path.join(tmp, "euroc", "MH_fab", "mav0", "cam0")
+        os.makedirs(os.path.join(cam, "data"))
+        rng = np.random.default_rng(2)
+        yy, xx = np.mgrid[0:480, 0:752]
+        rows = ["#timestamp [ns],filename"]
+        for i in range(12):  # a panned grating plus noise, subsample 2
+            ts = 1403636579763555584 + 50_000_000 * i
+            img = (127 + 60 * np.sin((xx + 9 * i) / 13.0)
+                   * np.cos(yy / 17.0) + rng.normal(0, 12, (480, 752)))
+            write_png(os.path.join(cam, "data", f"{ts}.png"),
+                      np.clip(img, 0, 255).astype(np.uint8))
+            rows.append(f"{ts},{ts}.png")
+        with open(os.path.join(cam, "data.csv"), "w") as f:
+            f.write("\n".join(rows) + "\n")
+        with open(os.path.join(cam, "sensor.yaml"), "w") as f:
+            f.write(EUROC_SENSOR_YAML)
+        euroc_cfg = os.path.join(tmp, "euroc_calib.yaml")
+        with open(euroc_cfg, "w") as f:
+            f.write(f"inherit: {config}\nuse_calib: True\n")
+        euroc_line, res["euroc"] = _cli_phase(
+            torch, root, cr, device, os.path.join(tmp, "euroc", "MH_fab"),
+            euroc_cfg, argv, profile=False)
+        lines.append(euroc_line.replace("[cli]", "[cli-euroc]", 1))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for r in res.values():
+        assert r["undistorted"] == r["frames"], \
+            f"{r['undistorted']} frames undistorted of {r['frames']}"
+        assert r["calib_tracking_steps"] >= 1 and r["calib_solves"] >= 1, \
+            "the calibrated solves did not run"
+    return lines, res
 
 
 def main(argv=None) -> int:
@@ -983,12 +1398,19 @@ def main(argv=None) -> int:
                                               key=lambda kv: -kv[1][0])))
     results["profile"] = dict(wall_ms=wall, device_ms=busy, spans=spans)
 
-    # -- 4. the training path at full width -----------------------------------
+    # -- 4. the closed loop on the plane-scene oracle -----------------------
+    cl_lines, cl_res = _closed_loop_phase(torch, cr, model)
+    for ln in cl_lines:
+        print(ln)
+    results["closed_loop"] = cl_res
+    cl_launches = cl_res["launches"] + cl_res["noisy"]["launches"]
+
+    # -- 5. the training path at full width -----------------------------------
     from splatt3r_slam_tpu_torch.parallel import TrainConfig, Trainer
     from splatt3r_slam_tpu_torch.train import synthetic_batches
 
     del model, engine, sysm, last, frame, kf, cat, retrieval, restore
-    gc.collect()  # phase 3's keyframes, backend and model: not in the peak
+    gc.collect()  # phases 3-4's keyframes, backends, model: not in the peak
     torch.cuda.empty_cache()
     th, tw = TRAIN_HW
     B = V = 1
@@ -1127,11 +1549,15 @@ def main(argv=None) -> int:
         profile=dict(wall_ms=t_wall, device_ms=t_busy, spans=t_spans,
                      backward_device_ms_by_remainder=t_bwd_dev))
 
-    # -- 5. the CLI's SLAM run at full width ----------------------------------
+    # -- 6. the CLI's SLAM run at full width ----------------------------------
     del trainer, step, named, batches, seen
     gc.collect()
     torch.cuda.empty_cache()
-    cli_line, cli_res = _cli_phase(torch, root, cr, [], "cuda")
+    fixture = os.path.join(root, "tests", "fixtures", "tum")
+    cli_line, cli_res = _cli_phase(
+        torch, root, cr, "cuda",
+        os.path.join(fixture, "rgbd_dataset_freiburg1_fixture"),
+        os.path.join(fixture, "eval_fixture.yaml"))
     cli_launches = cli_res["launches"]
     print(cli_line)
     p = cli_res["profile"]
@@ -1144,7 +1570,14 @@ def main(argv=None) -> int:
                                               key=lambda kv: -kv[1][0])))
     results["cli"] = cli_res
 
-    # -- 6. device ----------------------------------------------------------
+    # -- 7. calibrated input through the CLI --------------------------------
+    calib_lines, calib_res = _calibrated_phase(torch, root, cr)
+    for ln in calib_lines:
+        print(ln)
+    results["cli_calibrated"] = calib_res
+    calib_launches = sum(r["launches"] for r in calib_res.values())
+
+    # -- 8. device ----------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1157,17 +1590,26 @@ def main(argv=None) -> int:
         "name": "composite_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/composite.cu",
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:61",
-        "launches": launches + train_launches + cli_launches,
+        "launches": (launches + cl_launches + train_launches + cli_launches
+                     + calib_launches),
         "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err,
-                           cli_res["kernel_vs_plain"]),
+                           cli_res["kernel_vs_plain"],
+                           cl_res["kernel_vs_plain"],
+                           *(r["kernel_vs_plain"]
+                             for r in calib_res.values())),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None, "call_ms": fwd_call_ms,
         "ms_training_shape": t_fwd_ms,
         "bound_ms_training_shape": t_fwd_bound_ms,
         "ms_serving_rows": path_ms, "call_ms_serving_rows": path_call_ms,
         "ms_training_rows": s_fwd_ms, "call_ms_training_rows": s_fwd_call_ms,
+        "ms_closed_loop_rows": cl_res["kernel_ms"],
+        "call_ms_closed_loop_rows": cl_res["call_ms"],
+        "bound_ms_closed_loop_rows": cl_res["bound_ms"],
         "launches_serving": launches, "launches_training": train_launches,
         "launches_cli": cli_launches,
+        "launches_closed_loop": cl_launches,
+        "launches_cli_calibrated": calib_launches,
     }, {
         "name": "composite_bwd_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/composite_bwd.cu",
@@ -1187,6 +1629,8 @@ def main(argv=None) -> int:
         "launches_serving": serving_bwd_launches,
         "launches_training": train_bwd_launches,
         "launches_cli": 0,
+        "launches_closed_loop": 0,
+        "launches_cli_calibrated": 0,
     }]
     results["kernels"] = kernels
     if args.out:

@@ -10,7 +10,10 @@ tracked by `SLAMSystem` with the pose-graph backend (`FactorGraph`) and
 ASMK retrieval attached, and each `--render-stride`-th frame's splat
 render is written as a PNG one frame late. At the end come the TUM
 trajectory, the PLY reconstruction and the keyframe PNGs under
-`logs/<save-as>/`. Weights come from `--checkpoint`, else from
+`logs/<save-as>/`. With `--calib FILE` (or a config with `use_calib`)
+each frame is undistorted on the host and the tracking and backend solves
+run calibrated on the resized frame's intrinsics. Weights come from
+`--checkpoint`, else from
 `checkpoints/` in the repository, else seeded random weights; nothing is
 downloaded.
 """
@@ -39,8 +42,10 @@ def parse_args(argv=None):
                         "file, 'webcam', or 'realsense'")
     p.add_argument("--config", default="config/base.yaml")
     p.add_argument("--calib", default="",
-                   help="intrinsics YAML override (calibrated input is not "
-                        "ported yet: raises)")
+                   help="intrinsics YAML ({width, height, calibration: [fx, "
+                        "fy, cx, cy, k1, k2, p1, p2(, k3)]} or fx, fy, cx, "
+                        "cy, distortion): turns use_calib on and undistorts "
+                        "each frame")
     p.add_argument("--checkpoint", default=None,
                    help="Splatt3R .ckpt / MASt3R .pth (torch state dict); "
                         "omit to use checkpoints/ in the repository, else "
@@ -124,10 +129,6 @@ def main(argv=None):
     args = parse_args(argv)
     if not args.no_viz:
         raise NotImplementedError(_VIEWER_TODO)
-    if args.calib:
-        from splatt3r_slam_tpu_torch.runtime.dataloader import _CALIB_TODO
-
-        raise NotImplementedError(f"--calib: {_CALIB_TODO}")
 
     from splatt3r_slam_tpu_torch import config as cfgmod
     from splatt3r_slam_tpu_torch import resolve_device
@@ -135,7 +136,10 @@ def main(argv=None):
     from splatt3r_slam_tpu_torch.models import TwoViewConfig
     from splatt3r_slam_tpu_torch.retrieval import RetrievalDatabase
     from splatt3r_slam_tpu_torch.runtime import evaluate as ev
-    from splatt3r_slam_tpu_torch.runtime.dataloader import load_dataset
+    from splatt3r_slam_tpu_torch.runtime.dataloader import (
+        Intrinsics,
+        load_dataset,
+    )
     from splatt3r_slam_tpu_torch.runtime.frame import (
         FramePrefetcher,
         create_frame,
@@ -146,14 +150,34 @@ def main(argv=None):
     from splatt3r_slam_tpu_torch.splat.decoder import render_frame
     from splatt3r_slam_tpu_torch.utils.image import write_png
 
+    import torch
+
     device = resolve_device(args.device)
     cfg = cfgmod.load_config(args.config)
+    if args.calib:
+        with open(args.calib) as f:
+            cfgmod.config["calib_params"] = cfgmod.parse_yaml(f.read(),
+                                                              args.calib)
+        cfgmod.config["use_calib"] = True
 
     dataset = load_dataset(args.dataset)
     dataset.img_size = args.img_size
     stride = cfg["dataset"]["subsample"]
     if stride > 1 and dataset.save_results:
         dataset.subsample(stride)
+    if args.calib:
+        # {width, height, calibration: [...]} or fx, fy, cx, cy, distortion
+        c = cfgmod.config["calib_params"]
+        _, (H0, W0) = dataset.get_img_shape()
+        if "calibration" in c:
+            calib_vec = list(c["calibration"])
+        else:
+            calib_vec = [c["fx"], c["fy"], c["cx"], c["cy"]] + list(
+                c.get("distortion", []))
+        dataset.camera_intrinsics = Intrinsics.from_calib(
+            dataset.img_size, c.get("width", W0), c.get("height", H0),
+            calib_vec)
+        dataset.use_calibration = True
     (h, w), _ = dataset.get_img_shape()
     print(f"Working resolution: {h}x{w}")
 
@@ -167,7 +191,10 @@ def main(argv=None):
         cfg_model = TwoViewConfig(dtype="float32", head_dtype="float32").tiny()
     engine = InferenceEngine(load_model_params(args, cfg_model, device), h, w)
 
-    K = None  # calibrated input is not ported (--calib raised above)
+    K = None
+    if cfgmod.config.get("use_calib") and dataset.has_calib():
+        K = torch.as_tensor(dataset.camera_intrinsics.K_frame,
+                            dtype=torch.float32, device=device)
     retrieval = RetrievalDatabase(
         checkpoint_path=args.retrieval_checkpoint,
         codebook_path=args.codebook, feat_dim=cfg_model.enc_embed_dim,
@@ -217,6 +244,8 @@ def main(argv=None):
         for i in range(n):
             ts, frame = prefetch.get(i)
             timestamps.append(ts)
+            if K is not None:
+                frame.K = K
             system.process_frame(frame)
             if args.render_stride > 0 and i % args.render_stride == 0:
                 engine.ensure_gaussians(frame)

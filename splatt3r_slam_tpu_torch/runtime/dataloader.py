@@ -1,15 +1,19 @@
 """Host-side dataset readers.
 
 Counterpart of `splatt3r_slam_tpu/runtime/dataloader.py`: TUM `rgb.txt`
-lists, ETH3D `calibration.txt`, 7-Scenes `seq-01/*.color.png`, RGB folders,
-and the live and video sources. PNG frames are read by `utils/image.py`,
-so the readers need neither cv2 nor PIL. Timestamps stay the strings that
-`rgb.txt` holds, so the trajectory writer prints them as they are.
+lists, EuRoC `mav0/cam0` (`data.csv`, `sensor.yaml`), ETH3D
+`calibration.txt`, 7-Scenes `seq-01/*.color.png`, RGB folders, and the
+live and video sources. PNG frames are read by `utils/image.py`, so the
+readers need neither cv2 nor PIL. Timestamps stay the strings that the
+lists hold, so the trajectory writer prints them as they are.
 
-Calibrated input (undistortion with an optimal new camera matrix, EuRoC)
-waits for ROADMAP Queue 1's "Calibrated input" item: `Intrinsics.from_calib`
-raises NotImplementedError when `use_calib` is on. Video, webcam and `.jpg`
-frames import cv2, and RealSense imports pyrealsense2, only when used.
+Calibrated input (`use_calib`, `--calib`, and EuRoC always) undistorts each
+frame on the host in numpy, with the numbers of OpenCV 5's calls that the
+JAX package makes: `optimal_new_camera_matrix` (alpha 0,
+`getOptimalNewCameraMatrix`), `undistort_rectify_map`
+(`initUndistortRectifyMap`, float32 maps) and `Intrinsics.remap`
+(`remap`, bilinear, constant border 0). Video, webcam and `.jpg` frames
+import cv2, and RealSense imports pyrealsense2, only when used.
 """
 
 from __future__ import annotations
@@ -21,9 +25,6 @@ import numpy as np
 
 from splatt3r_slam_tpu_torch.config import config
 from splatt3r_slam_tpu_torch.utils.image import read_png, resize_img
-
-_CALIB_TODO = ("calibrated input (undistortion without cv2, --calib, EuRoC) "
-               "is ROADMAP Queue 1's 'Calibrated input' item, not ported yet")
 
 
 def _natsorted(paths):
@@ -89,7 +90,7 @@ class MonocularDataset:
     def get_image(self, idx):
         img = self.read_img(idx)
         if self.use_calibration and self.camera_intrinsics is not None:
-            raise NotImplementedError(_CALIB_TODO)
+            img = self.camera_intrinsics.remap(img)
         return img.astype(np.float32) / 255.0
 
     def get_img_shape(self):
@@ -128,12 +129,42 @@ class TUMDataset(MonocularDataset):
                 self.img_size, 640, 480, self._CALIB[int(m.group(1))])
 
 
+def read_sensor_yaml(path) -> dict:
+    """`resolution`, `intrinsics` and `distortion_coefficients` of a EuRoC
+    `sensor.yaml`. The file starts with OpenCV's `%YAML:1.0` directive,
+    which PyYAML refuses, and holds a nested `T_BS` map whose flow list
+    spans lines; only the three top-level flow lists of numbers are read."""
+    text = pathlib.Path(path).read_text()
+    out = {}
+    for key in ("resolution", "intrinsics", "distortion_coefficients"):
+        m = re.search(rf"^{key}\s*:\s*\[([^\]]*)\]", text, re.MULTILINE)
+        if m is None:
+            raise ValueError(f"{path}: no {key!r} list")
+        out[key] = [float(v) for v in m.group(1).split(",") if v.strip()]
+    out["resolution"] = [int(v) for v in out["resolution"]]
+    return out
+
+
 class EurocDataset(MonocularDataset):
-    """EuRoC MAV cam0: always undistorted, so it waits for calibrated
-    input."""
+    """EuRoC MAV cam0: grayscale frames as RGB, always undistorted (heavy
+    radial distortion)."""
 
     def __init__(self, dataset_path):
-        raise NotImplementedError(f"EuRoC: {_CALIB_TODO}")
+        super().__init__()
+        self.use_calibration = True
+        self.dataset_path = pathlib.Path(dataset_path)
+        cam = self.dataset_path / "mav0" / "cam0"
+        entries = [[c.strip() for c in line.split(",")]
+                   for line in (cam / "data.csv").read_text().splitlines()
+                   if line.strip() and not line.lstrip().startswith("#")]
+        self.rgb_files = [cam / "data" / e[1] for e in entries]
+        self.timestamps = [e[0] for e in entries]
+        cam0 = read_sensor_yaml(cam / "sensor.yaml")
+        W, H = cam0["resolution"]
+        self.camera_intrinsics = Intrinsics.from_calib(
+            self.img_size, W, H,
+            [*cam0["intrinsics"], *cam0["distortion_coefficients"]],
+            always_undistort=True)
 
 
 class ETH3DDataset(MonocularDataset):
@@ -266,16 +297,185 @@ class RealsenseDataset(MonocularDataset):
         return np.ascontiguousarray(img[..., ::-1])  # BGR → RGB
 
 
+def resize_transformation(H1: int, W1: int, size: int):
+    """(scale_w, scale_h, half_crop_w, half_crop_h) of the reference's
+    resize to `size` and centre crop (the JAX package's `resize_img(...,
+    return_transformation=True)`)."""
+    S = max(W1, H1)
+    long_edge = round(size * max(W1 / H1, H1 / W1)) if size == 224 else size
+    W, H = (int(round(x * long_edge / S)) for x in (W1, H1))
+    cx, cy = W // 2, H // 2
+    if size == 224:
+        halfw = halfh = min(cx, cy)
+    else:
+        halfw, halfh = ((2 * cx) // 16) * 8, ((2 * cy) // 16) * 8
+        if W == H:
+            halfh = 3 * halfw / 4
+    # PIL's crop rounds each edge of the box
+    crop_h = round(cy + halfh) - round(cy - halfh)
+    return W1 / W, H1 / H, (W - 2 * halfw) / 2, (H - crop_h) / 2
+
+
+def _undistort_points(pts, K, dist, P, iters: int = 5) -> np.ndarray:
+    """OpenCV's `undistortPoints(pts, K, dist, None, P)` with its default
+    criterion (5 fixed-point iterations, not a converged solve; under
+    strong distortion such as TUM fr1's k3 the two differ), in float64.
+    pts (n, 2) → (n, 2); P None keeps normalised coordinates."""
+    k = np.zeros(8)
+    k[:len(dist)] = dist
+    fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    u, v = pts[:, 0].astype(np.float64), pts[:, 1].astype(np.float64)
+    x0 = x = (u - cx) * (1.0 / fx)
+    y0 = y = (v - cy) * (1.0 / fy)
+    done = np.zeros(len(u), bool)
+    for _ in range(iters):
+        r2 = x * x + y * y
+        icdist = ((1 + ((k[7] * r2 + k[6]) * r2 + k[5]) * r2)
+                  / (1 + ((k[4] * r2 + k[1]) * r2 + k[0]) * r2))
+        # a negative icdist stops the point at its distorted position
+        stop = (icdist < 0) & ~done
+        dx = 2 * k[2] * x * y + k[3] * (r2 + 2 * x * x)
+        dy = k[2] * (r2 + 2 * y * y) + 2 * k[3] * x * y
+        x = np.where(done, x, np.where(stop, x0, (x0 - dx) * icdist))
+        y = np.where(done, y, np.where(stop, y0, (y0 - dy) * icdist))
+        done |= stop
+    R = np.eye(3) if P is None else np.asarray(P, np.float64)
+    w = 1.0 / (R[2, 0] * x + R[2, 1] * y + R[2, 2])
+    return np.stack([(R[0, 0] * x + R[0, 1] * y + R[0, 2]) * w,
+                     (R[1, 0] * x + R[1, 1] * y + R[1, 2]) * w], -1)
+
+
+def _undistorted_rectangles(K, dist, W: int, H: int, P):
+    """Inscribed and circumscribed rectangles (x, y, width, height) of a
+    9x9 grid of points, undistorted (OpenCV 5's `getUndistortRectangles`:
+    the grid spans [0, W-1] x [0, H-1], all in float64)."""
+    n = 9
+    g = np.arange(n, dtype=np.float64)
+    xs, ys = g * (W - 1) / (n - 1), g * (H - 1) / (n - 1)
+    grid = np.stack(np.meshgrid(xs, ys, indexing="xy"), -1).reshape(-1, 2)
+    q = _undistort_points(grid, K, dist, P).reshape(n, n, 2)
+    ix0, ix1 = q[:, 0, 0].max(), q[:, -1, 0].min()
+    iy0, iy1 = q[0, :, 1].max(), q[-1, :, 1].min()
+    ox0, ox1 = q[..., 0].min(), q[..., 0].max()
+    oy0, oy1 = q[..., 1].min(), q[..., 1].max()
+    return ((ix0, iy0, ix1 - ix0, iy1 - iy0),
+            (ox0, oy0, ox1 - ox0, oy1 - oy0))
+
+
+def optimal_new_camera_matrix(K, dist, size, center_principal_point=True):
+    """`cv2.getOptimalNewCameraMatrix(K, dist, size, 0, size,
+    centerPrincipalPoint=...)` (alpha 0: every pixel of the undistorted
+    image is valid) → (3, 3) float64. size is (W, H)."""
+    W, H = size
+    M = np.array(K, np.float64)
+    if center_principal_point:
+        cx0, cy0 = M[0, 2], M[1, 2]
+        cx, cy = (W - 1) * 0.5, (H - 1) * 0.5
+        (x, y, w, h), _ = _undistorted_rectangles(K, dist, W, H, K)
+        s = max(cx / (cx0 - x), cy / (cy0 - y), cx / (x + w - cx0),
+                cy / (y + h - cy0))
+        M[0, 0] *= s
+        M[1, 1] *= s
+        M[0, 2], M[1, 2] = cx, cy
+    else:
+        (x, y, w, h), _ = _undistorted_rectangles(K, dist, W, H, None)
+        M[0, 0] = (W - 1) / w
+        M[1, 1] = (H - 1) / h
+        M[0, 2] = -M[0, 0] * x
+        M[1, 2] = -M[1, 1] * y
+    return M
+
+
+def undistort_rectify_map(K, dist, K_new, size):
+    """`cv2.initUndistortRectifyMap(K, dist, None, K_new, size,
+    CV_32FC1)` → (mapx, mapy), each (H, W) float32: the distorted source
+    position of every pixel of the undistorted image (k1, k2, p1, p2 and
+    an optional k3)."""
+    W, H = size
+    k = np.zeros(5)
+    k[:len(dist)] = dist
+    k1, k2, p1, p2, k3 = k
+    iR = np.linalg.inv(np.asarray(K_new, np.float64))
+    j = np.arange(W, dtype=np.float64)[None, :]
+    i = np.arange(H, dtype=np.float64)[:, None]
+    w = 1.0 / (i * iR[2, 1] + iR[2, 2] + j * iR[2, 0])
+    x = (i * iR[0, 1] + iR[0, 2] + j * iR[0, 0]) * w
+    y = (i * iR[1, 1] + iR[1, 2] + j * iR[1, 0]) * w
+    x2, y2, xy2 = x * x, y * y, 2 * x * y
+    r2 = x2 + y2
+    kr = 1 + ((k3 * r2 + k2) * r2 + k1) * r2
+    xd = x * kr + p1 * xy2 + p2 * (r2 + 2 * x2)
+    yd = y * kr + p1 * (r2 + 2 * y2) + p2 * xy2
+    return ((K[0, 0] * xd + K[0, 2]).astype(np.float32),
+            (K[1, 1] * yd + K[1, 2]).astype(np.float32))
+
+
+def _fma32(a, b, c):
+    """a·b + c rounded once to float32 (OpenCV's remap uses fused
+    multiply-adds; the float64 product of two float32 values is exact)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
 class Intrinsics:
-    """Camera calibration. Only the uncalibrated case is ported:
-    `from_calib` returns None without `use_calib`, as the reference does,
-    and raises otherwise."""
+    """Camera calibration: undistortion maps and the intrinsics of the
+    resized, cropped frame (`K_frame`)."""
+
+    def __init__(self, img_size, W, H, K_orig, K, distortion, mapx, mapy):
+        self.img_size = img_size
+        self.W, self.H = W, H
+        self.K_orig = K_orig
+        self.K = K
+        self.distortion = distortion
+        self.mapx, self.mapy = mapx, mapy
+        sw, sh, half_w, half_h = resize_transformation(H, W, img_size)
+        self.K_frame = K.copy().astype(np.float32)
+        self.K_frame[0, 0] = K[0, 0] / sw
+        self.K_frame[1, 1] = K[1, 1] / sh
+        self.K_frame[0, 2] = K[0, 2] / sw - half_w
+        self.K_frame[1, 2] = K[1, 2] / sh - half_h
+        # the remap's gather: the four source neighbours of every pixel as
+        # flat indices (index H·W is a zero pixel: constant border 0) and
+        # the float32 fractions; the maps are fixed, so this is done once
+        x0, y0 = np.floor(mapx), np.floor(mapy)
+        self._ax = (mapx - x0)[..., None]
+        self._ay = (mapy - y0)[..., None]
+        x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+        self._taps = []
+        for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+            yy, xx = y0 + dy, x0 + dx
+            ok = (yy >= 0) & (yy < H) & (xx >= 0) & (xx < W)
+            self._taps.append(np.where(ok, yy * W + xx, H * W))
+
+    def remap(self, img: np.ndarray) -> np.ndarray:
+        """`cv2.remap(img, mapx, mapy, INTER_LINEAR)` on (H, W, 3) uint8
+        with OpenCV 5's float arithmetic: interpolate along x, then y, each
+        step one fused multiply-add in float32, round half to even."""
+        src = np.concatenate([img.reshape(-1, img.shape[-1]),
+                              np.zeros((1, img.shape[-1]), img.dtype)]
+                             ).astype(np.float32)
+        p00, p01, p10, p11 = (src[t] for t in self._taps)
+        top = _fma32(self._ax, p01 - p00, p00)
+        bot = _fma32(self._ax, p11 - p10, p10)
+        out = _fma32(self._ay, bot - top, top)
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
 
     @staticmethod
     def from_calib(img_size, W, H, calib, always_undistort=False):
+        """None without `use_calib` (unless `always_undistort`), else the
+        calibration [fx, fy, cx, cy, k1, k2, p1, p2(, k3)] undistorted
+        with the optimal new camera matrix."""
         if not config.get("use_calib", False) and not always_undistort:
             return None
-        raise NotImplementedError(_CALIB_TODO)
+        fx, fy, cx, cy = [float(c) for c in calib[:4]]
+        distortion = np.zeros(4)
+        if len(calib) > 4:
+            distortion = np.array(calib[4:], dtype=np.float64)
+        K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float64)
+        center = config.get("dataset", {}).get("center_principle_point",
+                                               True)
+        K_opt = optimal_new_camera_matrix(K, distortion, (W, H), center)
+        mapx, mapy = undistort_rectify_map(K, distortion, K_opt, (W, H))
+        return Intrinsics(img_size, W, H, K, K_opt, distortion, mapx, mapy)
 
 
 def load_dataset(dataset_path: str) -> MonocularDataset:

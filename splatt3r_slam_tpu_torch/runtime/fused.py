@@ -1,14 +1,17 @@
 """Fused frontend: the whole per-frame tracking step.
 
-Counterpart of `splatt3r_slam_tpu/runtime/fused.py` (without the
-closed-loop oracle variant):
+Counterpart of `splatt3r_slam_tpu/runtime/fused.py`:
 
     encode(new frame) → decode+heads(frame, keyframe) → match →
     mask/fraction reductions → Sim(3) GN → keyframe pointmap fusion →
     keyframe-selection criterion
 
 Keyframe tensors stay on the device; the host pulls one small flags vector
-per frame to drive the mode state machine.
+per frame to drive the mode state machine. With a closed-loop oracle
+(`runtime/oracle.py::PlaneSceneOracle` as the engine) the step swaps the
+network's pointmaps, confidences and matches for plane-scene geometry
+computed on the device (`_oracle_geometry`), after the network and the
+matcher have run.
 """
 
 from __future__ import annotations
@@ -76,13 +79,82 @@ class MatchingParams(NamedTuple):
         return cls(**kw)
 
 
+def _oracle_geometry(o: dict, h: int, w: int, s: int, hs: int, ws: int):
+    """Plane-scene geometry on the device for the oracle variant of the
+    step, from `PlaneSceneOracle.fused_inputs` (two 4x4 poses, the plane,
+    the focal length, a validity flag and the noise sigma): the host
+    oracle's math (pixel-centre rays, floor at full resolution, round to
+    nearest on the subgrid) in float32.
+
+    Pointmap noise comes from a generator on the device seeded from (1543,
+    fid); the JAX package draws it from `fold_in(PRNGKey(1543), fid)`, a
+    stream torch cannot reproduce.
+
+    Returns (Xff (n, 3) the frame's pointmap in its camera, Xkf (n, 3) the
+    keyframe's pixels in the frame's camera, idx (ns,) subgrid matches,
+    valid (ns,))."""
+    n_pix = h * w
+    Tf, Tk = o["T_f"], o["T_k"]
+    pn, pd, focal = o["plane_n"], o["plane_d"], o["focal"]
+    dev = Tf.device
+    u = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5
+         - w / 2) / focal
+    v = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5
+         - h / 2) / focal
+    rays = torch.stack(torch.broadcast_tensors(
+        u[None, :], v[:, None], torch.ones((), device=dev)), -1
+    ).reshape(n_pix, 3)
+
+    def plane_points(T):
+        # per-pixel ray/plane intersection in T's camera coordinates
+        tstar = (pd - pn @ T[:3, 3]) / (rays @ (T[:3, :3].T @ pn))
+        return rays * tstar[:, None]
+
+    Xff = plane_points(Tf)
+    Xw = plane_points(Tk) @ Tk[:3, :3].T + Tk[:3, 3]
+    Xkf = (Xw - Tf[:3, 3]) @ Tf[:3, :3]
+
+    if o.get("sigma") is not None:
+        g = torch.Generator(device=dev)
+        g.manual_seed((0x9E3779B97F4A7C15 * (2 * int(o["fid"]) + 1)
+                       + 1543) % (1 << 63))
+        sig = o["sigma"]
+        Xff = Xff + torch.randn(Xff.shape, generator=g, device=dev) * (
+            sig * Xff[:, 2:3].abs())
+        Xkf = Xkf + torch.randn(Xkf.shape, generator=g, device=dev) * (
+            sig * Xkf[:, 2:3].abs())
+
+    # subgrid matches: the keyframe's subgrid pixels located in the frame
+    Xs = Xkf.reshape(h, w, 3)[::s, ::s].reshape(hs * ws, 3)
+    z = torch.clamp(Xs[:, 2], min=1e-9)
+    uu = focal * Xs[:, 0] / z + w / 2
+    vv = focal * Xs[:, 1] / z + h / 2
+    # clamp before the cast (XLA's conversion saturates; torch's does not)
+    if s > 1:
+        ui = torch.round((uu - 0.5) / s).clamp(0, ws - 1).long()
+        vi = torch.round((vv - 0.5) / s).clamp(0, hs - 1).long()
+    else:
+        ui = torch.floor(uu).clamp(0, ws - 1).long()
+        vi = torch.floor(vv).clamp(0, hs - 1).long()
+    valid = ((uu >= 0) & (uu < w) & (vv >= 0) & (vv < h) & (Xs[:, 2] > 0)
+             & (o["ok"] > 0.5))
+    return Xff, Xkf, vi * ws + ui, valid
+
+
 @torch.no_grad()
 def fused_track_step(model, img, kf: KFState, T_WCf_init, idx_init, h: int,
                      w: int, tcfg: TrackingConfig, mcfg: MatchingParams,
                      head_mode: str = "tracking", use_calib: bool = False,
-                     K=None):
+                     K=None, oracle: dict | None = None):
     """One tracking step → (outputs dict, flags (8,) [match_frac, new_kf,
-    fail, try_reloc, N_fused, T_WC[:3]]), all on the device."""
+    fail, try_reloc, N_fused, T_WC[:3]]), all on the device.
+
+    `oracle` (`PlaneSceneOracle.fused_inputs`) swaps the network's
+    pointmaps, confidences and matches for exact plane-scene geometry with
+    `torch.where` on the `on` tensor, with no host branch: the encoder,
+    decoder, heads and matcher run and are paid for as without it, and the
+    masks, the solve, the fusion and the keyframe criterion then run on the
+    oracle's values."""
     n = h * w
     s = max(1, int(mcfg.match_stride))
     hs, ws = h // s, w // s
@@ -124,11 +196,28 @@ def fused_track_step(model, img, kf: KFState, T_WCf_init, idx_init, h: int,
     Cff = res11["conf"][0].reshape(n, 1)
     Xkf = res21["pts3d"][0].reshape(n, 3)
     Ckf = res21["conf"][0].reshape(n, 1)
+    Qff_full = res11["desc_conf"]
+    Qkf_full = res21["desc_conf"]
+
+    if oracle is not None:
+        with record_function("port.track.oracle"):
+            oXff, oXkf, oidx, ovalid = _oracle_geometry(oracle, h, w, s, hs,
+                                                        ws)
+            on = oracle["on"] > 0.5
+            oc = torch.tensor(10.0, device=on.device)  # PlaneSceneOracle.CONF
+            idx = torch.where(on, oidx, idx)
+            valid_match = torch.where(on, ovalid[:, None], valid_match)
+            Xff = torch.where(on, oXff, Xff)
+            Cff = torch.where(on, oc, Cff.float())
+            Xkf = torch.where(on, oXkf, Xkf)
+            Ckf = torch.where(on, oc, Ckf.float())
+            Qff_full = torch.where(on, oc, Qff_full.float())
+            Qkf_full = torch.where(on, oc, Qkf_full.float())
 
     Xff_s = sub_flat(Xff)
     Cff_s = sub_flat(Cff)
-    Qff_s = sub_grid(res11["desc_conf"])[0].reshape(ns, 1)
-    Qkf_s = sub_grid(res21["desc_conf"])[0].reshape(ns, 1)
+    Qff_s = sub_grid(Qff_full)[0].reshape(ns, 1)
+    Qkf_s = sub_grid(Qkf_full)[0].reshape(ns, 1)
     Xk_s = sub_flat(kf.X)
     Ck_s = sub_flat(kf.C)
 
@@ -204,6 +293,10 @@ class FusedTracker:
         self.tcfg = TrackingConfig.from_config(config)
         self.mcfg = MatchingParams.from_config(config)
         self.use_calib = bool(config.get("use_calib", False))
+        # closed-loop oracle: an engine with `fused_inputs`
+        # (`PlaneSceneOracle` around the real engine) switches the step to
+        # its oracle variant
+        self.oracle = engine if hasattr(engine, "fused_inputs") else None
         self.idx_f2k = None
         self._kf_state = None
         self._host_N = 0
@@ -215,11 +308,11 @@ class FusedTracker:
         self.last_T_WC_host = None
         self.fails = 0  # frames whose pose solve failed
 
-    def step(self, img, kf, T_WCf_init, idx_init, K=None):
+    def step(self, img, kf, T_WCf_init, idx_init, K=None, oracle=None):
         return fused_track_step(
             self.engine.model, img, kf, T_WCf_init, idx_init, self.engine.h,
             self.engine.w, self.tcfg, self.mcfg, use_calib=self.use_calib,
-            K=K)
+            K=K, oracle=oracle)
 
     def reset_idx_f2k(self):
         self.idx_f2k = None
@@ -249,11 +342,18 @@ class FusedTracker:
         K = self.keyframes.K if self.use_calib else None
         if K is not None:
             K = K.to(frame.img.device)
+        oin = None
+        if self.oracle is not None:
+            oin = self.oracle.fused_inputs(
+                frame.frame_id, self.keyframes.last_keyframe().frame_id)
         out, flags = self.step(frame.img, self._kf_state, frame.T_WC,
-                               self.idx_f2k, K)
+                               self.idx_f2k, K, oin)
 
         self.idx_f2k = out["idx_f2k"]
         frame.feat, frame.pos = out["feat"], out["pos"]
+        if self.oracle is not None:
+            # the frame's id for the backend's ground-truth lookup
+            self.oracle._stamp(frame)
         frame.X_canon, frame.C = out["X"], out["C"]
         frame.N = 1
         frame.N_updates = 1

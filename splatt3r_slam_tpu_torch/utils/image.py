@@ -32,15 +32,17 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def write_png(path, rgb_u8):
-    """(H, W, 3) uint8 RGB → an 8-bit truecolour PNG file (filter 0)."""
+    """(H, W, 3) uint8 RGB, or (H, W) uint8 gray → an 8-bit truecolour (or
+    grayscale) PNG file (filter 0)."""
     rgb_u8 = np.ascontiguousarray(rgb_u8, np.uint8)
-    h, w, _ = rgb_u8.shape
+    h, w = rgb_u8.shape[:2]
+    c = 1 if rgb_u8.ndim == 2 else 3
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
-                          rgb_u8.reshape(h, w * 3)], axis=1).tobytes()
+                          rgb_u8.reshape(h, w * c)], axis=1).tobytes()
     with open(path, "wb") as f:
         f.write(_PNG_SIG
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
-                                              0))
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                              0 if c == 1 else 2, 0, 0, 0))
                 + _chunk(b"IDAT", zlib.compress(raw))
                 + _chunk(b"IEND", b""))
 

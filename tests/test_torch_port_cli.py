@@ -94,8 +94,10 @@ def test_cli_refuses_what_is_not_ported(monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="viewers"):
         cli.main(ARGS[:4])
-    with pytest.raises(NotImplementedError, match="calibrated input"):
-        cli.main(ARGS + ["--calib", str(ROOT / "config" / "intrinsics.yaml")])
+    # --calib is ported (tests/test_torch_port_calib.py); the viewer is not
+    with pytest.raises(NotImplementedError, match="viewers"):
+        cli.main(ARGS[:4] + ["--calib",
+                             str(ROOT / "config" / "intrinsics.yaml")])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(ARGS)  # --device defaults to cuda

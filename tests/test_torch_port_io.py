@@ -220,10 +220,14 @@ def test_dataloader_dispatch_and_unported_inputs(tmp_path, both_configs):
     assert [p.name for p in ds.rgb_files] == ["f1.png", "f2.png", "f10.png"]
     assert ds[2][1].max() == pytest.approx(10 / 255)
     assert tdl.Intrinsics.from_calib(512, 640, 480, [1, 1, 1, 1]) is None
+    # calibrated input is ported (tests/test_torch_port_calib.py)
     tcfg.config["use_calib"] = True
-    with pytest.raises(NotImplementedError, match="calibrated input"):
-        tdl.Intrinsics.from_calib(512, 640, 480, [1, 1, 1, 1])
-    with pytest.raises(NotImplementedError, match="calibrated input"):
+    intr = tdl.Intrinsics.from_calib(512, 640, 480, [500, 500, 320, 240])
+    assert intr.mapx.shape == intr.mapy.shape == (480, 640)
+    np.testing.assert_allclose(intr.K_frame[0, 0], intr.K[0, 0] * 512 / 640,
+                               rtol=1e-6)
+    # a EuRoC path goes to the EuRoC reader, which needs mav0/cam0
+    with pytest.raises(FileNotFoundError, match="data.csv"):
         tdl.load_dataset(str(tmp_path / "euroc" / "MH_01"))
     with pytest.raises(ImportError, match="pyrealsense2"):
         tdl.load_dataset("realsense")
