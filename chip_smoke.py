@@ -79,6 +79,27 @@ Phases, each printing one line of its own; any failure exits non-zero:
              relocalizes onto the last keyframe through the consecutive
              edge, which is never gated, keeps the seed keyframe's pose,
              as in the JAX package);
+4b. entry — the measurement entry points, each through its `main(argv,
+             model=...)` on phase 3's model at full width (ViT-L, 384x512),
+             its printed JSON held to be its last line, the compositor's
+             counts set to 0 just before each and read just after:
+             `splatt3r_slam_tpu_torch.bench` (three passes of 37 timed
+             frames; every input of every fused step and every parameter on
+             cuda); `scripts.bench_system --cadence 5 --threaded
+             --retrieval --render-stride 1` over 40 frames (8 keyframes, one
+             backend task per keyframe drained with no worker failure,
+             forward compositor launches equal to the renders, 40 in the
+             warm-up and 40 timed, no backward launch); `--oracle --fused
+             --lag` over 40 frames (no RELOC, 4-10 keyframes, keyframe ATE
+             below 0.16 m); `--reloc-events 3` over 8 frames (3 successes);
+             `scripts.soak` over 120 frames with a keyframe every 3, a
+             keyframe buffer of 16, 24 edges and 262,144 gaussians (more
+             than 16 keyframes, frames over the capacity counted, edges and
+             gaussians within their caps in every third, a pool eviction;
+             device memory and FPS per third printed);
+             `scripts.profile_stages` (`sum_stages_ms` and
+             `fused_step_gflop` above 0) and
+             `scripts.profile_keyframe_event`, whose JSON is printed;
 5. train   — the port's training path at full width: the same model with
              seeded random weights under `Trainer` with
              TrainConfig(render_loss=True, ssim_weight=0.1,
@@ -140,8 +161,9 @@ is one isolated call on an empty queue with the Python wrapper included,
 which is what a main path with a few rows a tile pays. Plain versions are
 timed per call.
 
-Precision: torch.backends.cuda.matmul.allow_tf32 and
-torch.backends.cudnn.allow_tf32 are both set False, so fp32 matmuls and
+Precision: `set_fp32_precision()` sets
+torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+False, as every entry point of the port does, so fp32 matmuls and
 convolutions (the pose solve, fp32 head projections) run in full fp32; the
 bf16 trunk is unaffected.
 
@@ -162,13 +184,16 @@ images and targets), as the train CLI's dry runs use.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
+import io
 import json
 import os
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 H, W = 384, 512
 FRAMES = 10
@@ -708,6 +733,215 @@ def _closed_loop_phase(torch, cr, model, device="cuda"):
     return [line, *prof_lines, n_line], res
 
 
+ENTRY_SYSTEM = ["--frames", "40", "--cadence", "5", "--threaded",
+                "--retrieval", "--render-stride", "1"]
+ENTRY_ORACLE = ["--frames", "40", "--oracle", "--fused", "--lag"]
+ENTRY_RELOC = ["--frames", "8", "--reloc-events", "3"]
+ENTRY_SOAK = ["--frames", "120", "--kf-every", "3", "--kf-capacity", "16",
+              "--max-edges", "24", "--max-gaussians", "262144"]
+
+
+def _kept_render(a, kw, out):
+    """What `_render_vs_plain` needs of one `render_frame(*a, **kw)` call
+    that returned `out`, kept by reference so that the frame may drop its
+    buffers afterwards. The callers render from the frame's own pose."""
+    frame, ref = a[0], a[1]
+    assert kw.get("target_T_WC") is None and len(a) == 2, "a target pose"
+    return (frame.gaussian_pred, frame.gaussian_pred_cross, frame.img,
+            ref.img, frame.T_WC, tuple(out.shape[:2]), kw.get("K"))
+
+
+def _render_vs_plain(torch, cr, kept, path):
+    """The forward kernel against its plain version on the rows of the
+    render `kept` (from `_kept_render`), packed as `render_frame` packs
+    them → (max |kernel - plain|, rows). Raises past TOL."""
+    from splatt3r_slam_tpu_torch.lie import sim3
+    from splatt3r_slam_tpu_torch.splat.decoder import frame_gaussians
+
+    gp, gpc, img, ref_img, T_WC, hw, K = kept
+    fr, ref = types.SimpleNamespace(), types.SimpleNamespace()
+    fr.gaussian_pred, fr.gaussian_pred_cross, fr.img = gp, gpc, img
+    ref.img = ref_img
+    if K is None:  # render_frame's default camera
+        focal = float(max(hw))
+        K = torch.tensor([[focal, 0, hw[1] / 2], [0, focal, hw[0] / 2],
+                          [0, 0, 1]], device=img.device)
+    view = torch.linalg.inv(sim3.matrix(T_WC)) @ sim3.matrix(T_WC)
+    cnt, org, rw = cr.pack_rows(*frame_gaussians(fr, ref), view, K, hw)
+    zero = torch.zeros(3, device=img.device)
+    err = float((cr.composite(cnt, org, rw, zero)
+                 - cr.composite_torch(cnt, org, rw, zero)).abs().max())
+    assert err <= TOL, f"{path}-path kernel vs plain {err}"
+    return err, int(cnt.sum())
+
+
+def _run_entry(main, argv, model, cr):
+    """One entry point's `main(argv + ["--device", "cuda"], model=model)`
+    with the compositor's counts set to 0 just before and read just after,
+    and its own stdout kept apart → (result, seconds, (forward, backward)
+    launches). Its printed JSON must be its last line and equal what it
+    returned."""
+    buf = io.StringIO()
+    cr.launches = cr.bwd_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = main(list(argv) + ["--device", "cuda"], model=model)
+    secs = time.perf_counter() - t0
+    counts = (cr.launches, cr.bwd_launches)
+    printed = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert printed == {k: res[k] for k in printed}, "last line != result"
+    return res, secs, counts
+
+
+def _entry_phase(torch, cr, model):
+    """The measurement entry points on the card, each through its `main`
+    with phase 3's full-width model → (lines, results)."""
+    from splatt3r_slam_tpu_torch import bench
+    from splatt3r_slam_tpu_torch.runtime import fused
+    from splatt3r_slam_tpu_torch.scripts import (
+        bench_system,
+        profile_keyframe_event,
+        profile_stages,
+        soak,
+    )
+    from splatt3r_slam_tpu_torch.splat import decoder
+
+    assert all(p.is_cuda for p in model.parameters()), "model not on cuda"
+    lines, res, launches = [], {}, {}
+
+    # bench: every tensor the fused step is given lies on the card
+    steps, off = [0], set()
+    real_step = fused.fused_track_step
+
+    def checked(m, img, kf, T_WC, idx, *a, **kw):
+        steps[0] += 1
+        for name, t in (("img", img), ("T_WC", T_WC), *kf._asdict().items()):
+            if not t.is_cuda:
+                off.add(name)
+        return real_step(m, img, kf, T_WC, idx, *a, **kw)
+
+    fused.fused_track_step = checked
+    try:
+        b, b_s, launches["bench"] = _run_entry(bench.main, [], model, cr)
+    finally:
+        fused.fused_track_step = real_step
+    assert not off, f"fused-step inputs off the card: {sorted(off)}"
+    # warm-up frames 1-2, three passes of frames 3-39, two replays of 1-2
+    assert len(b["passes"]) == 3 and steps[0] == 2 + 3 * 37 + 2 * 2, steps
+    lines.append(
+        f"[entry-bench] {b['metric']} {b['value']:.3f} frames/s, the median "
+        f"of 3 passes of 37 timed frames ("
+        + ", ".join(f"{x:.3f}" for x in b["passes"])
+        + f"); {steps[0]} fused steps, every input and parameter on cuda | "
+        f"{b['device']}, {b['power_limit_w']} W | {b_s:.1f} s")
+    res["bench"] = dict(b, seconds=b_s)
+
+    # bench_system, cadence mode with the threaded backend, retrieval and a
+    # render every frame; the warm-up drives the whole length too
+    renders, kept = [], {}
+    real_render = decoder.render_frame
+
+    def counted(*a, **kw):
+        img = real_render(*a, **kw)
+        renders.append(img is not None)
+        if img is not None:
+            kept["render"] = _kept_render(a, kw, img)
+        return img
+
+    decoder.render_frame = counted
+    try:
+        c, c_s, launches["system"] = _run_entry(bench_system.main,
+                                                ENTRY_SYSTEM, model, cr)
+    finally:
+        decoder.render_frame = real_render
+    n_kf = 8  # frame 0 and the forced keyframes at frames 5, 10, ..., 35
+    assert c["keyframes"] == n_kf, c["keyframes"]
+    # one backend task per keyframe, all drained; close() raised none
+    assert [k for k, _ in c["backend_task_ms"]] == list(range(n_kf)), \
+        c["backend_task_ms"]
+    assert c["threaded"] and c["retrieval"] and c["render_stride"] == 1
+    assert len(renders) == 80 and all(renders), renders
+    assert launches["system"] == (len(renders), 0), launches["system"]
+    # the kernel against its plain version on the last render's rows
+    # (after the counts were read, so these launches are not counted)
+    err, n_rows = _render_vs_plain(torch, cr, kept["render"], "entry")
+    lines.append(
+        f"[entry-system] {' '.join(ENTRY_SYSTEM)}: loop {c['value']:.3f} "
+        f"frames/s (wall with the drain {c['wall_fps_incl_drain']:.3f}), "
+        f"fps_effective_p50 {c['fps_effective_p50']}, t_track_p50_ms "
+        f"{c['t_track_p50_ms']}, t_kf_event_p50_ms {c['t_kf_event_p50_ms']},"
+        f" backend_task_ms {c['backend_task_ms']}, drain {c['t_drain_s']} s"
+        f" | keyframes {c['keyframes']}, edges {c['backend_edges']}, "
+        f"gaussians {c['gaussians']}, RELOC put back {c['reboots']} | "
+        f"renders {len(renders)} (40 warm-up + 40 timed) = compositor "
+        f"launches {launches['system'][0]}, backward 0 | last render's "
+        f"{n_rows} rows: kernel vs plain {err:.3e} (tol {TOL:g}) | "
+        f"{c_s:.1f} s")
+    res["system"] = dict(c, seconds=c_s, renders=len(renders))
+    res["kernel_vs_plain"], res["rows"] = err, n_rows
+
+    o, o_s, launches["oracle"] = _run_entry(bench_system.main, ENTRY_ORACLE,
+                                            model, cr)
+    assert o["relocs"] == 0, o["relocs"]
+    assert 4 <= o["keyframes"] <= 10, o["keyframes"]
+    assert o["ate_rmse_m"] < 0.16, o["ate_rmse_m"]
+    assert launches["oracle"] == (0, 0), launches["oracle"]
+    lines.append(
+        f"[entry-oracle] {' '.join(ENTRY_ORACLE)}: {o['metric']} "
+        f"{o['value']:.3f} frames/s, t_track_p50_ms {o['t_track_p50_ms']}, "
+        f"t_kf_event_p50_ms {o['t_kf_event_p50_ms']} | keyframes "
+        f"{o['keyframes']}, edges {o['backend_edges']}, relocs "
+        f"{o['relocs']}, keyframe ATE {o['ate_rmse_m'] * 1e3:.2f} mm (held "
+        f"< 160 mm) | backend_task_ms {o['backend_task_ms']} | {o_s:.1f} s")
+    res["oracle"] = dict(o, seconds=o_s)
+
+    r, r_s, launches["reloc"] = _run_entry(bench_system.main, ENTRY_RELOC,
+                                           model, cr)
+    assert r["reloc_success"] == 3, r["reloc_success"]
+    lines.append(
+        f"[entry-reloc] {' '.join(ENTRY_RELOC)}: reloc_event_ms_p50 "
+        f"{r['reloc_event_ms_p50']}, events {r['reloc_event_ms']}, "
+        f"successes {r['reloc_success']}/3 | loop {r['value']:.3f} frames/s"
+        f" over 8 frames ({r['keyframes']} keyframes) | {r_s:.1f} s")
+    res["reloc"] = dict(r, seconds=r_s)
+
+    s, s_s, launches["soak"] = _run_entry(soak.main, ENTRY_SOAK, model, cr)
+    assert s["keyframes_final"] > 16 and s["over_capacity_frames"] > 0, s
+    assert s["edges_final"] <= 24 and all(
+        t["edges"] <= 24 for t in s["thirds"]), s["thirds"]
+    assert s["pool_evictions"] >= 1 and s["gaussians_final"] <= 262144 and \
+        all(t["gaussians"] <= 262144 for t in s["thirds"]), s
+    lines.append(
+        f"[entry-soak] {' '.join(ENTRY_SOAK)}: per third (FPS, MiB "
+        f"allocated, peak MiB, keyframes, edges, gaussians) "
+        + "; ".join(f"{t['fps']:.3f}, {t['mem_mb']}, {t['peak_mem_mb']}, "
+                    f"{t['keyframes']}, {t['edges']}, {t['gaussians']}"
+                    for t in s["thirds"])
+        + f" | after the warm-up {s['mem_mb_post_warmup']} MiB, peak since "
+        f"{s['peak_mem_mb_post_warmup']} MiB | keyframes "
+        f"{s['keyframes_final']} ({s['over_capacity_frames']} frames over "
+        f"the capacity of 16), pool evictions {s['pool_evictions']} | "
+        f"{s_s:.1f} s")
+    res["soak"] = dict(s, seconds=s_s)
+
+    p, p_s, launches["stages"] = _run_entry(profile_stages.main, [], model,
+                                            cr)
+    assert p["sum_stages_ms"] > 0 and p["fused_step_gflop"] > 0, p
+    lines.append(f"[entry-stages] {json.dumps(p)} | {p_s:.1f} s")
+    res["stages"] = dict(p, seconds=p_s)
+
+    k, k_s, launches["kf_event"] = _run_entry(profile_keyframe_event.main,
+                                              [], model, cr)
+    assert k["kf_event_sum_ms"] > 0, k
+    lines.append(f"[entry-kf-event] {json.dumps(k)} | {k_s:.1f} s")
+    res["kf_event"] = dict(k, seconds=k_s)
+
+    assert all(bw == 0 for _, bw in launches.values()), launches
+    res["launches"] = sum(f for f, _ in launches.values())
+    res["launches_by_run"] = launches
+    return lines, res
+
+
 def _cli_phase(torch, root, cr, device, seq, config, argv=(),
                profile=True):
     """Run the port's CLI on `seq` with `config` in this process from a
@@ -720,7 +954,6 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
 
     from splatt3r_slam_tpu_torch import cli
     from splatt3r_slam_tpu_torch.backend.factor_graph import FactorGraph
-    from splatt3r_slam_tpu_torch.lie import sim3
     from splatt3r_slam_tpu_torch.retrieval.database import RetrievalDatabase
     from splatt3r_slam_tpu_torch.runtime import evaluate as ev
     from splatt3r_slam_tpu_torch.runtime import fused
@@ -731,7 +964,6 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
     from splatt3r_slam_tpu_torch.runtime.frame import create_frame
     from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
     from splatt3r_slam_tpu_torch.splat import decoder
-    from splatt3r_slam_tpu_torch.splat.decoder import frame_gaussians
 
     name = os.path.basename(seq.rstrip(os.sep))
     argv = ["--dataset", seq, "--config", config, "--no-viz", "--seed", "0",
@@ -743,10 +975,7 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
         seen["modes"].append(out[0].name)
 
     def keep_render(a, kw, out):
-        frame, ref = a[0], a[1]
-        seen["render"] = (frame.gaussian_pred, frame.gaussian_pred_cross,
-                          frame.img, ref.img, frame.T_WC, out.shape[:2],
-                          kw.get("K"))
+        seen["render"] = _kept_render(a, kw, out)
 
     restore = [
         _time_calls(torch, SLAMSystem, "process_frame", ms, keep_mode),
@@ -806,36 +1035,19 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
 
     # the kernel against its plain version on the last render's rows
     # (after the counts were read, so these launches are not counted)
-    gp, gpc, img, ref_img, T_WC, hw, K = seen["render"]
-
-    class _F:
-        pass
-
-    fr, ref = _F(), _F()
-    fr.gaussian_pred, fr.gaussian_pred_cross, fr.img = gp, gpc, img
-    ref.img = ref_img
-    if K is None:  # render_frame's default camera
-        focal = float(max(hw))
-        K = torch.tensor([[focal, 0, hw[1] / 2], [0, focal, hw[0] / 2],
-                          [0, 0, 1]], device=img.device)
-    view = torch.linalg.inv(sim3.matrix(T_WC)) @ sim3.matrix(T_WC)
-    cnt, org, rw = cr.pack_rows(*frame_gaussians(fr, ref), view, K,
-                                tuple(hw))
-    zero = torch.zeros(3, device=img.device)
-    err = float((cr.composite(cnt, org, rw, zero)
-                 - cr.composite_torch(cnt, org, rw, zero)).abs().max())
-    assert err <= TOL, f"cli-path kernel vs plain {err}"
+    err, n_rows = _render_vs_plain(torch, cr, seen["render"], "cli")
 
     res = dict(rc=rc, modes=seen["modes"], keyframes=n_kf, frames=n_frames,
                renders=renders, launches=launches, stats=dict(st),
                tracker_fails=getattr(system.tracker, "fails", None),
                ms={k: v for k, v in ms.items()}, run_s=run_s, ate=ate,
-               kernel_vs_plain=err, rows=int(cnt.sum()),
+               kernel_vs_plain=err, rows=n_rows,
                calib_solves=len(ms.get("solve_GN_calib", [])),
                calib_tracking_steps=len(ms.get("opt_pose_calib_sim3", [])),
                undistorted=len(ms.get("remap", [])))
     if profile:
         # one more keyframe through the backend, under the profiler
+        hw = seen["render"][5]  # the rendered (h, w)
         ds = load_dataset(seq)
         ds.img_size = int(hw[1])
         _, raw = ds[1]  # a frame the subsampled run skipped
@@ -875,7 +1087,7 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
         f"render_frame {med['render_frame']:.2f} | renders {renders} = "
         f"launches {launches}, backward 0 | trajectory {len(rows)} rows, "
         f"PLY {len(pts)} vertices, {len(kf_pngs)} keyframe PNGs | kernel vs "
-        f"plain on the last render ({int(cnt.sum())} rows) {err:.2e} | ATE "
+        f"plain on the last render ({n_rows} rows) {err:.2e} | ATE "
         f"{ate if isinstance(ate, str) else f'{ate:.4f} m'} (random "
         f"weights, not held)")
     return line, res
@@ -982,6 +1194,7 @@ def main(argv=None) -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from splatt3r_slam_tpu_torch import config as cfgmod
+    from splatt3r_slam_tpu_torch import set_fp32_precision
     from splatt3r_slam_tpu_torch.backend import FactorGraph
     from splatt3r_slam_tpu_torch.lie import sim3
     from splatt3r_slam_tpu_torch.models import TwoViewConfig, init_model
@@ -1019,8 +1232,7 @@ def main(argv=None) -> int:
     results["build_s"] = build_s
 
     # -- 2. kernel against its plain version --------------------------------
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_fp32_precision()
     K = torch.tensor([[512.0, 0, W / 2], [0, 512.0, H / 2], [0, 0, 1]],
                      device="cuda")
     view = torch.eye(4, device="cuda")
@@ -1405,12 +1617,23 @@ def main(argv=None) -> int:
     results["closed_loop"] = cl_res
     cl_launches = cl_res["launches"] + cl_res["noisy"]["launches"]
 
+    # -- 4b. the measurement entry points on phase 3's model -----------------
+    del engine, sysm, last, frame, kf, cat, retrieval, restore
+    gc.collect()  # phases 3-4's keyframes and backends: not in the soak's
+    torch.cuda.empty_cache()
+    entry_lines, entry_res = _entry_phase(torch, cr, model)
+    for ln in entry_lines:
+        print(ln)
+    results["entry"] = entry_res
+    entry_launches = entry_res["launches"]
+    cfgmod.reset_config()
+
     # -- 5. the training path at full width -----------------------------------
     from splatt3r_slam_tpu_torch.parallel import TrainConfig, Trainer
     from splatt3r_slam_tpu_torch.train import synthetic_batches
 
-    del model, engine, sysm, last, frame, kf, cat, retrieval, restore
-    gc.collect()  # phases 3-4's keyframes, backends, model: not in the peak
+    del model
+    gc.collect()  # the entry points' state and the model: not in the peak
     torch.cuda.empty_cache()
     th, tw = TRAIN_HW
     B = V = 1
@@ -1590,11 +1813,12 @@ def main(argv=None) -> int:
         "name": "composite_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/composite.cu",
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:61",
-        "launches": (launches + cl_launches + train_launches + cli_launches
-                     + calib_launches),
+        "launches": (launches + cl_launches + entry_launches + train_launches
+                     + cli_launches + calib_launches),
         "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err,
                            cli_res["kernel_vs_plain"],
                            cl_res["kernel_vs_plain"],
+                           entry_res["kernel_vs_plain"],
                            *(r["kernel_vs_plain"]
                              for r in calib_res.values())),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1609,6 +1833,7 @@ def main(argv=None) -> int:
         "launches_serving": launches, "launches_training": train_launches,
         "launches_cli": cli_launches,
         "launches_closed_loop": cl_launches,
+        "launches_entry": entry_launches,
         "launches_cli_calibrated": calib_launches,
     }, {
         "name": "composite_bwd_kernel", "route": "cuda",
@@ -1630,6 +1855,7 @@ def main(argv=None) -> int:
         "launches_training": train_bwd_launches,
         "launches_cli": 0,
         "launches_closed_loop": 0,
+        "launches_entry": 0,
         "launches_cli_calibrated": 0,
     }]
     results["kernels"] = kernels

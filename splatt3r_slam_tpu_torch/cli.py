@@ -125,16 +125,31 @@ def load_model_params(args, cfg_model, device):
     return model.eval().requires_grad_(False)
 
 
+def build_retrieval(args, cfg_model, device):
+    """The retrieval database from --retrieval-checkpoint / --codebook, or
+    None if building it fails: the run goes on without loop closure and
+    relocalization, as `main.py` does."""
+    from splatt3r_slam_tpu_torch.retrieval import RetrievalDatabase
+
+    try:
+        return RetrievalDatabase(
+            checkpoint_path=args.retrieval_checkpoint,
+            codebook_path=args.codebook, feat_dim=cfg_model.enc_embed_dim,
+            proj_dim=min(cfg_model.enc_embed_dim, 1024), device=device)
+    except Exception as e:
+        print(f"retrieval disabled: {e}")
+        return None
+
+
 def main(argv=None):
     args = parse_args(argv)
     if not args.no_viz:
         raise NotImplementedError(_VIEWER_TODO)
 
     from splatt3r_slam_tpu_torch import config as cfgmod
-    from splatt3r_slam_tpu_torch import resolve_device
+    from splatt3r_slam_tpu_torch import resolve_device, set_fp32_precision
     from splatt3r_slam_tpu_torch.backend import FactorGraph
     from splatt3r_slam_tpu_torch.models import TwoViewConfig
-    from splatt3r_slam_tpu_torch.retrieval import RetrievalDatabase
     from splatt3r_slam_tpu_torch.runtime import evaluate as ev
     from splatt3r_slam_tpu_torch.runtime.dataloader import (
         Intrinsics,
@@ -152,6 +167,7 @@ def main(argv=None):
 
     import torch
 
+    set_fp32_precision()
     device = resolve_device(args.device)
     cfg = cfgmod.load_config(args.config)
     if args.calib:
@@ -195,10 +211,7 @@ def main(argv=None):
     if cfgmod.config.get("use_calib") and dataset.has_calib():
         K = torch.as_tensor(dataset.camera_intrinsics.K_frame,
                             dtype=torch.float32, device=device)
-    retrieval = RetrievalDatabase(
-        checkpoint_path=args.retrieval_checkpoint,
-        codebook_path=args.codebook, feat_dim=cfg_model.enc_embed_dim,
-        proj_dim=min(cfg_model.enc_embed_dim, 1024), device=device)
+    retrieval = build_retrieval(args, cfg_model, device)
     system = SLAMSystem(engine, h, w, K=K, max_gaussians=args.max_gaussians)
     system.backend = FactorGraph(engine, system.keyframes, K=K,
                                  retrieval=retrieval)

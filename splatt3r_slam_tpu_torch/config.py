@@ -7,8 +7,11 @@ reader for the subset of YAML that the repository's config files use: block
 maps by indentation, comments, single- and double-quoted and plain
 scalars, YAML 1.1 booleans and nulls, decimal ints, floats including
 ``1e-8`` and ``1e+1`` (PyYAML with the extended float resolver that the JAX
-package installs reads them so), and one-line flow lists of numbers. It
-raises on anything outside that subset rather than guess. `DEFAULTS` holds
+package installs reads them so), and lists of such scalars, one-line in
+flow style or in block style (``- item`` lines) under a key, as the
+training workspace's ``include:`` list of file names is
+(`parallel/workspace.py`). `parse_scalar` reads one command-line value the
+same way. It raises on anything outside that subset rather than guess. `DEFAULTS` holds
 `config/base.yaml`'s values, and `config` starts as a copy of them.
 """
 
@@ -172,6 +175,34 @@ def _strip_comment(text: str) -> str:
     return (text[: m.start()] if m else text).rstrip()
 
 
+def _flow_list(text: str, where: str) -> list:
+    """A one-line flow list '[a, b, ...]' of scalars."""
+    rest = text[1:-1].strip()
+    if not rest:
+        return []
+    items = []
+    while True:
+        rest = rest.lstrip()
+        if rest[:1] in ("'", '"'):
+            value, rest = _quoted(rest, where)
+            rest = rest.lstrip()
+        else:
+            cut = rest.find(",")
+            tok = (rest if cut < 0 else rest[:cut]).strip()
+            if not tok:
+                raise YAMLSubsetError(f"{where}: empty item in a flow list")
+            if any(c in tok for c in "[]{}"):
+                raise YAMLSubsetError(f"{where}: nested flow collection")
+            value = _plain(tok, where)
+            rest = "" if cut < 0 else rest[cut:]
+        items.append(value)
+        if not rest:
+            return items
+        if rest[0] != ",":
+            raise YAMLSubsetError(f"{where}: expected ',' in a flow list")
+        rest = rest[1:]
+
+
 def _value(text: str, where: str):
     text = text.strip()
     if text[:1] in ("'", '"'):
@@ -183,15 +214,18 @@ def _value(text: str, where: str):
     if text.startswith("["):
         if not text.endswith("]"):
             raise YAMLSubsetError(f"{where}: multi-line flow list")
-        items = [s.strip() for s in text[1:-1].split(",")]
-        if items == [""]:
-            return []
-        out = [_plain(s, where) if s else None for s in items]
-        if not all(isinstance(v, (int, float)) and not isinstance(v, bool)
-                   for v in out):
-            raise YAMLSubsetError(f"{where}: flow list of non-numbers")
-        return out
+        return _flow_list(text, where)
     return _plain(text, where)
+
+
+def parse_scalar(text: str, name: str = "<value>"):
+    """One value as `parse_yaml` reads a map's value: a command-line
+    override such as ``train.lr=2e-4``."""
+    return _value(text, name)
+
+
+def _is_item(body: str) -> bool:
+    return body == "-" or body.startswith("- ")
 
 
 def parse_yaml(text: str, name: str = "<yaml>"):
@@ -205,12 +239,24 @@ def parse_yaml(text: str, name: str = "<yaml>"):
         body = raw.strip()
         if not body or body.startswith("#"):
             continue
-        if body in ("---", "...") or body.startswith(("- ", "%")) \
-                or body == "-":
+        if body in ("---", "...") or body.startswith("%"):
             raise YAMLSubsetError(f"{where}: unsupported syntax {body!r}")
         lines.append((len(raw) - len(raw.lstrip(" ")), body, where))
     if not lines:
         return None
+
+    def block_list(i: int, indent: int):
+        """The '- item' lines at `indent` from line i: a list of scalars."""
+        items = []
+        while i < len(lines) and lines[i][0] == indent \
+                and _is_item(lines[i][1]):
+            _, body, where = lines[i]
+            item = body[1:].strip()
+            if _is_item(item) or item.startswith("["):
+                raise YAMLSubsetError(f"{where}: nested list")
+            items.append(_value(item, where) if item else None)
+            i += 1
+        return items, i
 
     def block(i: int, indent: int):
         """Parse the map whose keys sit at `indent`, from line i."""
@@ -221,6 +267,8 @@ def parse_yaml(text: str, name: str = "<yaml>"):
                 break
             if ind > indent:
                 raise YAMLSubsetError(f"{where}: unexpected indentation")
+            if _is_item(body):
+                raise YAMLSubsetError(f"{where}: unsupported syntax {body!r}")
             if body[0] in ("'", '"'):
                 key, rest = _quoted(body, where)
                 if not rest.startswith(":"):
@@ -234,8 +282,12 @@ def parse_yaml(text: str, name: str = "<yaml>"):
                 rest = body[m.end(0) - 1:] if len(body) >= m.end(0) else ""
             i += 1
             if _strip_comment(rest).strip() == "":
-                if i < len(lines) and lines[i][0] > indent:
-                    out[key], i = block(i, lines[i][0])
+                nxt = lines[i] if i < len(lines) else None
+                if nxt is not None and nxt[0] >= indent and _is_item(nxt[1]):
+                    # a block list, indented or at the key's own indent
+                    out[key], i = block_list(i, nxt[0])
+                elif nxt is not None and nxt[0] > indent:
+                    out[key], i = block(i, nxt[0])
                 else:
                     out[key] = None
             else:

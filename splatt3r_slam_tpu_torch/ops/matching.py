@@ -92,7 +92,11 @@ def _bilinear_gather(tab4, u, v, w: int, c: int):
     v0 = torch.floor(v)
     du = (u - u0)[..., None]
     dv = (v - v0)[..., None]
-    base = v0.long() * w + u0.long()
+    # a NaN coordinate (a singular LM step) reads row 0, and its NaN du/dv
+    # make the sample NaN, which `iter_proj` rejects; XLA converts NaN to
+    # an in-bounds index the same way, where torch's .long() gives -2^63
+    base = (torch.nan_to_num(v0, nan=0.0).long() * w
+            + torch.nan_to_num(u0, nan=0.0).long())
     rows = torch.gather(tab4, 1, base[..., None].expand(-1, -1, 4 * c))
     i00, i01, i10, i11 = rows.split(c, dim=-1)
     return ((1 - du) * (1 - dv) * i00 + du * (1 - dv) * i01

@@ -2,39 +2,23 @@
 
 Counterpart of `splatt3r_slam_tpu/parallel/workspace.py`: a config with an
 `include:` list, command-line dotlist overrides, a timestamped workspace
-directory, and a git-commit provenance snapshot. PyYAML is imported only
-where a YAML file is read; dotlist values and the resolved-config dump
-work without it (scalars are then parsed as JSON or Python literals and
-the dump is JSON, which is valid YAML).
+directory, and a git-commit provenance snapshot. Files and dotlist values
+are read with the port's own YAML reader (`config.parse_yaml`,
+`config.parse_scalar`), so PyYAML is not needed:
+values resolve as the JAX package's loader resolves them, extended float
+resolver included (``1e-3`` is a float). Where PyYAML is installed it
+writes the resolved-config dump; otherwise the dump is JSON, which is
+valid YAML.
 """
 
 from __future__ import annotations
 
-import ast
 import datetime
 import json
 import pathlib
 import subprocess
 
-
-def _parse_scalar(value: str):
-    """A dotlist value → bool/int/float/list/None/str, as YAML reads it."""
-    try:
-        import yaml
-    except ImportError:
-        low = value.strip().lower()
-        if low in ("true", "false"):
-            return low == "true"
-        if low in ("null", "~", ""):
-            return None
-        try:
-            return ast.literal_eval(value)
-        except (ValueError, SyntaxError):
-            try:
-                return float(value)
-            except ValueError:
-                return value
-    return yaml.safe_load(value)
+from splatt3r_slam_tpu_torch.config import parse_scalar, parse_yaml
 
 
 def _set_dotted(cfg: dict, dotted: str, value):
@@ -42,7 +26,7 @@ def _set_dotted(cfg: dict, dotted: str, value):
     d = cfg
     for k in keys[:-1]:
         d = d.setdefault(k, {})
-    d[keys[-1]] = _parse_scalar(value) if isinstance(value, str) else value
+    d[keys[-1]] = parse_scalar(value) if isinstance(value, str) else value
 
 
 def apply_dotlist(cfg: dict, dotlist=()) -> dict:
@@ -53,12 +37,10 @@ def apply_dotlist(cfg: dict, dotlist=()) -> dict:
 
 
 def load_config(path: str, dotlist=()) -> dict:
-    """YAML with `include:` list (merged in order) + dotlist overrides."""
-    import yaml
-
+    """YAML with `include:` list (merged in order) + dotlist overrides.
+    An include path is tried as given, then next to the including file."""
     path = pathlib.Path(path)
-    with open(path) as f:
-        cfg = yaml.safe_load(f) or {}
+    cfg = parse_yaml(path.read_text(), str(path)) or {}
     includes = cfg.pop("include", [])
     merged: dict = {}
     for inc in includes:

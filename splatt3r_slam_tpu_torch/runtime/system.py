@@ -197,6 +197,15 @@ class SLAMSystem:
         self.last_gs_frame_id = frame.frame_id
         self.last_gs_T_WC = _host_translation(frame)
 
+    def add_keyframe(self, frame: Frame):
+        """Make `frame` the newest keyframe: append it, hand it to the
+        backend, add its gaussians to the pool and release the older
+        keyframes' prediction buffers."""
+        self.keyframes.append(frame)
+        self._dispatch_backend(len(self.keyframes) - 1)
+        self._append_gaussians(frame, len(self.keyframes) - 1)
+        self.keyframes.release_older_transients()
+
     def process_frame(self, frame: Frame, force_keyframe: bool = False):
         """Advance the state machine by one frame. Returns (mode, new_kf)."""
         self.current_frame = frame
@@ -206,10 +215,7 @@ class SLAMSystem:
             X, C = self.engine.inference_mono(frame)
             frame.update_pointmap(X, C, self.tracker.filtering_mode,
                                   self.tracker.filtering_score)
-            self.keyframes.append(frame)
-            self._dispatch_backend(len(self.keyframes) - 1)
-            self._append_gaussians(frame, len(self.keyframes) - 1)
-            self.keyframes.release_older_transients()
+            self.add_keyframe(frame)
             self.mode = Mode.TRACKING
             self._last_frame_T_WC = frame.T_WC
             return self.mode, True

@@ -218,12 +218,14 @@ def main(argv=None):
                    help="--test sweep α (=β) values")
     args = p.parse_args(argv)
 
+    from splatt3r_slam_tpu_torch import set_fp32_precision
     from splatt3r_slam_tpu_torch.parallel.workspace import (
         apply_dotlist,
         create_workspace,
         load_config,
     )
 
+    set_fp32_precision()
     cfg = load_config(args.config, dotlist=args.overrides) \
         if args.config else apply_dotlist({}, args.overrides)
 

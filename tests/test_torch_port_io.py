@@ -77,10 +77,11 @@ def test_load_config_matches_jax(path, both_configs):
 
 def test_yaml_reader_subset():
     text = ("a: 'x # y'  # c\nb: \"q\\tz\"\nc:\nd:\n  e: [1, 2.5, -3e-2]\n"
-            "  f: on\n  g: ~\n  h: 1_000\n  i: .5e+3\n  j: -.5\n")
+            "  f: on\n  g: ~\n  h: 1_000\n  i: .5e+3\n  j: -.5\n"
+            "  k: [x, y]\n  l: [x, 'y, z', 1, off]\n")
     assert tcfg.parse_yaml(text) == _pyyaml(text)
     for bad in ("- a", "a: &x 1", "a: {b: 1}", "a: 0x10", "a: 010",
-                "a: |\n  x", "a: [x, y]", "a: 2001-01-01", "a: b: c",
+                "a: |\n  x", "a: [x, [y]]", "a: 2001-01-01", "a: b: c",
                 "a: 1\n  b: 2", "---\na: 1", "a: !!str 1"):
         with pytest.raises(ValueError):
             tcfg.parse_yaml(bad)

@@ -98,6 +98,34 @@ def test_iter_proj(rng):
     assert close > 0.995, close
 
 
+@pytest.mark.parametrize("case", ["nan_start", "overflow_step"])
+def test_iter_proj_nan_coordinates(rng, case):
+    """A NaN coordinate (a NaN start, or an LM step whose normal equations
+    overflow to inf - inf) samples NaN and is rejected, as in the JAX
+    package, where the port once raised on the gather's index."""
+    X11, X21, _, _ = _pointmaps(rng)
+    rays = np.array(jm.prep_rays_with_grad(jnp.asarray(X11)))
+    pn = X21.reshape(1, -1, 3)
+    pn = pn / np.linalg.norm(pn, axis=-1, keepdims=True)
+    p0 = np.stack(np.meshgrid(np.arange(W), np.arange(H)), -1).reshape(
+        1, -1, 2).astype(np.float32)
+    if case == "nan_start":
+        p0[0, ::7, 0] = np.nan
+    else:
+        rays[0, 5:9, 10:14, 3:9] = 1e30
+    jp, jc = jm.iter_proj(jnp.asarray(rays), jnp.asarray(pn),
+                          jnp.asarray(p0), 10, 1e-8, 1e-6)
+    tp, tc = tm.iter_proj(_t(rays), _t(pn), _t(p0), 10, 1e-8, 1e-6)
+    jp, jc = np.asarray(jp), np.asarray(jc)
+    assert np.isnan(jp).any() == (case == "nan_start")
+    np.testing.assert_array_equal(np.isnan(tp.numpy()), np.isnan(jp))
+    agree = (tc.numpy() == jc).mean()
+    assert agree > 0.995, agree
+    ok = ~np.isnan(jp).any(-1)
+    close = np.isclose(tp.numpy()[ok], jp[ok], atol=1e-3).all(-1).mean()
+    assert close > 0.995, close
+
+
 def test_bilinear_gather(rng):
     img = rng.normal(size=(H, W, 9)).astype(np.float32)
     u = (1 + rng.random(50) * (W - 3)).astype(np.float32)

@@ -198,7 +198,9 @@ def test_port_imports_no_jax():
         "splat.cuda_rasterizer", "__main__", "cli", "utils.image",
         "runtime.dataloader", "runtime.evaluate", "runtime.tracker",
         "ops.pose_graph", "backend", "backend.factor_graph", "retrieval",
-        "retrieval.model", "retrieval.asmk", "retrieval.database")
+        "retrieval.model", "retrieval.asmk", "retrieval.database", "bench",
+        "scripts", "scripts._common", "scripts.bench_system", "scripts.soak",
+        "scripts.profile_stages", "scripts.profile_keyframe_event")
     } <= set(mods)
 
 
