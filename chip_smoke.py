@@ -100,6 +100,32 @@ Phases, each printing one line of its own; any failure exits non-zero:
              `scripts.profile_stages` (`sum_stages_ms` and
              `fused_step_gflop` above 0) and
              `scripts.profile_keyframe_event`, whose JSON is printed;
+4c. viz   — on phase 3's model and the noise-free closed loop's system
+             (its keyframes, edges and gaussian pool), each part with the
+             compositor's counts set to 0 just before it and read just
+             after: `Viewer(system, hw=(384, 512), headless=True)` ticks
+             once in each mode (splat colour, splat depth, surfels at
+             stride 4 from the last 16 keyframes, scatter; overlays and
+             image panels on), each tick a 384x512x3 PNG, forward launches
+             equal to the 3 renders (scatter renders none), and the kernel
+             against its plain version on the surfel view's and the splat
+             view's own rows (surfel rows timed); the session saved with
+             its FactorGraph and loaded into a fresh system and graph on the
+             same engine: poses, X_canon, C, features, pool rows and every
+             edge list bit for bit, the viewer's splat render identical,
+             one backend solve on each within 1e-6; `demo.main` on two
+             panned 384x512 PNGs it writes, `--n-views 8`: a PLY of 393,216
+             vertices, 8 PNGs, 8 launches, the kernel against its plain
+             version on the last view's rows (timed); the web app
+             (`serve(engine, port=0)` on a thread): POST /reconstruct with
+             the two PNGs, GET /render at three yaws (3 launches, each PNG
+             body equal to `engine.render`'s pixels) and /gaussians.ply;
+             `scripts.sweep_rasterizer_fidelity` in full (30k, 150k, 600k
+             gaussians at 192x256; k_max 128-1024; tpg_side 2, 4, 8: 36
+             launches), the production caps (tpg_side 4, k_max 512) at PSNR
+             >= 88 dB against the exact oracle at every density (the bar
+             PARITY.md records), and the kernel against its plain
+             version on the 600k, k_max 1024, tpg_side 2 rows (timed);
 5. train   — the port's training path at full width: the same model with
              seeded random weights under `Trainer` with
              TrainConfig(render_loss=True, ssim_weight=0.1,
@@ -133,6 +159,12 @@ Phases, each printing one line of its own; any failure exits non-zero:
              against groundtruth.txt (printed, not held: the weights are
              random); then one more keyframe through the backend under
              torch.profiler (`port.backend.*`, `port.retrieval`);
+6b. viz-cli — the same CLI run as users run it by default: without
+             --no-viz and with DISPLAY unset, so that the viewer ticks
+             headless every 10th frame once the pool holds gaussians; the
+             checks of 6, one viewer PNG per tick, forward launches equal to
+             the renders plus the ticks; the run's seconds printed beside
+             the --no-viz run's;
 7. calib   — the same CLI with calibrated input, with the checks of 6: the
              fixture with `--calib` pointing at a YAML written here (width
              320, height 240, fr1's calibration halved: 258.65, 258.25,
@@ -189,11 +221,16 @@ import gc
 import io
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import types
+import urllib.request
+import warnings
 
 H, W = 384, 512
 FRAMES = 10
@@ -429,11 +466,11 @@ def _boundary_tiles(torch, counts, k_max, seed):
             rows)
 
 
-def _time_calls(torch, owner, name, store, keep=None):
+def _time_calls(torch, owner, name, store, keep=None, key=None):
     """Wrap `owner.name` (a class or an instance attribute) so that each
     call appends its host ms, with a synchronise before and after, to
-    store[name]; `keep(args, kwargs, result)` may record more. Returns a
-    function that restores the original."""
+    store[key or name]; `keep(args, kwargs, result)` may record more.
+    Returns a function that restores the original."""
     real = getattr(owner, name)
     own = name in vars(owner)  # else a method found on the instance's class
 
@@ -442,7 +479,8 @@ def _time_calls(torch, owner, name, store, keep=None):
         t0 = time.perf_counter()
         out = real(*a, **kw)
         torch.cuda.synchronize()
-        store.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        store.setdefault(key or name, []).append(
+            (time.perf_counter() - t0) * 1e3)
         if keep is not None:
             keep(a, kw, out)
         return out
@@ -484,7 +522,8 @@ def _closed_loop_phase(torch, cr, model, device="cuda"):
     """The SLAM loop closed on the plane-scene oracle at full width (the
     real network runs and is paid for; its outputs are swapped for exact
     geometry), noise-free over a 40-frame pan, then the noisy kidnapped-
-    camera variant with an occlusion window → (lines, results)."""
+    camera variant with an occlusion window → (lines, results, the
+    noise-free run's system)."""
     import numpy as np
 
     from splatt3r_slam_tpu_torch import config as cfgmod
@@ -563,7 +602,7 @@ def _closed_loop_phase(torch, cr, model, device="cuda"):
         cum = [0] + ms.get("iters_cum", [])
         return [b - a for a, b in zip(cum, cum[1:])]
 
-    # -- noise-free pan: 40 frames, then profiled frames -----------------
+    # -- noise-free pan: 40 frames, then profiled frames ----------------------
     n_frames, n_extra = 40, 12
     poses = orc.pan_trajectory(n_frames + n_extra, W)
     oracle, sysm = build()
@@ -675,9 +714,10 @@ def _closed_loop_phase(torch, cr, model, device="cuda"):
                plain_ms=k_plain_ms, bound_ms=k_bound_ms,
                profiles={k: dict(wall_ms=w, device_ms=b, spans=s)
                          for k, (w, b, s) in profiles.items()})
+    kept = sysm  # the viz phase's system
     del oracle, sysm, frame, kf, seen
 
-    # -- the noisy kidnapped-camera run ----------------------------------
+    # -- the noisy kidnapped-camera run ---------------------------------------
     blackout = (16, 20)
     poses = orc.reloc_pan_trajectory(30, W, blackout)
     oracle, sysm = build(noise=0.01, conf_noise=0.2, blackout=blackout)
@@ -730,7 +770,353 @@ def _closed_loop_phase(torch, cr, model, device="cuda"):
                         ms={k: v for k, v in n_ms.items()},
                         launches=n_launches,
                         solve_iters=solve_iters(n_ms))
-    return [line, *prof_lines, n_line], res
+    return [line, *prof_lines, n_line], res, kept
+
+
+VIZ_MODES = (("splat", dict(gs_on=True, render_mode="rgb")),
+             ("depth", dict(gs_on=True, render_mode="depth")),
+             ("surfel", dict(gs_on=False, pointmap_mode="surfel",
+                             spatial_stride=4)),
+             ("scatter", dict(gs_on=False, pointmap_mode="scatter")))
+DEMO_VIEWS = 8
+WEB_YAWS = (0.0, 0.6, 1.2)
+SWEEP_RENDERS = 3 * 3 * 4  # densities x tpg_side x k_max
+# The production caps' bar against the exact oracle, at every density
+# (PARITY.md:156-170). The port bins each tile's gaussians in exact depth
+# order; the JAX package's 18-bit depth keys tie at 150k and 600k, where it
+# composites ties in index order (tests/test_torch_port_rasterizer.py::
+# test_depth_key_ties_composite_in_depth_order).
+FIDELITY_DB = 88.0
+
+
+def _held_rows(torch, cr, rows, path, timed=False):
+    """The forward kernel against its plain version on `rows` (counts,
+    origins, rows) with a zero background → dict(err, rows, and with
+    `timed` the device ms, call ms, plain ms and bound). Raises past
+    TOL."""
+    cnt, org, rw = rows
+    zero = torch.zeros(3, device=rw.device)
+    err = float((cr.composite(cnt, org, rw, zero)
+                 - cr.composite_torch(cnt, org, rw, zero)).abs().max())
+    assert err <= TOL, f"{path}-path kernel vs plain {err}"
+    out = dict(err=err, rows=int(cnt.sum()), max_count=int(cnt.max()))
+    if timed:
+        out["ms"] = device_ms(lambda: cr.composite(cnt, org, rw, zero), torch)
+        out["call_ms"] = call_ms(lambda: cr.composite(cnt, org, rw, zero),
+                                 torch)
+        out["plain_ms"] = call_ms(
+            lambda: cr.composite_torch(cnt, org, rw, zero), torch, 3)
+        out["bound_ms"], out["bound_by"] = _bound_ms(cnt)
+    return out
+
+
+def _png_data_url(path):
+    import base64
+
+    with open(path, "rb") as f:
+        return "data:image/png;base64," + base64.b64encode(f.read()).decode()
+
+
+def _ply_vertices(data: bytes) -> int:
+    head = data[:data.index(b"end_header")].decode()
+    return int(next(ln.split()[2] for ln in head.splitlines()
+                    if ln.startswith("element vertex")))
+
+
+def _viz_phase(torch, cr, model, system, work):
+    """The viewer, session save and resume, the two-image demo, its web app
+    and the fidelity sweep on the card, on phase 3's model and the closed
+    loop's system → (lines, results). Each part's compositor counts are set
+    to 0 just before it and read just after. Each line is printed as soon
+    as its part passes."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import demo
+    from splatt3r_slam_tpu_torch.backend import FactorGraph
+    from splatt3r_slam_tpu_torch.runtime import webdemo
+    from splatt3r_slam_tpu_torch.runtime.session import (
+        load_session,
+        save_session,
+    )
+    from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
+    from splatt3r_slam_tpu_torch.runtime.visualization import Viewer
+    from splatt3r_slam_tpu_torch.scripts import sweep_rasterizer_fidelity
+    from splatt3r_slam_tpu_torch.utils.image import read_png, write_png
+
+    lines, res, launches = [], {}, {}
+
+    def emit(line):
+        print(line, flush=True)
+        lines.append(line)
+
+    # -- 1. the viewer: one headless tick in each mode ------------------------
+    viewer = Viewer(system, hw=(H, W), headless=True,
+                    out_dir=os.path.join(work, "viz"))
+    tick_ms, cams = {}, {}
+    cr.launches = cr.bwd_launches = 0
+    for name, state in VIZ_MODES:
+        for k, v in state.items():
+            setattr(viewer.state, k, v)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        viewer.update()
+        torch.cuda.synchronize()
+        tick_ms[name] = (time.perf_counter() - t0) * 1e3
+        cams[name] = viewer._last_T_cam
+    launches["viewer"] = (cr.launches, cr.bwd_launches)
+    assert launches["viewer"] == (3, 0), launches["viewer"]  # scatter: none
+    pngs = sorted(os.listdir(viewer.out_dir))
+    assert len(pngs) == len(VIZ_MODES), pngs
+    for f in pngs:
+        assert read_png(viewer.out_dir / f).shape == (H, W, 3), f
+    Kv = torch.as_tensor(viewer.K, device="cuda")
+
+    def view_of(T):
+        return torch.as_tensor(np.linalg.inv(T).astype(np.float32),
+                               device="cuda")
+
+    surf = viewer.surfels()
+    surfel = _held_rows(torch, cr, cr.pack_rows(
+        *surf, view_of(cams["surfel"]), Kv, (H, W), k_max=viewer.k_max),
+        "viewer-surfel", timed=True)
+    splat = _held_rows(torch, cr, cr.pack_rows(
+        *system.pool.get_all(), view_of(cams["splat"]), Kv, (H, W),
+        k_max=viewer.k_max), "viewer-splat")
+    n_kf = len(system.keyframes)
+    emit(
+        f"[viz-viewer] Viewer({H}x{W}, headless, k_max {viewer.k_max}) on "
+        f"the closed loop's system ({n_kf} keyframes, "
+        f"{len(system.backend.ii)} edges, {system.pool.n} pool gaussians) | "
+        "tick host ms: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                     tick_ms.items())
+        + f" | {len(pngs)} PNGs of {H}x{W}x3 | compositor launches "
+        f"{launches['viewer'][0]} = renders 3 (scatter renders none), "
+        f"backward 0 | surfel rows ({surf[0].shape[0]} surfels from "
+        f"{min(n_kf, 16)} keyframes at stride 4, {surfel['rows']} rows, "
+        f"largest count {surfel['max_count']}): kernel vs plain "
+        f"{surfel['err']:.2e}, {surfel['ms']:.4f} ms on the device, "
+        f"call_ms {surfel['call_ms']:.4f} vs plain {surfel['plain_ms']:.3f}"
+        f" ms, bound {surfel['bound_ms']:.5f} ms by {surfel['bound_by']} | "
+        f"splat rows ({splat['rows']}): kernel vs plain {splat['err']:.2e}")
+    res["viewer"] = dict(tick_ms=tick_ms, launches=launches["viewer"][0],
+                         surfels=int(surf[0].shape[0]), surfel=surfel,
+                         splat=splat)
+    del surf
+
+    # -- 2. session save and resume -------------------------------------------
+    path = os.path.join(work, "session.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_session(path, system, system.backend)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    fresh = SLAMSystem(system.engine, H, W)
+    fresh.backend = FactorGraph(system.engine, fresh.keyframes)
+    t0 = time.perf_counter()
+    load_session(path, fresh, fresh.backend)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    a, b = system, fresh
+    assert len(b.keyframes) == n_kf and b.mode == a.mode
+    for i in range(n_kf):
+        for field in ("T_WC", "X_canon", "C", "feat", "pos"):
+            x, y = getattr(a.keyframes[i], field), getattr(b.keyframes[i],
+                                                           field)
+            assert (x is None and y is None) or (
+                y.is_cuda and torch.equal(y, x.to(y.dtype))), (i, field)
+    n = a.pool.n
+    assert b.pool.n == n and torch.equal(b.pool.data[:n], a.pool.data[:n])
+    assert (b.backend.ii, b.backend.jj) == (a.backend.ii, a.backend.jj)
+    for name in ("idx_ii2jj", "idx_jj2ii", "valid_match_j", "valid_match_i",
+                 "Q_ii2jj", "Q_jj2ii"):
+        for x, y in zip(getattr(a.backend, name), getattr(b.backend, name)):
+            assert torch.equal(y, x.to(y.dtype)), name
+    same_render = bool(np.array_equal(*(
+        Viewer(x, hw=(H, W), headless=False).render_gs_view(cams["splat"])
+        for x in (system, fresh))))
+    assert same_render, "the resumed system renders another image"
+    # the solve's index_add_ sums its blocks in no fixed order on the card
+    # (equal inputs ended 1.9e-6 apart): both solves run under torch's
+    # deterministic algorithms, and the poses are held relative to their
+    # largest entry
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            a.backend.solve()
+            b.backend.solve()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    pose_abs = [float((a.keyframes[i].T_WC - b.keyframes[i].T_WC).abs().max())
+                for i in range(n_kf)]
+    pose_err = max(e / max(1.0, float(a.keyframes[i].T_WC.abs().max()))
+                   for i, e in enumerate(pose_abs))
+    assert pose_err <= 1e-6, f"solves after resume differ by {pose_err}"
+    mib = os.path.getsize(path) / 2**20
+    emit(
+        f"[viz-session] {mib:.2f} MiB npz ({n_kf} keyframes, {n} pool rows, "
+        f"{len(a.backend.ii)} edges) | save {save_ms:.1f} ms, load "
+        f"{load_ms:.1f} ms | poses, X_canon, C, features, pool rows and "
+        f"every edge list bit for bit; splat render identical; one solve "
+        f"each: poses within {pose_err:.1e} of their largest entry (held "
+        f"1e-6), {max(pose_abs):.1e} absolute")
+    res["session"] = dict(mib=mib, save_ms=save_ms, load_ms=load_ms,
+                          pose_err=pose_err, pose_abs=max(pose_abs))
+    del fresh, a, b
+
+    # -- 3. the demo CLI on two panned PNGs -----------------------------------
+    rng = np.random.default_rng(7)
+    tex = (rng.random((H + 16, W + 32, 3)) * 255).astype(np.uint8)
+    imgs = [os.path.join(work, "a.png"), os.path.join(work, "b.png")]
+    write_png(imgs[0], tex[:H, :W])
+    write_png(imgs[1], tex[8:8 + H, 16:16 + W])
+    out = os.path.join(work, "demo")
+    ms, seen = {}, {}
+
+    def keep_render(a, kw, img):
+        seen["render"] = (a[0].scene, a[1], a[2], a[0].k_max, img)
+
+    restore = [_time_calls(torch, webdemo.DemoEngine, "reconstruct_arrays",
+                           ms),
+               _time_calls(torch, webdemo.DemoEngine, "render", ms,
+                           keep_render)]
+    cr.launches = cr.bwd_launches = 0
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            rc = demo.main([*imgs, "--out", out, "--n-views",
+                            str(DEMO_VIEWS), "--img-size", str(W),
+                            "--device", "cuda"],
+                           model=model)
+            demo_s = time.perf_counter() - t0
+    finally:
+        for r in restore:
+            r()
+    launches["demo"] = (cr.launches, cr.bwd_launches)
+    assert rc == 0
+    with open(os.path.join(out, "gaussians.ply"), "rb") as f:
+        n_ply = _ply_vertices(f.read())
+    views = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+    assert n_ply == 2 * H * W, n_ply
+    assert len(views) == DEMO_VIEWS and launches["demo"] == (DEMO_VIEWS, 0), \
+        (views, launches["demo"])
+    scene, yaw, pitch, k_max, last = seen["render"]
+    assert (read_png(os.path.join(out, views[-1])) == last).all()
+    view, K = webdemo.orbit_view(scene.center, scene.radius, yaw, pitch,
+                                 scene.hw, "cuda")
+    demo_rows = _held_rows(torch, cr, cr.pack_rows(
+        scene.means, scene.cov_triu, scene.colors, scene.opacities, view, K,
+        scene.hw, k_max=k_max), "demo", timed=True)
+    emit(
+        f"[viz-demo] demo.main(2 panned {H}x{W} PNGs, --n-views "
+        f"{DEMO_VIEWS}) exit {rc} in {demo_s:.2f} s | reconstruct "
+        f"{ms['reconstruct_arrays'][0]:.1f} ms, render median "
+        f"{_median(ms['render']):.2f} ms (host, synchronised) | PLY "
+        f"{n_ply} vertices, {len(views)} PNGs | compositor launches "
+        f"{launches['demo'][0]} = renders {DEMO_VIEWS} | last view's rows "
+        f"({demo_rows['rows']}, k_max {k_max}, largest count "
+        f"{demo_rows['max_count']}): kernel vs plain {demo_rows['err']:.2e},"
+        f" {demo_rows['ms']:.4f} ms on the device, call_ms "
+        f"{demo_rows['call_ms']:.4f} vs plain {demo_rows['plain_ms']:.3f} "
+        f"ms, bound {demo_rows['bound_ms']:.5f} ms by "
+        f"{demo_rows['bound_by']}")
+    res["demo"] = dict(seconds=demo_s, reconstruct_ms=ms[
+        "reconstruct_arrays"][0], render_ms=ms["render"], ply=n_ply,
+        launches=launches["demo"][0], rows=demo_rows)
+
+    # -- 4. the web app -------------------------------------------------------
+    engine = webdemo.DemoEngine(model, img_size=W, k_max=256, device="cuda")
+    server = webdemo.serve(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        req = urllib.request.Request(
+            url + "/reconstruct", headers={"Content-Type": "application/json"},
+            data=json.dumps({"images": [_png_data_url(p) for p in imgs]})
+            .encode())
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            rec = json.loads(r.read())
+        rec_ms = (time.perf_counter() - t0) * 1e3
+        assert rec["ok"] and rec["n_gaussians"] == 2 * H * W, rec
+        bodies, get_ms = [], []
+        cr.launches = cr.bwd_launches = 0
+        for yaw in WEB_YAWS:
+            t0 = time.perf_counter()
+            with urllib.request.urlopen(f"{url}/render?yaw={yaw}&pitch=0.2",
+                                        timeout=600) as r:
+                assert r.headers.get("Content-Type") == "image/png"
+                bodies.append(r.read())
+            get_ms.append((time.perf_counter() - t0) * 1e3)
+        launches["web"] = (cr.launches, cr.bwd_launches)
+        with urllib.request.urlopen(url + "/gaussians.ply",
+                                    timeout=600) as r:
+            n_web_ply = _ply_vertices(r.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    from splatt3r_slam_tpu_torch.utils.image import decode_png
+
+    assert launches["web"] == (len(WEB_YAWS), 0), launches["web"]
+    assert n_web_ply == 2 * H * W, n_web_ply
+    for yaw, body in zip(WEB_YAWS, bodies):
+        assert (decode_png(body) == engine.render(yaw, 0.2)).all(), yaw
+    emit(
+        f"[viz-web] serve(engine, port=0) on a thread | POST /reconstruct "
+        f"(2 PNG data URLs) {rec_ms:.1f} ms, {rec['n_gaussians']} gaussians "
+        f"| GET /render at yaws {list(WEB_YAWS)}: "
+        + ", ".join(f"{m:.2f}" for m in get_ms)
+        + f" ms, each PNG body equal to engine.render's pixels | "
+        f"/gaussians.ply {n_web_ply} vertices | compositor launches "
+        f"{launches['web'][0]} = renders {len(WEB_YAWS)}")
+    res["web"] = dict(reconstruct_ms=rec_ms, render_ms=get_ms,
+                      launches=launches["web"][0])
+    del engine
+
+    # -- 5. the fidelity sweep ------------------------------------------------
+    buf = io.StringIO()
+    cr.launches = cr.bwd_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        sw = sweep_rasterizer_fidelity.main(["--device", "cuda"])
+    sweep_s = time.perf_counter() - t0
+    launches["sweep"] = (cr.launches, cr.bwd_launches)
+    assert json.loads(buf.getvalue().strip().splitlines()[-1]) == sw
+    assert launches["sweep"] == (SWEEP_RENDERS, 0), launches["sweep"]
+    assert all(np.isfinite(r["psnr"]) for r in sw["results"])
+    prod = {r["G"]: r["psnr"] for r in sw["results"]
+            if r["tpg_side"] == 4 and r["k_max"] == 512}
+    assert len(prod) == 3 and min(prod.values()) >= FIDELITY_DB, prod
+    sv, sK = sweep_rasterizer_fidelity.camera("cuda")
+    hw = sweep_rasterizer_fidelity.HW
+    scene = sweep_rasterizer_fidelity.make_scene(600_000, "cuda")
+    sweep_rows = _held_rows(torch, cr, cr.pack_rows(
+        *scene, sv, sK, hw, tpg_side=2, k_max=1024), "sweep", timed=True)
+    del scene
+    emit(
+        f"[viz-sweep] sweep_rasterizer_fidelity --device cuda ({sweep_s:.1f} "
+        f"s): production caps (tpg_side 4, k_max 512) PSNR "
+        + ", ".join(f"{g}: {p}" for g, p in prod.items())
+        + f" dB (held >= {FIDELITY_DB:g} at every density) | "
+        f"compositor launches "
+        f"{launches['sweep'][0]} = renders {SWEEP_RENDERS} | 600k, k_max "
+        f"1024, tpg_side 2 rows ({sweep_rows['rows']}, largest count "
+        f"{sweep_rows['max_count']}): kernel vs plain "
+        f"{sweep_rows['err']:.2e}, {sweep_rows['ms']:.4f} ms on the device,"
+        f" call_ms {sweep_rows['call_ms']:.4f} vs plain "
+        f"{sweep_rows['plain_ms']:.3f} ms, bound "
+        f"{sweep_rows['bound_ms']:.5f} ms by {sweep_rows['bound_by']}")
+    emit("[viz-sweep-table] " + json.dumps(sw["results"]))
+    res["sweep"] = dict(seconds=sweep_s, results=sw["results"],
+                        launches=launches["sweep"][0], rows=sweep_rows)
+
+    assert all(bw == 0 for _, bw in launches.values()), launches
+    res["launches"] = sum(f for f, _ in launches.values())
+    res["launches_by_part"] = launches
+    res["kernel_vs_plain"] = max(surfel["err"], splat["err"],
+                                 demo_rows["err"], sweep_rows["err"])
+    return lines, res
 
 
 ENTRY_SYSTEM = ["--frames", "40", "--cadence", "5", "--threaded",
@@ -767,12 +1153,9 @@ def _render_vs_plain(torch, cr, kept, path):
         K = torch.tensor([[focal, 0, hw[1] / 2], [0, focal, hw[0] / 2],
                           [0, 0, 1]], device=img.device)
     view = torch.linalg.inv(sim3.matrix(T_WC)) @ sim3.matrix(T_WC)
-    cnt, org, rw = cr.pack_rows(*frame_gaussians(fr, ref), view, K, hw)
-    zero = torch.zeros(3, device=img.device)
-    err = float((cr.composite(cnt, org, rw, zero)
-                 - cr.composite_torch(cnt, org, rw, zero)).abs().max())
-    assert err <= TOL, f"{path}-path kernel vs plain {err}"
-    return err, int(cnt.sum())
+    held = _held_rows(torch, cr, cr.pack_rows(*frame_gaussians(fr, ref),
+                                              view, K, hw), path)
+    return held["err"], held["rows"]
 
 
 def _run_entry(main, argv, model, cr):
@@ -943,15 +1326,14 @@ def _entry_phase(torch, cr, model):
 
 
 def _cli_phase(torch, root, cr, device, seq, config, argv=(),
-               profile=True):
+               profile=True, viz=False):
     """Run the port's CLI on `seq` with `config` in this process from a
     temporary working directory, time its layers (and, for calibrated
     input, count the calibrated solves and time the undistortion), check
     its outputs, and, with `profile`, run one more keyframe through the
-    backend under the profiler → (line, results)."""
-    import shutil
-    import tempfile
-
+    backend under the profiler → (line, results). With `viz` it runs the
+    users' default command line: without --no-viz and with DISPLAY unset,
+    so that the viewer ticks headless, and checks one viewer PNG a tick."""
     from splatt3r_slam_tpu_torch import cli
     from splatt3r_slam_tpu_torch.backend.factor_graph import FactorGraph
     from splatt3r_slam_tpu_torch.retrieval.database import RetrievalDatabase
@@ -965,9 +1347,11 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
     from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
     from splatt3r_slam_tpu_torch.splat import decoder
 
+    from splatt3r_slam_tpu_torch.runtime.visualization import Viewer
+
     name = os.path.basename(seq.rstrip(os.sep))
-    argv = ["--dataset", seq, "--config", config, "--no-viz", "--seed", "0",
-            *argv]
+    argv = ["--dataset", seq, "--config", config, "--seed", "0", *argv,
+            *(() if viz else ("--no-viz",))]
     ms, seen = {}, {"modes": []}
 
     def keep_mode(a, kw, out):
@@ -986,8 +1370,10 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
         _time_calls(torch, fused, "opt_pose_calib_sim3", ms),
         _time_calls(torch, Intrinsics, "remap", ms),
         _time_calls(torch, RetrievalDatabase, "update", ms),
-        _time_calls(torch, decoder, "render_frame", ms, keep_render)]
+        _time_calls(torch, decoder, "render_frame", ms, keep_render),
+        _time_calls(torch, Viewer, "update", ms, key="viewer_tick")]
     here = os.getcwd()
+    display = os.environ.pop("DISPLAY", None) if viz else None
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     cr.launches = cr.bwd_launches = 0
     try:
@@ -996,6 +1382,11 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
         rc = cli.main(argv)
         run_s = time.perf_counter() - t0
         launches, bwd_launches = cr.launches, cr.bwd_launches
+        ticks = len(ms.get("viewer_tick", []))
+        viz_dir = os.path.join(work, "logs", f"{name}_viz")
+        viz_pngs = len(os.listdir(viz_dir)) if os.path.isdir(viz_dir) else 0
+        assert viz_pngs == ticks and (ticks > 0) == viz, \
+            f"{viz_pngs} viewer PNGs for {ticks} ticks (viewer on: {viz})"
         logs = os.path.join(work, "logs")
         system = seen["system"]
         backend = system.backend
@@ -1014,7 +1405,9 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
         renders = len(os.listdir(os.path.join(logs, f"{name}_renders")))
         assert renders == n_frames == len(ms["render_frame"]), \
             f"{renders} render PNGs for {n_frames} frames"
-        assert launches == renders, f"{launches} launches, {renders} renders"
+        # a tick renders the splat view: one launch each
+        assert launches == renders + ticks, \
+            f"{launches} launches, {renders} renders, {ticks} viewer ticks"
         assert bwd_launches == 0, "the cli run launched a backward"
         st = backend.stats
         assert st["solves"] >= 1, "no backend solve"
@@ -1032,6 +1425,8 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
             r()
         os.chdir(here)
         shutil.rmtree(work, ignore_errors=True)
+        if display is not None:
+            os.environ["DISPLAY"] = display
 
     # the kernel against its plain version on the last render's rows
     # (after the counts were read, so these launches are not counted)
@@ -1042,6 +1437,7 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
                tracker_fails=getattr(system.tracker, "fails", None),
                ms={k: v for k, v in ms.items()}, run_s=run_s, ate=ate,
                kernel_vs_plain=err, rows=n_rows,
+               viewer_ticks=ticks, viewer_pngs=viz_pngs,
                calib_solves=len(ms.get("solve_GN_calib", [])),
                calib_tracking_steps=len(ms.get("opt_pose_calib_sim3", [])),
                undistorted=len(ms.get("remap", [])))
@@ -1084,7 +1480,10 @@ def _cli_phase(torch, root, cr, device, seq, config, argv=(),
         f"{med.get('relocalize', float('nan')):.2f} "
         f"({len(ms.get('relocalize', []))} calls), solve "
         f"{med['solve']:.2f}, retrieval update {med['update']:.2f}, "
-        f"render_frame {med['render_frame']:.2f} | renders {renders} = "
+        f"render_frame {med['render_frame']:.2f}"
+        + (f", viewer tick {med['viewer_tick']:.2f} ({ticks} ticks, "
+           f"{viz_pngs} viewer PNGs)" if viz else "")
+        + f" | renders {renders} + viewer ticks {ticks} = "
         f"launches {launches}, backward 0 | trajectory {len(rows)} rows, "
         f"PLY {len(pts)} vertices, {len(kf_pngs)} keyframe PNGs | kernel vs "
         f"plain on the last render ({n_rows} rows) {err:.2e} | ATE "
@@ -1119,9 +1518,6 @@ def _calibrated_phase(torch, root, cr, device="cuda", argv=()):
     coefficients), then a EuRoC `mav0/cam0` layout of seeded 752x480
     grayscale frames (always undistorted) under the fixture config with
     use_calib on → (lines, results)."""
-    import shutil
-    import tempfile
-
     import numpy as np
 
     from splatt3r_slam_tpu_torch.utils.image import write_png
@@ -1215,7 +1611,7 @@ def main(argv=None) -> int:
 
     results: dict = {}
 
-    # -- 1. build ---------------------------------------------------------
+    # -- 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
     built = cr.build()
     build_s = time.perf_counter() - t0
@@ -1231,7 +1627,7 @@ def main(argv=None) -> int:
                for _, log in built.values()), "a kernel spills registers"
     results["build_s"] = build_s
 
-    # -- 2. kernel against its plain version --------------------------------
+    # -- 2. kernel against its plain version ----------------------------------
     set_fp32_precision()
     K = torch.tensor([[512.0, 0, W / 2], [0, 512.0, H / 2], [0, 0, 1]],
                      device="cuda")
@@ -1309,7 +1705,7 @@ def main(argv=None) -> int:
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, rows=n_rows, tiles=T)
 
-    # -- 2b. backward kernel against its plain version -----------------------
+    # -- 2b. backward kernel against its plain version ------------------------
     def bwd_case(cnt, org, rw, seed):
         """→ (gout, out, kernel grows, plain grows) on a seeded cotangent
         whose transmittance column is non-zero."""
@@ -1461,7 +1857,7 @@ def main(argv=None) -> int:
         results["compare"] = found
     del gk, gp, t_gk, t_gp, gout, out_k, t_gout, t_out
 
-    # -- 3. the main path at full width -------------------------------------
+    # -- 3. the main path at full width ---------------------------------------
     cfgmod.reset_config()  # config/base.yaml defaults
     # random weights: a GN step always fails (see the module docstring)
     cfgmod.config["tracking"]["max_iters"] = 0
@@ -1610,15 +2006,28 @@ def main(argv=None) -> int:
                                               key=lambda kv: -kv[1][0])))
     results["profile"] = dict(wall_ms=wall, device_ms=busy, spans=spans)
 
-    # -- 4. the closed loop on the plane-scene oracle -----------------------
-    cl_lines, cl_res = _closed_loop_phase(torch, cr, model)
+    # -- 4. the closed loop on the plane-scene oracle -------------------------
+    cl_lines, cl_res, cl_system = _closed_loop_phase(torch, cr, model)
     for ln in cl_lines:
         print(ln)
     results["closed_loop"] = cl_res
     cl_launches = cl_res["launches"] + cl_res["noisy"]["launches"]
 
-    # -- 4b. the measurement entry points on phase 3's model -----------------
-    del engine, sysm, last, frame, kf, cat, retrieval, restore
+    # -- 4c. viewer, session, demo, web app, fidelity sweep -------------------
+    viz_work = tempfile.mkdtemp(prefix="chip_smoke_viz_")
+    t0 = time.perf_counter()
+    try:
+        _, viz_res = _viz_phase(torch, cr, model, cl_system, viz_work)
+    finally:
+        shutil.rmtree(viz_work, ignore_errors=True)
+    viz_res["seconds"] = time.perf_counter() - t0
+    print(f"[viz] {viz_res['seconds']:.1f} s | compositor launches "
+          f"{viz_res['launches']} ({viz_res['launches_by_part']})")
+    results["viz"] = viz_res
+    viz_launches = viz_res["launches"]
+
+    # -- 4b. the measurement entry points on phase 3's model ------------------
+    del engine, sysm, last, frame, kf, cat, retrieval, restore, cl_system
     gc.collect()  # phases 3-4's keyframes and backends: not in the soak's
     torch.cuda.empty_cache()
     entry_lines, entry_res = _entry_phase(torch, cr, model)
@@ -1793,14 +2202,25 @@ def main(argv=None) -> int:
                                               key=lambda kv: -kv[1][0])))
     results["cli"] = cli_res
 
-    # -- 7. calibrated input through the CLI --------------------------------
+    # -- 6b. the same CLI run as users run it: the viewer on, headless --------
+    cli_viz_line, cli_viz_res = _cli_phase(
+        torch, root, cr, "cuda",
+        os.path.join(fixture, "rgbd_dataset_freiburg1_fixture"),
+        os.path.join(fixture, "eval_fixture.yaml"), profile=False, viz=True)
+    cli_viz_launches = cli_viz_res["launches"]
+    print(cli_viz_line.replace("[cli]", "[viz-cli]", 1)
+          + f" | {cli_viz_res['run_s']:.1f} s with the viewer vs "
+          f"{cli_res['run_s']:.1f} s with --no-viz")
+    results["cli_viz"] = cli_viz_res
+
+    # -- 7. calibrated input through the CLI ----------------------------------
     calib_lines, calib_res = _calibrated_phase(torch, root, cr)
     for ln in calib_lines:
         print(ln)
     results["cli_calibrated"] = calib_res
     calib_launches = sum(r["launches"] for r in calib_res.values())
 
-    # -- 8. device ----------------------------------------------------------
+    # -- 8. device ------------------------------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1814,11 +2234,14 @@ def main(argv=None) -> int:
         "source": "splatt3r_slam_tpu_torch/csrc/composite.cu",
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:61",
         "launches": (launches + cl_launches + entry_launches + train_launches
-                     + cli_launches + calib_launches),
+                     + cli_launches + calib_launches + viz_launches
+                     + cli_viz_launches),
         "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err,
                            cli_res["kernel_vs_plain"],
                            cl_res["kernel_vs_plain"],
                            entry_res["kernel_vs_plain"],
+                           viz_res["kernel_vs_plain"],
+                           cli_viz_res["kernel_vs_plain"],
                            *(r["kernel_vs_plain"]
                              for r in calib_res.values())),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -1835,6 +2258,17 @@ def main(argv=None) -> int:
         "launches_closed_loop": cl_launches,
         "launches_entry": entry_launches,
         "launches_cli_calibrated": calib_launches,
+        "launches_viz": viz_launches,
+        "launches_cli_viz": cli_viz_launches,
+        "ms_surfel_rows": viz_res["viewer"]["surfel"]["ms"],
+        "call_ms_surfel_rows": viz_res["viewer"]["surfel"]["call_ms"],
+        "bound_ms_surfel_rows": viz_res["viewer"]["surfel"]["bound_ms"],
+        "ms_demo_rows": viz_res["demo"]["rows"]["ms"],
+        "call_ms_demo_rows": viz_res["demo"]["rows"]["call_ms"],
+        "bound_ms_demo_rows": viz_res["demo"]["rows"]["bound_ms"],
+        "ms_sweep_rows": viz_res["sweep"]["rows"]["ms"],
+        "call_ms_sweep_rows": viz_res["sweep"]["rows"]["call_ms"],
+        "bound_ms_sweep_rows": viz_res["sweep"]["rows"]["bound_ms"],
     }, {
         "name": "composite_bwd_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/composite_bwd.cu",
@@ -1857,6 +2291,8 @@ def main(argv=None) -> int:
         "launches_closed_loop": 0,
         "launches_entry": 0,
         "launches_cli_calibrated": 0,
+        "launches_viz": 0,
+        "launches_cli_viz": 0,
     }]
     results["kernels"] = kernels
     if args.out:

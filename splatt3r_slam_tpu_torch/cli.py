@@ -1,26 +1,30 @@
 """Splatt3R-SLAM on PyTorch: the command-line SLAM run.
 
     python -m splatt3r_slam_tpu_torch --dataset PATH [--config FILE]
-        --no-viz [--device cuda|cpu] [...]
+        [--no-viz] [--device cuda|cpu] [...]
 
 Counterpart of the repository's `main.py`, with its flags plus `--device`
 (default `cuda`; asking for CUDA without a GPU raises). Frames are read
 and resized on the host (`runtime/dataloader.py`, `utils/image.py`),
 tracked by `SLAMSystem` with the pose-graph backend (`FactorGraph`) and
 ASMK retrieval attached, and each `--render-stride`-th frame's splat
-render is written as a PNG one frame late. At the end come the TUM
-trajectory, the PLY reconstruction and the keyframe PNGs under
-`logs/<save-as>/`. With `--calib FILE` (or a config with `use_calib`)
-each frame is undistorted on the host and the tracking and backend solves
-run calibrated on the resized frame's intrinsics. Weights come from
-`--checkpoint`, else from
-`checkpoints/` in the repository, else seeded random weights; nothing is
-downloaded.
+render is written as a PNG one frame late. Unless `--no-viz` is given,
+the viewer (`runtime/visualization.py`) ticks every 10th frame once the
+pool holds gaussians: in a window when `DISPLAY` is set, else headless,
+writing each tick's canvas as a PNG under `logs/<save-as>/<seq>_viz/`;
+its controls feed back into the run (`_apply_gui_state`, pause and next-
+frame). At the end come the TUM trajectory, the PLY reconstruction and
+the keyframe PNGs under `logs/<save-as>/`. With `--calib FILE` (or a
+config with `use_calib`) each frame is undistorted on the host and the
+tracking and backend solves run calibrated on the resized frame's
+intrinsics. Weights come from `--checkpoint`, else from `checkpoints/`
+in the repository, else seeded random weights; nothing is downloaded.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import pathlib
 import shutil
 import sys
@@ -28,8 +32,6 @@ import time
 
 import numpy as np
 
-_VIEWER_TODO = ("the viewer is ROADMAP Queue 1's 'Session + viewers' item, "
-                "not ported yet; pass --no-viz")
 HF_CKPT = "epoch=19-step=1200.ckpt"
 
 
@@ -57,7 +59,8 @@ def parse_args(argv=None):
     p.add_argument("--codebook", default=None)
     p.add_argument("--save-as", default="default")
     p.add_argument("--no-viz", action="store_true",
-                   help="required: the viewer is not ported yet")
+                   help="no viewer (by default it ticks every 10th frame, "
+                        "headless without DISPLAY)")
     p.add_argument("--max-frames", type=int, default=None)
     p.add_argument("--img-size", type=int, default=512)
     p.add_argument("--no-gaussians", action="store_true")
@@ -141,10 +144,20 @@ def build_retrieval(args, cfg_model, device):
         return None
 
 
+def _apply_gui_state(system, args, state):
+    """Apply the viewer's live controls to the running system: the pool's
+    capacity and the appended gaussians' spatial stride each tick; the
+    confidence threshold gates the PLY export only (the gaussian filter
+    keeps --min-confidence)."""
+    if state.max_gaussians > 0:
+        system.pool.max_gaussians = state.max_gaussians
+    if system.gaussian_module is not None:
+        system.gaussian_module.kw["spatial_stride"] = state.spatial_stride
+    args.c_conf_threshold = state.C_conf_threshold
+
+
 def main(argv=None):
     args = parse_args(argv)
-    if not args.no_viz:
-        raise NotImplementedError(_VIEWER_TODO)
 
     from splatt3r_slam_tpu_torch import config as cfgmod
     from splatt3r_slam_tpu_torch import resolve_device, set_fp32_precision
@@ -227,6 +240,19 @@ def main(argv=None):
         shutil.rmtree(render_dir, ignore_errors=True)
         render_dir.mkdir(parents=True, exist_ok=True)
 
+    viewer = None
+    if not args.no_viz:
+        from splatt3r_slam_tpu_torch.runtime.visualization import Viewer
+
+        viewer = Viewer(system, hw=(h, w),
+                        headless=not os.environ.get("DISPLAY"),
+                        out_dir=save_dir / f"{seq_name}_viz")
+        # the GUI state starts from the flags, so headless ticks change
+        # nothing
+        viewer.state.C_conf_threshold = args.c_conf_threshold
+        viewer.state.spatial_stride = args.gaussian_stride
+        viewer.state.gs_on = not args.no_gaussians
+
     downsample = cfgmod.config["dataset"]["img_downsample"]
     n = len(dataset) if args.max_frames is None else min(len(dataset),
                                                          args.max_frames)
@@ -269,6 +295,15 @@ def main(argv=None):
                     if img_r is not None:
                         flush_render()
                         pending_render = (i, img_r)
+            if viewer is not None and i % 10 == 0 and system.pool.n > 0:
+                state = viewer.update()
+                _apply_gui_state(system, args, state)
+                if state.is_terminated:
+                    break
+                while state.is_paused and not state.next and \
+                        not state.is_terminated:
+                    state = viewer.update()
+                state.next = False
             if i % 30 == 29:
                 fps = (i + 1) / (time.time() - t0)
                 print(f"frame {i + 1}/{n}  FPS {fps:.2f}  mode {system.mode}"

@@ -1,10 +1,12 @@
 """Gaussian-splat math utilities + camera→world conversion.
 
 Counterpart of `splatt3r_slam_tpu/splat/gaussians.py`: Σ = R S Sᵀ Rᵀ from
-scale + xyzw quaternion, RGB↔SH, and the `gaussians_to_world` filters
-(depth window with an adaptive percentile upper bound, max-scale and
-confidence gates, SH residual + C0 colour, [sR|t] world transform).
-Filters never compact: filtered-out gaussians get opacity 0.
+scale + xyzw quaternion, RGB↔SH and real SH up to degree 3 (`eval_sh`),
+the `gaussians_to_world` filters (depth window with an adaptive percentile
+upper bound, max-scale and confidence gates, SH residual + C0 colour,
+[sR|t] world transform), and the viewer's oriented surfels from a keyframe
+pointmap (`pointmap_to_surfels`). Filters never compact: filtered-out
+gaussians get opacity 0.
 """
 
 from __future__ import annotations
@@ -14,6 +16,12 @@ import torch
 from splatt3r_slam_tpu_torch.lie import sim3
 
 C0 = 0.28209479177387814
+C1 = 0.4886025119029199
+C2 = (1.0925484305920792, -1.0925484305920792, 0.31539156525252005,
+      -1.0925484305920792, 0.5462742152960396)
+C3 = (-0.5900435899266435, 2.890611442640554, -0.4570457994644658,
+      0.3731763325901154, -0.4570457994644658, 1.445305721320277,
+      -0.5900435899266435)
 
 
 def RGB2SH(rgb):
@@ -22,6 +30,37 @@ def RGB2SH(rgb):
 
 def SH2RGB(sh):
     return sh * C0 + 0.5
+
+
+def eval_sh(deg: int, sh, dirs):
+    """Real SH up to degree 3 at unit directions.
+
+    sh: (..., C, (deg+1)²); dirs: (..., 3) → (..., C)."""
+    result = C0 * sh[..., 0]
+    if deg > 0:
+        x, y, z = dirs[..., 0:1], dirs[..., 1:2], dirs[..., 2:3]
+        result = (result - C1 * y * sh[..., 1] + C1 * z * sh[..., 2]
+                  - C1 * x * sh[..., 3])
+        if deg > 1:
+            xx, yy, zz = x * x, y * y, z * z
+            xy, yz, xz = x * y, y * z, x * z
+            result = (result
+                      + C2[0] * xy * sh[..., 4]
+                      + C2[1] * yz * sh[..., 5]
+                      + C2[2] * (2.0 * zz - xx - yy) * sh[..., 6]
+                      + C2[3] * xz * sh[..., 7]
+                      + C2[4] * (xx - yy) * sh[..., 8])
+            if deg > 2:
+                result = (result
+                          + C3[0] * y * (3 * xx - yy) * sh[..., 9]
+                          + C3[1] * xy * z * sh[..., 10]
+                          + C3[2] * y * (4 * zz - xx - yy) * sh[..., 11]
+                          + C3[3] * z * (2 * zz - 3 * xx - 3 * yy)
+                          * sh[..., 12]
+                          + C3[4] * x * (4 * zz - xx - yy) * sh[..., 13]
+                          + C3[5] * z * (xx - yy) * sh[..., 14]
+                          + C3[6] * x * (xx - 3 * yy) * sh[..., 15])
+    return result
 
 
 def build_covariance(scale, rotation_xyzw):
@@ -89,6 +128,47 @@ def gaussians_to_world_masked(means, scales, rotations, sh, opacities, conf,
     colors = torch.clamp(SH2RGB(sh0 + RGB2SH(img)), 0.0, 1.0)
     opa = torch.where(valid, opa, torch.zeros_like(opa))
     return means_w, cov_to_triu(cov_w), colors, opa
+
+
+def pointmap_to_surfels(X_grid, color_grid, T_WC, stride: int = 4,
+                        flatten: float = 0.1):
+    """Oriented surfel gaussians from a keyframe pointmap grid (the
+    viewer's pointmap mode, drawn by the same tile rasterizer as the
+    splats): each strided sample becomes a disc Σ = r²(I − nnᵀ) +
+    (flatten·r)²nnᵀ, its normal n from the cross product of the grid
+    tangents and its radius r matched to the local sample spacing, so that
+    neighbouring discs just overlap.
+
+    X_grid: (H, W, 3) camera-frame pointmap; color_grid: (H, W, 3) in
+    [0, 1]; T_WC: (8,) Sim3. Returns (means_w (G,3), cov_triu (G,6),
+    colors (G,3), opa (G,))."""
+    # edge padding needs a (C, H, W) layout
+    Xp = torch.nn.functional.pad(X_grid.permute(2, 0, 1)[None],
+                                 (1, 1, 1, 1), mode="replicate")[0]
+    Xp = Xp.permute(1, 2, 0)
+    du = (Xp[1:-1, 2:] - Xp[1:-1, :-2]) * 0.5  # ∂X/∂u per pixel
+    dv = (Xp[2:, 1:-1] - Xp[:-2, 1:-1]) * 0.5
+    s = int(stride)
+    o = s // 2
+    X = X_grid[o::s, o::s].reshape(-1, 3)
+    du = du[o::s, o::s].reshape(-1, 3) * s  # per-sample spacing
+    dv = dv[o::s, o::s].reshape(-1, 3) * s
+    col = color_grid[o::s, o::s].reshape(-1, 3)
+    n = torch.linalg.cross(du, dv)
+    n = n / torch.clamp(torch.linalg.norm(n, dim=-1, keepdim=True), min=1e-9)
+    r = 0.6 * torch.maximum(torch.linalg.norm(du, dim=-1),
+                            torch.linalg.norm(dv, dim=-1))[:, None]
+    nnT = n[:, :, None] * n[:, None, :]
+    eye = torch.eye(3, dtype=X.dtype, device=X.device)[None]
+    cov = (r[..., None] ** 2) * (eye - nnT) \
+        + ((flatten * r)[..., None] ** 2) * nnT
+    # world transform [sR|t]: means = sR·X + t, Σw = (sR) Σ (sR)ᵀ
+    t, q, sc = sim3.split(T_WC)
+    R = sim3.quat_to_matrix(q) * sc[..., None]
+    means_w = X @ R.T + t
+    cov_w = torch.einsum("ij,njk,lk->nil", R, cov, R)
+    opa = torch.full((X.shape[0],), 0.95, dtype=X.dtype, device=X.device)
+    return means_w, cov_to_triu(cov_w), col, opa
 
 
 class GaussianAccumulator:

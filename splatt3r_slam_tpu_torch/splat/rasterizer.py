@@ -3,13 +3,21 @@
 Counterpart of `splatt3r_slam_tpu/splat/rasterizer.py`:
 1. `project_gaussians`: world gaussians → screen means, conics, depth,
    radius, validity (EWA 2D covariance with a 0.3 px blur);
-2. `bin_tiles`: each gaussian emits ≤ tpg_side² combined int32 keys
-   `tile_id << 18 | depth_q`; ONE stable sort with the gaussian index as
-   payload, per-tile segment bounds by a left binary search, and per-tile
-   depth-ordered index lists capped at k_max;
+2. `bin_tiles`: the gaussians in exact depth order, each emitting
+   ≤ tpg_side² int32 tile-id keys; ONE stable sort with the gaussian index
+   as payload, per-tile segment bounds by a left binary search, and
+   per-tile depth-ordered index lists capped at k_max. (The JAX package
+   sorts one `tile_id << 18 | depth_q` key, so gaussians of a tile whose
+   18-bit depths tie composite in index order there; here they composite
+   in depth order, as the exact oracle does;
+   `tests/test_torch_port_rasterizer.py::
+   test_depth_key_ties_composite_in_depth_order` holds both);
 3. `render_tiles`: the plain compositor — an exclusive cumulative product
    over each tile's depth axis;
-4. `render_bruteforce`: the exact O(G·P) oracle (tests only).
+4. `render_bruteforce`: the exact O(G·P) oracle (tests only), and
+   `render_bruteforce_scan`, the same oracle over depth-ordered chunks of
+   gaussians, block by block, in O(g_chunk·256) memory (the fidelity
+   sweep's).
 
 The hand-written CUDA compositor lives in `cuda_rasterizer.py`;
 `default_rasterizer` picks it for CUDA tensors.
@@ -102,16 +110,14 @@ def bin_tiles(means2d, depth, radius, ok, hw, tpg_side, k_max):
     H, W = hw
     TX, TY = W // TILE, H // TILE
     T = TX * TY
-    G = means2d.shape[0]
     dev = means2d.device
 
-    DBITS = 18
-    dmax = torch.where(ok, depth, torch.zeros_like(depth)).max()
-    dmin = torch.where(ok, depth, torch.full_like(depth, math.inf)).min()
-    dspan = torch.clamp(dmax - dmin, min=1e-9)
-    dq = (depth - dmin) / dspan * float((1 << DBITS) - 1)
-    depth_q = torch.nan_to_num(dq, nan=0.0).clamp(0, (1 << DBITS) - 1).to(
-        torch.int32)
+    # gaussians in exact depth order (stable: equal depths keep index
+    # order), so that ONE stable sort on the tile id leaves each tile's
+    # list in depth order
+    by_depth = torch.argsort(
+        torch.where(ok, depth, torch.full_like(depth, math.inf)), stable=True)
+    means2d, radius, ok = means2d[by_depth], radius[by_depth], ok[by_depth]
 
     tx0, tx1 = _tile_range(means2d[:, 0], radius, TX)
     ty0, ty1 = _tile_range(means2d[:, 1], radius, TY)
@@ -122,21 +128,9 @@ def bin_tiles(means2d, depth, radius, ok, hw, tpg_side, k_max):
     key_ok = (tx <= tx1[:, None]) & (ty <= ty1[:, None]) & ok[:, None]
     tile_id = torch.where(key_ok, ty * TX + tx, torch.full_like(tx, T))
 
-    flat_g = torch.arange(G, device=dev)[:, None].expand_as(tile_id).reshape(
-        -1)
-    if (T + 1) < (1 << (31 - DBITS)):
-        key = ((tile_id << DBITS) | depth_q[:, None]).reshape(-1)
-        sorted_key, order = torch.sort(key, stable=True)
-        probes = torch.arange(T + 1, dtype=torch.int32, device=dev) << DBITS
-    else:
-        # ≥ 2^13 tiles: the shifted tile id overflows int32, so sort on a
-        # 64-bit (tile, depth) key and search on the tile id alone
-        key = ((tile_id.long() << DBITS) | depth_q[:, None].long()).reshape(
-            -1)
-        sorted_key, order = torch.sort(key, stable=True)
-        sorted_key = sorted_key >> DBITS
-        probes = torch.arange(T + 1, dtype=torch.int64, device=dev)
-    sorted_g = flat_g[order]
+    sorted_key, order = torch.sort(tile_id.reshape(-1), stable=True)
+    sorted_g = by_depth[order // tile_id.shape[1]]
+    probes = torch.arange(T + 1, dtype=torch.int32, device=dev)
 
     bounds = torch.searchsorted(sorted_key, probes, right=False)
     starts, ends = bounds[:T], bounds[1:]
@@ -242,3 +236,76 @@ def render_bruteforce(means, cov_triu, colors, opa, view, K, hw, bg=None):
     rgb = torch.einsum("gp,gc->pc", w, colors)
     rgb = rgb + trans_incl[-1][:, None] * bg[None, :]
     return rgb.reshape(H, W, 3)
+
+
+def render_bruteforce_scan(means, cov_triu, colors, opa, view, K, hw,
+                           bg=None, g_chunk: int = 2048):
+    """Exact compositing oracle at scale: the math of `render_bruteforce`
+    (global depth sort, every gaussian against every pixel: no k_max cap,
+    no tile-coverage crop), with the transmittance carried over
+    depth-ordered chunks of `g_chunk` gaussians, so that memory is
+    O(g_chunk·256) instead of O(G·P). Plain PyTorch: it is the reference
+    the fidelity sweep holds the tile renderer to, not a path of it.
+
+    It runs 16x16 pixel blocks one at a time and, in each, skips the
+    gaussians whose alpha is below 1/255 (and so exactly zero) on every
+    pixel of the block: alpha ≥ 1/255 needs ½·dᵀ·conic·d ≤ ln(255·opacity),
+    an ellipse whose bounding box, grown by one pixel, is tested against
+    the block. A skipped pair would multiply the transmittance by exactly
+    1 and add exactly 0, so the image is the dense computation's."""
+    H, W = hw
+    dev = means.device
+    if bg is None:
+        bg = torch.zeros(3, device=dev)
+    means2d, conic, depth, radius, ok = project_gaussians(
+        means, cov_triu, opa, view, K, hw)
+    order = torch.argsort(torch.where(ok, depth,
+                                      torch.full_like(depth, math.inf)),
+                          stable=True)
+    opa_ok = torch.where(ok, opa.float(), torch.zeros_like(depth))
+    att = torch.cat([means2d, conic, colors.float(), opa_ok[:, None]],
+                    dim=-1)[order]  # (G, 9): u v ca cb cc r g b opa
+    u, v, ca, cb, cc = att[:, :5].unbind(-1)
+    lim = torch.log(255.0 * att[:, 8])  # -inf where the opacity is 0
+    live = (lim > 0) & ok[order]
+    det = torch.where(live, ca * cc - cb * cb, torch.ones_like(ca))
+    lim = torch.where(live, lim, torch.zeros_like(lim))
+    hx = torch.sqrt(2.0 * lim * cc / det) + 1.0
+    hy = torch.sqrt(2.0 * lim * ca / det) + 1.0
+    x0, x1, y0, y1 = u - hx, u + hx, v - hy, v + hy
+    bgf = bg.float()
+    img = torch.empty(H, W, 3, device=dev)
+    for by in range(0, H, TILE):
+        for bx in range(0, W, TILE):
+            bh, bw = min(TILE, H - by), min(TILE, W - bx)
+            # pixel centres of the block lie in [b + 0.5, b + n - 0.5]
+            idx = torch.nonzero(live & (x1 >= bx + 0.5) & (x0 <= bx + bw - 0.5)
+                                & (y1 >= by + 0.5) & (y0 <= by + bh - 0.5)
+                                )[:, 0]
+            yy, xx = torch.meshgrid(
+                torch.arange(by, by + bh, dtype=torch.float32, device=dev),
+                torch.arange(bx, bx + bw, dtype=torch.float32, device=dev),
+                indexing="ij")
+            px = xx.reshape(1, -1) + 0.5
+            py = yy.reshape(1, -1) + 0.5
+            rgb = torch.zeros(bh * bw, 3, device=dev)
+            trans = torch.ones(bh * bw, device=dev)
+            for g0 in range(0, idx.shape[0], g_chunk):
+                rows = att[idx[g0:g0 + g_chunk]]
+                du = px - rows[:, 0:1]  # (Gc, P)
+                dv = py - rows[:, 1:2]
+                power = -0.5 * (rows[:, 2:3] * du * du
+                                + rows[:, 4:5] * dv * dv) \
+                    - rows[:, 3:4] * du * dv
+                alpha = torch.clamp(rows[:, 8:9] * torch.exp(power),
+                                    max=0.99)
+                alpha = torch.where(alpha < 1.0 / 255.0,
+                                    torch.zeros_like(alpha), alpha)
+                one_m = 1.0 - alpha
+                ti = torch.cumprod(one_m, dim=0)  # within-chunk inclusive
+                w = alpha * (ti / one_m) * trans[None, :]
+                rgb = rgb + torch.einsum("gp,gc->pc", w, rows[:, 5:8])
+                trans = trans * ti[-1]
+            img[by:by + bh, bx:bx + bw] = (
+                rgb + trans[:, None] * bgf[None, :]).reshape(bh, bw, 3)
+    return img

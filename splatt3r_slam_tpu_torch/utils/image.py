@@ -4,8 +4,9 @@ Counterpart of `splatt3r_slam_tpu/utils/image.py` and of the native resize
 the JAX `create_frame` uses where g++ is present
 (`splatt3r_slam_tpu/native/impre.cpp`):
 
-- `read_png` / `write_png`: 8-bit PNG through `zlib` and `struct` (gray,
-  RGB and RGBA read, non-interlaced, all five row filters; RGB written);
+- `read_png` / `write_png` (and `decode_png` / `encode_png` on bytes):
+  8-bit PNG through `zlib` and `struct` (gray, RGB and RGBA read,
+  non-interlaced, all five row filters; RGB written);
 - `resize_img`: the reference geometry (long side to `size`, centre crop
   to multiples of 16, the square 3:4 exception; short side to 224 and a
   square crop for `size == 224`), with the pixels of the native helper:
@@ -31,20 +32,25 @@ def _chunk(tag: bytes, data: bytes) -> bytes:
         ">I", zlib.crc32(body))
 
 
-def write_png(path, rgb_u8):
-    """(H, W, 3) uint8 RGB, or (H, W) uint8 gray → an 8-bit truecolour (or
-    grayscale) PNG file (filter 0)."""
+def encode_png(rgb_u8) -> bytes:
+    """(H, W, 3) uint8 RGB, or (H, W) uint8 gray → the bytes of an 8-bit
+    truecolour (or grayscale) PNG (filter 0)."""
     rgb_u8 = np.ascontiguousarray(rgb_u8, np.uint8)
     h, w = rgb_u8.shape[:2]
     c = 1 if rgb_u8.ndim == 2 else 3
     raw = np.concatenate([np.zeros((h, 1), np.uint8),
                           rgb_u8.reshape(h, w * c)], axis=1).tobytes()
+    return (_PNG_SIG
+            + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
+                                          0 if c == 1 else 2, 0, 0, 0))
+            + _chunk(b"IDAT", zlib.compress(raw))
+            + _chunk(b"IEND", b""))
+
+
+def write_png(path, rgb_u8):
+    """`encode_png` into the file `path`."""
     with open(path, "wb") as f:
-        f.write(_PNG_SIG
-                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8,
-                                              0 if c == 1 else 2, 0, 0, 0))
-                + _chunk(b"IDAT", zlib.compress(raw))
-                + _chunk(b"IEND", b""))
+        f.write(encode_png(rgb_u8))
 
 
 def _unfilter(filt: np.ndarray, types: np.ndarray) -> np.ndarray:
@@ -79,9 +85,14 @@ def _unfilter(filt: np.ndarray, types: np.ndarray) -> np.ndarray:
 
 
 def read_png(path) -> np.ndarray:
-    """8-bit non-interlaced gray / RGB / RGBA PNG → (H, W, 3) uint8 RGB
-    (gray replicated, alpha dropped), as `cv2.imread` + BGR→RGB gives."""
-    data = open(path, "rb").read()
+    """8-bit non-interlaced gray / RGB / RGBA PNG file → (H, W, 3) uint8
+    RGB (gray replicated, alpha dropped), as `cv2.imread` + BGR→RGB gives."""
+    with open(path, "rb") as f:
+        return decode_png(f.read(), path)
+
+
+def decode_png(data: bytes, path="PNG data") -> np.ndarray:
+    """`read_png` on the bytes of a PNG; `path` names it in errors."""
     if data[:8] != _PNG_SIG:
         raise ValueError(f"{path}: not a PNG file")
     pos, idat, hdr = 8, [], None

@@ -56,6 +56,7 @@ from splatt3r_slam_tpu_torch.runtime.frame import create_frame
 from splatt3r_slam_tpu_torch.runtime.inference import InferenceEngine
 from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
 from splatt3r_slam_tpu_torch.runtime.tracker import FrameTracker
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SEQ = ROOT / "tests" / "fixtures" / "tum" / "rgbd_dataset_freiburg1_fixture"

@@ -39,15 +39,22 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 JAX_SCRIPT = ROOT / "scripts" / "bench_system.py"
 
 
-@pytest.fixture(autouse=True)
+@pytest.fixture(autouse=True, scope="module")
 def one_torch_thread():
     """One intra-op thread for the tiny model: its eager ops are too small
     to gain from more, and the test workers share the host's cores (with
-    a thread per core in each worker, they slow down many times over)."""
-    n = torch.get_num_threads()
+    a thread per core in each worker, they slow down many times over).
+    Module-scoped, so that it also covers the module's own fixtures, and
+    set for the processes a test starts too (OMP_NUM_THREADS)."""
+    n, env = torch.get_num_threads(), os.environ.get("OMP_NUM_THREADS")
     torch.set_num_threads(1)
+    os.environ["OMP_NUM_THREADS"] = "1"
     yield
     torch.set_num_threads(n)
+    if env is None:
+        os.environ.pop("OMP_NUM_THREADS", None)
+    else:
+        os.environ["OMP_NUM_THREADS"] = env
 
 
 def load_jax_script():

@@ -34,6 +34,7 @@ from splatt3r_slam_tpu_torch.utils.image import read_png, write_png
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 from test_torch_port_cli import ARGS, FIXTURE, SEQ  # noqa: E402
 from test_torch_port_cli import fabricated_ckpt  # noqa: E402,F401
+from test_torch_port_bench import one_torch_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 EUROC_K = [458.654, 457.296, 367.215, 248.375]

@@ -28,6 +28,7 @@ from torch_oracle import TwoViewOracle  # noqa: E402
 from splatt3r_slam_tpu.models import TwoViewConfig  # noqa: E402
 from splatt3r_slam_tpu_torch import cli  # noqa: E402
 from splatt3r_slam_tpu_torch.runtime.evaluate import load_ply  # noqa: E402
+from test_torch_port_bench import one_torch_thread  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FIXTURE = ROOT / "tests" / "fixtures" / "tum"
@@ -92,13 +93,14 @@ def test_flag_surface_matches_main(monkeypatch):
 
 def test_cli_refuses_what_is_not_ported(monkeypatch, tmp_path):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="viewers"):
-        cli.main(ARGS[:4])
-    # --calib is ported (tests/test_torch_port_calib.py); the viewer is not
-    with pytest.raises(NotImplementedError, match="viewers"):
-        cli.main(ARGS[:4] + ["--calib",
-                             str(ROOT / "config" / "intrinsics.yaml")])
+    # the viewer and --calib are ported (tests/test_torch_port_viewer.py,
+    # tests/test_torch_port_calib.py): nothing of main.py's surface is
+    # refused any more, and the default command line, without --no-viz,
+    # asks for the card
+    assert not hasattr(cli, "_VIEWER_TODO")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli.main(ARGS[:4])
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(ARGS)  # --device defaults to cuda
     with pytest.raises(SystemExit, match="require-checkpoint"):

@@ -52,6 +52,7 @@ from splatt3r_slam_tpu_torch.runtime.frame import Mode, create_frame
 from splatt3r_slam_tpu_torch.runtime.fused import FusedTracker
 from splatt3r_slam_tpu_torch.runtime.inference import InferenceEngine
 from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 H, W = 48, 64

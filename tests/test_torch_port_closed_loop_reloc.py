@@ -43,6 +43,7 @@ from splatt3r_slam_tpu import config as jcfg  # noqa: E402
 from splatt3r_slam_tpu_torch import config as tcfg  # noqa: E402
 from splatt3r_slam_tpu_torch.runtime import fused  # noqa: E402
 from splatt3r_slam_tpu_torch.runtime import oracle as tor  # noqa: E402
+from test_torch_port_bench import one_torch_thread  # noqa: E402,F401
 
 W = 64
 BLACKOUT = (16, 20)

@@ -37,6 +37,7 @@ import torch
 
 from splatt3r_slam_tpu.splat import pallas_rasterizer as jpal
 from splatt3r_slam_tpu_torch.splat import cuda_rasterizer as cr
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 BG = np.array([0.1, 0.2, 0.3], np.float32)
 COLS = ("u", "v", "conic_a", "conic_b", "conic_c", "opacity", "r", "g", "b")

@@ -33,6 +33,7 @@ from splatt3r_slam_tpu.parallel import workspace as j_ws
 from splatt3r_slam_tpu_torch import cli, train
 from splatt3r_slam_tpu_torch.models import TwoViewConfig
 from splatt3r_slam_tpu_torch.parallel import workspace as t_ws
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 
 def _entry_points(tmp_path):

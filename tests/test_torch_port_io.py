@@ -36,6 +36,7 @@ from splatt3r_slam_tpu_torch.runtime import dataloader as tdl
 from splatt3r_slam_tpu_torch.runtime import evaluate as tev
 from splatt3r_slam_tpu_torch.runtime.frame import create_frame
 from splatt3r_slam_tpu_torch.utils.image import read_png, resize_img, write_png
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SEQ = ROOT / "tests" / "fixtures" / "tum" / "rgbd_dataset_freiburg1_fixture"

@@ -17,6 +17,7 @@ from splatt3r_slam_tpu.lie import sim3 as jsim3
 from splatt3r_slam_tpu_torch.geometry import projective as tproj
 from splatt3r_slam_tpu_torch.geometry import robust as trob
 from splatt3r_slam_tpu_torch.lie import sim3 as tsim3
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 
 def _poses(rng, n, small=False):

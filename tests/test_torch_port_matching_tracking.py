@@ -25,6 +25,7 @@ from splatt3r_slam_tpu_torch.ops import image as timg
 from splatt3r_slam_tpu_torch.ops import matching as tm
 from splatt3r_slam_tpu_torch.runtime.fused import unique_match_count as t_unique
 from splatt3r_slam_tpu_torch.tracking import tracker as tt
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 H, W = 24, 32
 

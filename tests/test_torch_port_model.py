@@ -36,6 +36,7 @@ from splatt3r_slam_tpu_torch.models.checkpoint import (
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
 from torch_oracle import TwoViewOracle  # noqa: E402
+from test_torch_port_bench import one_torch_thread  # noqa: E402,F401
 
 H, W = 48, 64
 

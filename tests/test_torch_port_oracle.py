@@ -22,6 +22,7 @@ from splatt3r_slam_tpu.runtime import fused as jfused
 from splatt3r_slam_tpu.runtime import oracle as jor
 from splatt3r_slam_tpu_torch.runtime import fused as tfused
 from splatt3r_slam_tpu_torch.runtime import oracle as tor
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 H, W = 48, 64
 PLANE = dict(plane_n=(0.12, 0.08, 1.0), plane_d=2.0)

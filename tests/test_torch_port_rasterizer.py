@@ -28,6 +28,7 @@ from splatt3r_slam_tpu.splat.pallas_rasterizer import render_tiles_pallas
 from splatt3r_slam_tpu_torch.splat import cuda_rasterizer as cr
 from splatt3r_slam_tpu_torch.splat import gaussians as tg
 from splatt3r_slam_tpu_torch.splat import rasterizer as tr
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 K = np.array([[80.0, 0, 32], [0, 80, 32], [0, 0, 1]], np.float32)
 VIEW = np.eye(4, dtype=np.float32)
@@ -82,7 +83,9 @@ def test_project_gaussians_matches(rng):
 
 @pytest.mark.parametrize("tiles_hw", [(64, 64), (128, 256)])
 def test_bin_tiles_exact(rng, tiles_hw):
-    """Identical gidx/valid/counts from the fused int32 key sort."""
+    """Identical counts, valid slots and gidx on every valid slot. (A
+    padded slot repeats whatever follows the tile in the sorted list, which
+    the two packages order differently past the last valid key.)"""
     means, covt, colors, opa = _scene(rng)
     hw = tiles_hw
     Kw = K.copy()
@@ -94,11 +97,13 @@ def test_bin_tiles_exact(rng, tiles_hw):
                                128)
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
-    np.testing.assert_array_equal(tg_.numpy(), np.asarray(jg))
+    np.testing.assert_array_equal(tg_.numpy()[tv.numpy()],
+                                  np.asarray(jg)[np.asarray(jv)])
 
 
 def test_bin_tiles_two_operand_branch(rng):
-    """≥ 2^13 tiles: the int64-key branch equals the JAX two-key sort."""
+    """≥ 2^13 tiles: the port's tile-id sort equals the JAX two-key sort
+    (the shifted tile id overflows int32 there)."""
     hw = (16 * 64, 16 * 130)  # 8320 tiles
     G = 300
     m2 = np.stack([rng.random(G) * hw[1], rng.random(G) * hw[0]], -1)
@@ -117,6 +122,43 @@ def test_bin_tiles_two_operand_branch(rng):
 
 def _port(fn, means, covt, colors, opa, **kw):
     return fn(*_t(means, covt, colors, opa, VIEW, K), HW, **kw).numpy()
+
+
+def _psnr(a, b):
+    mse = float(np.mean((np.asarray(a) - np.asarray(b)) ** 2))
+    return 99.0 if mse < 1e-12 else 10 * np.log10(1.0 / mse)
+
+
+def test_depth_key_ties_composite_in_depth_order():
+    """Gaussians of one tile whose 18-bit depth keys tie: the JAX package
+    composites them in index order, the port in depth order, as the exact
+    oracle does. Eight overlapping gaussians 2e-5 apart in depth (indices
+    far to near) sit under one key while two small ones at depths 1 and
+    100 set the key's span (quantum 3.8e-4)."""
+    n = 8
+    means = np.zeros((n + 2, 3), np.float32)
+    means[:n, 2] = 5.0 + 2e-5 * np.arange(n)[::-1]
+    means[n:] = [[-0.3, -0.3, 1.0], [-30.0, -30.0, 100.0]]
+    scales = np.full((n + 2, 3), 0.3, np.float32)
+    scales[n:] = 0.001
+    q = np.tile(np.float32([1, 0, 0, 0]), (n + 2, 1))
+    covt = np.asarray(j_triu(j_cov(jnp.asarray(scales), jnp.asarray(q))),
+                      np.float32)
+    colors = np.random.default_rng(0).random((n + 2, 3)).astype(np.float32)
+    opa = np.full(n + 2, 0.8, np.float32)
+    args = (means, covt, colors, opa, VIEW, K)
+    exact = np.asarray(jr.render_bruteforce(*_j(*args), HW))
+    port = tr.render_tiles(*_t(*args), HW).numpy()
+    jax_tiles = np.asarray(jr.render_tiles(*_j(*args), HW))
+    assert float(exact.max()) > 0.3, "an empty render"
+    assert _psnr(port, exact) >= 88.0
+    assert _psnr(jax_tiles, exact) < 88.0
+    # the same scene in depth order: no tie left to resolve, so the JAX
+    # package agrees with the oracle too
+    order = np.argsort(means[:, 2], kind="stable")
+    jax_sorted = np.asarray(jr.render_tiles(
+        *_j(*(a[order] for a in args[:4]), VIEW, K), HW))
+    assert _psnr(jax_sorted, exact) >= 88.0
 
 
 @pytest.mark.parametrize("port_fn", [tr.render_tiles, cr.render_tiles_cuda])

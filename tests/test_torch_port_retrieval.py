@@ -24,6 +24,7 @@ from splatt3r_slam_tpu.retrieval.database import RetrievalDatabase as JDB
 from splatt3r_slam_tpu_torch.retrieval import asmk
 from splatt3r_slam_tpu_torch.retrieval import model as tmodel
 from splatt3r_slam_tpu_torch.retrieval.database import RetrievalDatabase
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 D = 64
 

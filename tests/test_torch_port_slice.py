@@ -59,6 +59,7 @@ from splatt3r_slam_tpu_torch.runtime.inference import InferenceEngine
 from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
 from splatt3r_slam_tpu_torch.splat import GaussianAccumulator
 from splatt3r_slam_tpu_torch.splat.decoder import render_frame
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 H, W = 48, 64
@@ -102,8 +103,34 @@ def _cmp_rel(got, want, rtol=1e-4):
     np.testing.assert_allclose(np.asarray(got), want, atol=rtol * scale)
 
 
+def _depth_ordered_jax_render(monkeypatch):
+    """Make the JAX package's `render_frame` hand its tile renderer the
+    gaussians in depth order: the random model's depths span orders of
+    magnitude, so its 18-bit depth keys tie and composite in index order,
+    where the port's binning uses the exact depth order
+    (`tests/test_torch_port_rasterizer.py::
+    test_depth_key_ties_composite_in_depth_order`). In depth order the two
+    orders agree. `render_frame` runs eagerly so that the patch is seen."""
+    import jax.numpy as jnp
+
+    from splatt3r_slam_tpu.splat import decoder as jdec
+    from splatt3r_slam_tpu.splat import rasterizer as jr
+
+    def render_tiles(means, covs, cols, opas, view, K, hw, *a, **kw):
+        _, _, depth, _, ok = jr.project_gaussians(means, covs, opas, view, K,
+                                                  hw)
+        o = jnp.argsort(jnp.where(ok, depth, jnp.inf), stable=True)
+        return jr.render_tiles(means[o], covs[o], cols[o], opas[o], view, K,
+                               hw, *a, **kw)
+
+    monkeypatch.setattr(jdec, "render_tiles", render_tiles)
+    monkeypatch.setattr(jdec, "_render_frame_jit",
+                        jdec._render_frame_jit.__wrapped__)
+
+
 @pytest.mark.parametrize("max_iters", [4, 0])
-def test_slice_matches_jax(engines, max_iters):
+def test_slice_matches_jax(engines, max_iters, monkeypatch):
+    _depth_ordered_jax_render(monkeypatch)
     je, te = engines
     jcfg.config["tracking"]["max_iters"] = max_iters
     tcfg.config["tracking"]["max_iters"] = max_iters
@@ -138,9 +165,9 @@ def test_slice_matches_jax(engines, max_iters):
         own = render_frame(tf, tkf)
         assert own.shape == (H, W, 3) and torch.isfinite(own).all()
         # the render itself on identical gaussians: the predictions agree
-        # only to fp32 noise, and the 18-bit depth keys and the k_max cap
-        # turn noise in depth into another per-tile order, so the image
-        # is held on the JAX frame's own predictions
+        # only to fp32 noise, and the k_max cap turns noise in depth into
+        # another per-tile list, so the image is held on the JAX frame's
+        # own predictions
         for view in ("gaussian_pred", "gaussian_pred_cross"):
             setattr(tf, view, {k: torch.from_numpy(np.array(v))
                                for k, v in getattr(jf, view).items()})
@@ -173,7 +200,8 @@ def test_run_loop_matches_process_frame(engines):
 
 
 def test_port_imports_no_jax():
-    """Every port module imports without jax or the JAX package."""
+    """Every port module imports without jax or the JAX package, and
+    without cv2 (the GPU host has none)."""
     pkg = ROOT / "splatt3r_slam_tpu_torch"
     mods = sorted(
         "splatt3r_slam_tpu_torch." + ".".join(
@@ -184,7 +212,8 @@ def test_port_imports_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'splatt3r_slam_tpu' or m.startswith('splatt3r_slam_tpu.')]\n"
+        " or m == 'splatt3r_slam_tpu' or m.startswith('splatt3r_slam_tpu.')"
+        " or m == 'cv2']\n"
         "assert not bad, bad\n"
         "print(len(sys.modules))\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -200,7 +229,10 @@ def test_port_imports_no_jax():
         "ops.pose_graph", "backend", "backend.factor_graph", "retrieval",
         "retrieval.model", "retrieval.asmk", "retrieval.database", "bench",
         "scripts", "scripts._common", "scripts.bench_system", "scripts.soak",
-        "scripts.profile_stages", "scripts.profile_keyframe_event")
+        "scripts.profile_stages", "scripts.profile_keyframe_event",
+        "demo", "utils.draw", "runtime.visualization",
+        "runtime.session", "runtime.webdemo",
+        "scripts.sweep_rasterizer_fidelity")
     } <= set(mods)
 
 

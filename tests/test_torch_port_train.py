@@ -38,6 +38,7 @@ from splatt3r_slam_tpu_torch.parallel import TrainConfig, Trainer
 from splatt3r_slam_tpu_torch.splat import cuda_rasterizer as cr
 from splatt3r_slam_tpu_torch.splat import rasterizer as t_rast
 from splatt3r_slam_tpu_torch.train import synthetic_batches
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 H = W = 32
 CFG = TwoViewConfig(dtype="float32", head_dtype="float32").tiny()

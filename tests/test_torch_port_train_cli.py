@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 
 from splatt3r_slam_tpu_torch import train as t_train
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 

@@ -38,6 +38,7 @@ from splatt3r_slam_tpu_torch.splat import decoder as t_dec
 from splatt3r_slam_tpu_torch.splat.gaussians import build_covariance
 from splatt3r_slam_tpu_torch.utils import lpips as t_lpips
 from splatt3r_slam_tpu_torch.utils import metrics as t_metrics
+from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 
 def _t(a):
