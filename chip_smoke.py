@@ -137,6 +137,29 @@ Phases, each printing one line of its own; any failure exits non-zero:
              `make_eval_step` call; then one more step under torch.profiler
              (`port.train.*` spans), and both kernels against their plain
              versions, timed, on that step's own rows;
+5b. dist  — multi-GPU training at world size 1 over NCCL (one card, one
+             rank), at full width: `graft_entry.entry()` (the flagship
+             two-view forward, TwoViewConfig() at 384x512, seeded weights;
+             pts3d (1, 384, 512, 3) and finite; forward ms printed);
+             `train.main(["--devices", "1", ...])` with phase 5's recipe
+             (256x384, B=1, V=1, 3 steps), which opens its own process
+             group: the backend is nccl, the mesh (1, 1, 1), every model
+             parameter a DTensor, forward and backward compositor launches
+             each 3, the CSV and the checkpoint written, the group closed
+             after; then 2 steps of the mesh `Trainer` and 2 of the
+             single-device `Trainer` from the same seeded weights and
+             batches, cuDNN's deterministic algorithms on: each step's loss
+             within 1e-4 relative and every parameter after the steps
+             within 2·lr, both printed with the step times and peak memory
+             beside phase 5's, and both kernels against their plain
+             versions on the mesh step's own rows (the backward per
+             column within 1e-4 of its peak or within the plain version's
+             own difference between the card and the CPU, where a
+             column's peak is at cancellation level);
+             `graft_entry.dryrun_multichip(1)` (the tiny model's full-loss
+             step, every parameter training): loss, mse, ssim, lpips and
+             regr3d finite, loss != regr3d, one launch each way. Each line
+             carries the card's name and power limit;
 6. cli     — `python -m splatt3r_slam_tpu_torch --dataset
              tests/fixtures/tum/rgbd_dataset_freiburg1_fixture --config
              tests/fixtures/tum/eval_fixture.yaml --no-viz --seed 0` run in
@@ -1571,6 +1594,303 @@ def _calibrated_phase(torch, root, cr, device="cuda", argv=()):
     return lines, res
 
 
+DIST_STEPS = 2  # mesh trainer against the single-device trainer
+DIST_LOSS_RTOL = 1e-4  # relative difference of each step's loss
+DIST_PARAM_LR = 2.0  # largest parameter difference, in units of lr
+ENTRY_CALLS = 3
+
+
+def _held_step_rows(torch, cr, args, path):
+    """Both kernels against their plain versions on a training step's own
+    rows (the backward compositor's arguments: counts, origins, rows,
+    output cotangent, forward output) → dict(fwd_err, bwd_rel_err,
+    bwd_abs_err, rows). Raises past TOL and BWD_TOL."""
+    cnt, org, rw, gout, out = args
+    held = _held_rows(torch, cr, (cnt, org, rw), path)
+    bwd_rel, bwd_abs = bwd_errors(cr.composite_bwd(cnt, org, rw, gout, out),
+                                  cr.composite_bwd_torch(cnt, org, rw, gout,
+                                                         out))
+    assert bwd_rel <= BWD_TOL, f"{path} backward vs plain {bwd_rel}"
+    return dict(fwd_err=held["err"], bwd_rel_err=bwd_rel,
+                bwd_abs_err=bwd_abs, rows=held["rows"])
+
+
+def _smi() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+
+
+def _dist_phase(torch, cr, train_res, work):
+    """5b. The multi-GPU training path at world size 1 over NCCL: the
+    flagship forward of `graft_entry.entry()`, `train.main --devices 1`
+    through the mesh, the mesh `Trainer` against the single-device one
+    from identical weights and batches, and `graft_entry.dryrun_multichip
+    (1)`. → (lines, results); results["launches"] is (forward, backward)
+    over the three runs through the mesh."""
+    import numpy as np
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from splatt3r_slam_tpu_torch import graft_entry
+    from splatt3r_slam_tpu_torch import train as train_mod
+    from splatt3r_slam_tpu_torch.models import TwoViewConfig
+    from splatt3r_slam_tpu_torch.parallel import TrainConfig, Trainer
+    from splatt3r_slam_tpu_torch.parallel import mesh as pmesh
+    from splatt3r_slam_tpu_torch.train import synthetic_batches
+
+    smi = _smi()
+    lines, res = [], {"smi": smi}
+    th, tw = TRAIN_HW
+
+    # the flagship two-view forward (ViT-L, 384x512, seeded weights)
+    t0 = time.perf_counter()
+    fn, args = graft_entry.entry()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    entry_ms = []
+    for _ in range(ENTRY_CALLS):
+        ta = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        entry_ms.append((time.perf_counter() - ta) * 1e3)
+    for r in out:
+        assert tuple(r["pts3d"].shape) == (1, H, W, 3), r["pts3d"].shape
+        assert torch.isfinite(r["pts3d"]).all(), "entry pts3d not finite"
+    lines.append(f"[dist-entry] graft_entry.entry(): TwoViewConfig() "
+                 f"{H}x{W}, pts3d {tuple(out[0]['pts3d'].shape)} finite | "
+                 f"model built in {build_s:.1f} s | forward ms "
+                 + ", ".join(f"{m:.1f}" for m in entry_ms)
+                 + f" (the first includes warm-up) | {smi}")
+    res["entry"] = dict(build_s=build_s, forward_ms=entry_ms)
+    del fn, args, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # train.main through the mesh at world size 1, over NCCL
+    seen = {"step_ms": []}
+    real_build = train_mod.build_trainer
+
+    def build(cfg, args, devices=0):
+        trainer, model_cfg = real_build(cfg, args, devices)
+        seen["backend"] = dist.get_backend()
+        seen["mesh"] = pmesh.mesh_shape(trainer.mesh)
+        seen["dtensor"] = all(isinstance(p, DTensor)
+                              for p in trainer.model.parameters())
+        real_make = trainer.make_train_step
+
+        def make():
+            step = real_make()
+
+            def timed(batch):
+                torch.cuda.synchronize()
+                ta = time.perf_counter()
+                m = step(batch)
+                torch.cuda.synchronize()
+                seen["step_ms"].append((time.perf_counter() - ta) * 1e3)
+                seen.setdefault("losses", []).append(float(m["loss"]))
+                return m
+
+            return timed
+
+        trainer.make_train_step = make
+        real_save = trainer.save_params
+
+        def save(path):
+            ta = time.perf_counter()
+            real_save(path)
+            seen["save_s"] = time.perf_counter() - ta
+
+        trainer.save_params = save
+        return trainer, model_cfg
+
+    kept = {}
+    real_bwd = cr.composite_bwd
+
+    def keep_bwd(*a):
+        kept["args"] = tuple(t.detach() for t in a)
+        return real_bwd(*a)
+
+    out_dir = os.path.join(work, "train_main")
+    t_main = time.perf_counter()
+    train_mod.build_trainer = build
+    cr.composite_bwd = keep_bwd
+    torch.cuda.reset_peak_memory_stats()
+    cr.launches = cr.bwd_launches = 0
+    try:
+        rc = train_mod.main([
+            "--devices", "1", "--steps", str(TRAIN_STEPS), "--res", str(th),
+            str(tw), "--set", "train.render_loss=true",
+            "train.ssim_weight=0.1", "train.mast3r_loss_weight=1.0",
+            "train.k_max=256", "--out", out_dir, "--name", "dist"])
+    finally:
+        train_mod.build_trainer = real_build
+        cr.composite_bwd = real_bwd
+    main_launches = (cr.launches, cr.bwd_launches)
+    main_peak = torch.cuda.max_memory_allocated() / 2**30
+    main_s = time.perf_counter() - t_main
+    want = TRAIN_STEPS * 1 * 1
+    assert rc == 0, rc
+    assert seen["backend"] == "nccl", seen["backend"]
+    assert seen["dtensor"], "a parameter of the mesh model is no DTensor"
+    assert seen["mesh"] == {"dp": 1, "fsdp": 1, "tp": 1}, seen["mesh"]
+    assert main_launches == (want, want), \
+        f"{main_launches} launches for {want} renders"
+    assert all(np.isfinite(v) for v in seen["losses"]), seen["losses"]
+    (ws,) = os.listdir(out_dir)
+    csv_rows = open(os.path.join(out_dir, ws, "dist_metrics.csv")).read()
+    assert len(csv_rows.splitlines()) == TRAIN_STEPS + 1, csv_rows
+    assert os.path.exists(os.path.join(out_dir, ws, "params_final.npz"))
+    assert not dist.is_initialized(), "train.main left its group open"
+    # its last step's own rows, as phase 5 holds its own. The random
+    # model's second step puts its gaussians up to 1.4e5 px off screen:
+    # the means' gradients peak at 8e-10 there, and the plain version on
+    # the card and on the CPU differ by 3.7e-3 of that peak, so no kernel
+    # can be held at 1e-4 on those rows
+    main_rows = _held_step_rows(torch, cr, kept.pop("args"),
+                                "dist train.main")
+    lines.append(
+        f"[dist-train-main] train.main --devices 1: backend "
+        f"{seen['backend']}, mesh {seen['mesh']}, every parameter a "
+        f"DTensor | {TRAIN_STEPS} steps {th}x{tw} B=1 V=1 ViT-L bf16, "
+        f"gaussian heads only | step ms "
+        + ", ".join(f"{m:.1f}" for m in seen["step_ms"])
+        + f" (single-device phase 5: "
+        + ", ".join(f"{m:.1f}" for m in train_res["step_ms"])
+        + f") | loss " + ", ".join(f"{v:.4f}" for v in seen["losses"])
+        + f" | peak memory {main_peak:.2f} GiB (phase 5: "
+        f"{train_res['peak_gib']:.2f}) | compositor launches forward "
+        f"{main_launches[0]} / backward {main_launches[1]} = renders "
+        f"{want} | its last step's own rows ({main_rows['rows']} rows): "
+        f"kernel vs plain forward {main_rows['fwd_err']:.2e}, backward "
+        f"{main_rows['bwd_rel_err']:.2e} of column peak | {main_s:.1f} s "
+        f"in all, save_params (whole tensors, np.savez) "
+        f"{seen['save_s']:.1f} s of it | {smi}")
+    res["train_main"] = dict(step_ms=seen["step_ms"], losses=seen["losses"],
+                             s=main_s, save_s=seen["save_s"],
+                             peak_gib=main_peak, launches=main_launches,
+                             backend=seen["backend"], mesh=seen["mesh"],
+                             rows=main_rows)
+
+    # the mesh Trainer against the single-device Trainer: identical seeded
+    # weights, identical batches, cuDNN's deterministic algorithms
+    tcfg = TrainConfig(render_loss=True, ssim_weight=0.1,
+                       mast3r_loss_weight=1.0, k_max=256)
+    batches = list(synthetic_batches(DIST_STEPS, 1, th, tw, True, seed=0))
+    det = (torch.backends.cudnn.deterministic,
+           torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    runs = {}
+    t_cmp = time.perf_counter()
+    try:
+        for name in ("mesh", "single"):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            cr.launches = cr.bwd_launches = 0
+            group = pmesh.process_group(
+                0, 1, f"file://{os.path.join(work, 'store_' + name)}",
+                "cuda") if name == "mesh" else contextlib.nullcontext()
+            with group:
+                mesh = pmesh.make_mesh(1) if name == "mesh" else None
+                trainer = Trainer(TwoViewConfig(), tcfg, device="cuda",
+                                  mesh=mesh, seed=0)
+                step = trainer.make_train_step()
+                ms, losses = [], []
+                for b in batches:
+                    torch.cuda.synchronize()
+                    ta = time.perf_counter()
+                    m = step(b)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - ta) * 1e3)
+                    losses.append(float(m["loss"]))
+                params = {k: v.detach().float().cpu() for k, v in
+                          pmesh.full_tensors(trainer.model).items()}
+                runs[name] = dict(
+                    step_ms=ms, losses=losses, params=params,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    launches=(cr.launches, cr.bwd_launches),
+                    dtensor=all(isinstance(p, DTensor)
+                                for p in trainer.model.parameters()))
+                del trainer, step, mesh
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = det
+    cmp_s = time.perf_counter() - t_cmp
+    mr, sr = runs["mesh"], runs["single"]
+    assert mr["dtensor"] and not sr["dtensor"]
+    assert mr["launches"] == sr["launches"] == (DIST_STEPS, DIST_STEPS), \
+        (mr["launches"], sr["launches"])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in
+                   zip(mr["losses"], sr["losses"]))
+    assert set(mr["params"]) == set(sr["params"])
+    param_diff = max(float((mr["params"][k] - v).abs().max())
+                     for k, v in sr["params"].items())
+    param_tol = DIST_PARAM_LR * tcfg.lr
+    assert loss_rel <= DIST_LOSS_RTOL, f"loss differs by {loss_rel:.3e}"
+    assert param_diff <= param_tol, f"parameters differ by {param_diff:.3e}"
+
+    lines.append(
+        f"[dist-trainer] mesh Trainer (1, 1, 1) over NCCL vs single-device "
+        f"Trainer, {DIST_STEPS} steps from identical weights and batches "
+        f"(cuDNN deterministic): loss "
+        + ", ".join(f"{a:.6f}/{b:.6f}" for a, b in
+                    zip(mr["losses"], sr["losses"]))
+        + f", largest relative difference {loss_rel:.3e} (limit "
+        f"{DIST_LOSS_RTOL:g}), largest parameter difference "
+        f"{param_diff:.3e} (limit {DIST_PARAM_LR:g}·lr = {param_tol:.1e}) | "
+        f"step ms mesh " + ", ".join(f"{m:.1f}" for m in mr["step_ms"])
+        + " vs single " + ", ".join(f"{m:.1f}" for m in sr["step_ms"])
+        + f" | peak memory mesh {mr['peak_gib']:.2f} GiB vs single "
+        f"{sr['peak_gib']:.2f} | launches mesh {mr['launches']}, single "
+        f"{sr['launches']} | {cmp_s:.1f} s in all | {smi}")
+    res["trainer"] = dict(
+        loss_rel=loss_rel, param_diff=param_diff, param_tol=param_tol,
+        mesh={k: v for k, v in mr.items() if k != "params"},
+        single={k: v for k, v in sr.items() if k != "params"}, s=cmp_s)
+    mesh_launches = mr["launches"]
+    del runs, mr, sr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one full-loss sharded step (tiny model, every parameter training)
+    cr.launches = cr.bwd_launches = 0
+    cr.composite_bwd = keep_bwd
+    t0 = time.perf_counter()
+    try:
+        dry = graft_entry.dryrun_multichip(1)
+    finally:
+        cr.composite_bwd = real_bwd
+    dry_s = time.perf_counter() - t0
+    dry_launches = (cr.launches, cr.bwd_launches)
+    dry_rows = _held_step_rows(torch, cr, kept.pop("args"), "dist dry run")
+    for k in ("loss", "mse", "ssim", "lpips", "regr3d"):
+        assert np.isfinite(dry[k]), (k, dry)
+    assert dry["loss"] != dry["regr3d"], "a loss term is not live"
+    assert dry["mesh"] == {"dp": 1, "fsdp": 1, "tp": 1}, dry["mesh"]
+    assert dry_launches == (1, 1), dry_launches
+    lines.append(
+        f"[dist-dryrun] dryrun_multichip(1) on {dry['mesh']}: loss "
+        f"{dry['loss']:.4f} = mse {dry['mse']:.4f} + ssim {dry['ssim']:.4f}"
+        f" + lpips {dry['lpips']:.4f} + regr3d {dry['regr3d']:.4f}, every "
+        f"term finite and live | {dry_s:.1f} s | compositor launches "
+        f"{dry_launches} | its step's own rows ({dry_rows['rows']} rows): "
+        f"kernel vs plain forward {dry_rows['fwd_err']:.2e}, backward "
+        f"{dry_rows['bwd_rel_err']:.2e} of column peak | {smi}")
+    res["dryrun"] = dict(metrics=dry, s=dry_s, launches=dry_launches,
+                         rows=dry_rows)
+    res["launches"] = tuple(
+        a + b + c for a, b, c in zip(main_launches, mesh_launches,
+                                     dry_launches))
+    res["kernel_vs_plain"] = max(main_rows["fwd_err"], dry_rows["fwd_err"])
+    res["bwd_rel_err"] = max(main_rows["bwd_rel_err"],
+                             dry_rows["bwd_rel_err"])
+    return lines, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -2181,10 +2501,24 @@ def main(argv=None) -> int:
         profile=dict(wall_ms=t_wall, device_ms=t_busy, spans=t_spans,
                      backward_device_ms_by_remainder=t_bwd_dev))
 
-    # -- 6. the CLI's SLAM run at full width ----------------------------------
+    # -- 5b. multi-GPU training at world size 1 over NCCL ---------------------
     del trainer, step, named, batches, seen
     gc.collect()
     torch.cuda.empty_cache()
+    dist_work = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        dist_lines, dist_res = _dist_phase(torch, cr, results["train"],
+                                           dist_work)
+    finally:
+        shutil.rmtree(dist_work, ignore_errors=True)
+    for ln in dist_lines:
+        print(ln)
+    results["dist"] = dist_res
+    dist_launches, dist_bwd_launches = dist_res["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- 6. the CLI's SLAM run at full width ----------------------------------
     fixture = os.path.join(root, "tests", "fixtures", "tum")
     cli_line, cli_res = _cli_phase(
         torch, root, cr, "cuda",
@@ -2221,10 +2555,7 @@ def main(argv=None) -> int:
     calib_launches = sum(r["launches"] for r in calib_res.values())
 
     # -- 8. device ------------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
+    smi = _smi()
     kind = torch.cuda.get_device_name(0)
     print(f"[device] {kind} | nvidia-smi: {smi}")
     results["device"] = dict(kind=kind, smi=smi)
@@ -2234,9 +2565,10 @@ def main(argv=None) -> int:
         "source": "splatt3r_slam_tpu_torch/csrc/composite.cu",
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:61",
         "launches": (launches + cl_launches + entry_launches + train_launches
-                     + cli_launches + calib_launches + viz_launches
-                     + cli_viz_launches),
+                     + dist_launches + cli_launches + calib_launches
+                     + viz_launches + cli_viz_launches),
         "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err,
+                           dist_res["kernel_vs_plain"],
                            cli_res["kernel_vs_plain"],
                            cl_res["kernel_vs_plain"],
                            entry_res["kernel_vs_plain"],
@@ -2254,6 +2586,7 @@ def main(argv=None) -> int:
         "call_ms_closed_loop_rows": cl_res["call_ms"],
         "bound_ms_closed_loop_rows": cl_res["bound_ms"],
         "launches_serving": launches, "launches_training": train_launches,
+        "launches_dist": dist_launches,
         "launches_cli": cli_launches,
         "launches_closed_loop": cl_launches,
         "launches_entry": entry_launches,
@@ -2273,7 +2606,8 @@ def main(argv=None) -> int:
         "name": "composite_bwd_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:202",
-        "launches": serving_bwd_launches + train_bwd_launches,
+        "launches": (serving_bwd_launches + train_bwd_launches
+                     + dist_bwd_launches),
         # on the seeded scenes, whose cotangent is unit normal; a training
         # step's own gradients are held relative to their peak (below)
         "max_abs_err": max(bwd_abs, train_abs, small_abs, edge_abs),
@@ -2281,12 +2615,14 @@ def main(argv=None) -> int:
         "bound_by": bwd_bound_by, "library_ms": None,
         "call_ms": bwd_call_ms,
         "max_err_over_column_peak": max(bwd_rel, train_rel, small_rel,
-                                        edge_rel, s_rel),
+                                        edge_rel, s_rel,
+                                        dist_res["bwd_rel_err"]),
         "ms_training_shape": t_bwd_ms,
         "bound_ms_training_shape": t_bwd_bound_ms,
         "ms_training_rows": s_bwd_ms, "call_ms_training_rows": s_bwd_call_ms,
         "launches_serving": serving_bwd_launches,
         "launches_training": train_bwd_launches,
+        "launches_dist": dist_bwd_launches,
         "launches_cli": 0,
         "launches_closed_loop": 0,
         "launches_entry": 0,

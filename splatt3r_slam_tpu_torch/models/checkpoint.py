@@ -130,9 +130,10 @@ def _normalise_keys(sd: dict) -> dict:
     return out
 
 
-def load_state_dict(model: torch.nn.Module, sd: dict) -> list:
-    """Load `sd` into `model`; every model key but the unused refinenet4
-    residual unit must be present. Returns the ignored extra keys."""
+def checked_state_dict(model: torch.nn.Module, sd: dict):
+    """→ ({key: array} of `sd`'s entries that `model` holds, the ignored
+    extra keys). Every model key but the unused refinenet4 residual unit
+    must be present, at its shape."""
     sd = _normalise_keys(sd)
     own = model.state_dict()
     missing = [k for k in own if k not in sd and not any(u in k for u in
@@ -143,11 +144,20 @@ def load_state_dict(model: torch.nn.Module, sd: dict) -> list:
     bad = [k for k in own if k in sd and tuple(sd[k].shape) != own[k].shape]
     if bad:
         raise ValueError(f"shape mismatch for {bad[:5]}")
+    return ({k: sd[k] for k in own if k in sd},
+            [k for k in sd if k not in own])
+
+
+def load_state_dict(model: torch.nn.Module, sd: dict) -> list:
+    """Load `sd` into `model` (checked by `checked_state_dict`). Returns
+    the ignored extra keys. A model sharded on a mesh loads through
+    `parallel/mesh.py::load_full_state_dict`."""
+    sd, extra = checked_state_dict(model, sd)
     with torch.no_grad():
-        for k, t in own.items():
+        for k, t in model.state_dict().items():
             if k in sd:
                 t.copy_(torch.as_tensor(sd[k]).to(t.dtype))
-    return [k for k in sd if k not in own]
+    return extra
 
 
 def load_torch_checkpoint(path: str) -> dict:

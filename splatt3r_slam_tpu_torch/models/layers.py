@@ -125,14 +125,15 @@ class Attention(nn.Module):
 
     def forward(self, x, rope_cs):
         B, N, C = x.shape
-        H = self.num_heads
-        Dh = C // H
-        qkv = self.qkv(x).reshape(B, N, 3, H, Dh)
+        Dh = C // self.num_heads
+        # the head axis is -1: under tensor parallelism `qkv` holds this
+        # rank's heads only, as [q, k, v] (parallel/mesh.py)
+        qkv = self.qkv(x).reshape(B, N, 3, -1, Dh)
         q, k, v = qkv.unbind(2)
         if rope_cs is not None:
             q = apply_rope2d(q, *rope_cs)
             k = apply_rope2d(k, *rope_cs)
-        return self.proj(attend(q, k, v, Dh**-0.5).reshape(B, N, C))
+        return self.proj(attend(q, k, v, Dh**-0.5).reshape(B, N, -1))
 
 
 class CrossAttention(nn.Module):
@@ -148,15 +149,15 @@ class CrossAttention(nn.Module):
 
     def forward(self, query, key, value, q_cs, k_cs):
         B, Nq, C = query.shape
-        H = self.num_heads
-        Dh = C // H
-        q = self.projq(query).reshape(B, Nq, H, Dh)
-        k = self.projk(key).reshape(B, key.shape[1], H, Dh)
-        v = self.projv(value).reshape(B, value.shape[1], H, Dh)
+        Dh = C // self.num_heads
+        # local heads under tensor parallelism, as in `Attention`
+        q = self.projq(query).reshape(B, Nq, -1, Dh)
+        k = self.projk(key).reshape(B, key.shape[1], -1, Dh)
+        v = self.projv(value).reshape(B, value.shape[1], -1, Dh)
         if q_cs is not None:
             q = apply_rope2d(q, *q_cs)
             k = apply_rope2d(k, *k_cs)
-        return self.proj(attend(q, k, v, Dh**-0.5).reshape(B, Nq, C))
+        return self.proj(attend(q, k, v, Dh**-0.5).reshape(B, Nq, -1))
 
 
 class Mlp(nn.Module):

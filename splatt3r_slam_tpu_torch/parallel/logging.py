@@ -2,7 +2,8 @@
 
 Counterpart of `splatt3r_slam_tpu/parallel/logging.py`: a dependency-free
 CSV logger with metric-dict semantics, and a `torch.profiler` trace window
-(chrome trace) around a chosen step range.
+(chrome trace) around a chosen step range. Under a process group only
+rank 0 writes either; on the other ranks both do nothing.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import csv
 import json
 import pathlib
 import time
+
+from splatt3r_slam_tpu_torch.parallel.mesh import is_rank0
 
 
 class MetricsLogger:
@@ -23,8 +26,11 @@ class MetricsLogger:
 
     def __init__(self, run_dir, run_name: str = "train", meta: dict = None):
         self.dir = pathlib.Path(run_dir)
-        self.dir.mkdir(parents=True, exist_ok=True)
         self.path = self.dir / f"{run_name}_metrics.csv"
+        self.enabled = is_rank0()
+        if not self.enabled:
+            return
+        self.dir.mkdir(parents=True, exist_ok=True)
         self.path.unlink(missing_ok=True)
         self._keys = []
         self._t0 = time.time()
@@ -34,6 +40,8 @@ class MetricsLogger:
             )
 
     def log(self, step: int, metrics: dict):
+        if not self.enabled:
+            return
         row = {"step": int(step),
                "wall_time_s": round(time.time() - self._t0, 3)}
         for k, v in metrics.items():
@@ -72,6 +80,8 @@ class TraceWindow:
         self._prof = None
 
     def step(self, i: int):
+        if not is_rank0():
+            return
         if self._prof is None and self.start <= i < self.stop:
             import torch
             from torch.profiler import ProfilerActivity, profile

@@ -1,22 +1,28 @@
-"""Training harness for the two-view model, on a single device.
+"""Training harness for the two-view model, on one device or a mesh.
 
 Counterpart of `splatt3r_slam_tpu/parallel/trainer.py`: Adam + MultiStepLR,
 gaussian-head-only finetuning with optional full unfreeze, the photometric
 MSE (+SSIM, +LPIPS) loss on rendered target views and the optional
 confidence-weighted pointmap regression (`conf·‖x−gt‖ − α·log conf`).
-Where the JAX trainer is a set of pure functions over (params, opt_state)
-sharded on a device mesh, this one owns its model and optimiser on one
-device; distributed training (the mesh of `parallel/mesh.py`) is not
-ported. The render loss goes through `DecoderSplatting`, so on CUDA
+Where the JAX trainer is a set of pure functions over (params, opt_state),
+this one owns its model and optimiser. Without a mesh it runs on one
+device. With a `(dp, fsdp, tp)` mesh (`parallel/mesh.py`) the model is
+sharded (tensor parallelism, then FSDP2), each step takes the global batch
+and keeps this rank's rows, and every sum and count of the loss is summed
+over the ranks that hold the other rows, so that the loss, its gradient
+and the step are those of the global batch, as GSPMD makes them in the
+JAX trainer. The render loss goes through `DecoderSplatting`, so on CUDA
 tensors every render's forward and backward run the hand-written
-compositor kernels (`cuda_rasterizer.Composite`).
+compositor kernels (`cuda_rasterizer.Composite`), on plain local tensors
+under a mesh too.
 
 Freezing is `requires_grad_`: with `train_gaussian_heads_only` only
 parameters whose name holds `gaussian_dpt` train, and autograd then builds
 no graph for the trunk. The optimiser follows the JAX chain: the global
 norm of the trainable gradients is clipped, then coupled weight decay,
 then Adam; with `accum_steps` N the clip and the step are applied once on
-the mean of N micro-batch gradients.
+the mean of N micro-batch gradients. On a mesh the clipped norm is that
+of the whole gradient, summed over every mesh its parameters live on.
 """
 
 from __future__ import annotations
@@ -57,32 +63,45 @@ class TrainConfig(NamedTuple):
 
 
 def regr3d_conf_loss(pred1, pred2, gt1_pts, gt2_pts, valid1, valid2,
-                     alpha=0.2):
+                     alpha=0.2, total=None):
     """Confidence-weighted two-view pointmap regression: mean over valid
     pixels of conf·‖pts−gt‖ − α·log conf, each view normalized by its
-    average gt distance."""
+    average gt distance. `total` (as in `utils/metrics.batch_mean`) makes
+    both the normalization and the mean the whole batch's."""
+
+    def summed(*xs):
+        s = torch.stack(xs)
+        return (s if total is None else total(s)).unbind()
 
     def one(pred_pts, conf, gt, valid):
         v = valid.float()
-        nrm = (torch.linalg.norm(gt, dim=-1) * v).sum() / (v.sum() + 1e-8)
-        nrm = torch.clamp(nrm, min=1e-8)
+        gt_sum, n = summed((torch.linalg.norm(gt, dim=-1) * v).sum(),
+                           v.sum())
+        nrm = torch.clamp(gt_sum / (n + 1e-8), min=1e-8)
         err = torch.linalg.norm(pred_pts / nrm - gt / nrm, dim=-1)
         l = conf * err - alpha * torch.log(conf)
-        return (l * v).sum() / (v.sum() + 1e-8)
+        (l_sum,) = summed((l * v).sum())
+        return l_sum / (n + 1e-8)
 
     return one(pred1["pts3d"], pred1["conf"], gt1_pts, valid1) + one(
         pred2["pts3d"], pred2["conf"], gt2_pts, valid2)
 
 
-def _lpips_term(lpips_params, img, gt, mask=None):
+def _lpips_term(lpips_params, img, gt, mask=None, total=None):
     """LPIPS reduction: the spatial map mask-averaged when a loss mask is
-    given, else the plain batch mean. Inputs are [0, 1] NHWC."""
+    given, else the plain batch mean (`total` as in `regr3d_conf_loss`).
+    Inputs are [0, 1] NHWC."""
     from splatt3r_slam_tpu_torch.utils.lpips import lpips_from_01
+    from splatt3r_slam_tpu_torch.utils.metrics import batch_mean
 
     if mask is not None:
         lp_map = lpips_from_01(lpips_params, img, gt, spatial=True)
-        return (lp_map * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return lpips_from_01(lpips_params, img, gt, spatial=False).mean()
+        num, den = (lp_map * mask).sum(), mask.sum()
+        if total is not None:
+            num, den = total(torch.stack([num, den])).unbind()
+        return num / torch.clamp(den, min=1.0)
+    return batch_mean(lpips_from_01(lpips_params, img, gt, spatial=False),
+                      total)
 
 
 def _unflatten(flat: dict) -> dict:
@@ -97,18 +116,29 @@ def _unflatten(flat: dict) -> dict:
 
 
 class Trainer:
-    """Single-device trainer.
+    """Trainer on one device, or on this rank of a `(dp, fsdp, tp)` mesh.
 
     batch dict: img1, img2 (B,H,W,3); gt1_pts, gt2_pts (B,H,W,3); valid1,
     valid2 (B,H,W); for the render loss also context_pose (B,4,4),
     target_pose (B,V,4,4), target_K (B,V,3,3), target_img (B,V,H,W,3) and
-    optionally loss_mask (B,V,H,W). Numpy arrays or tensors."""
+    optionally loss_mask (B,V,H,W). Numpy arrays or tensors. On a mesh
+    every rank passes the same global batch; a training step keeps this
+    rank's rows (`mesh.batch_rows`), an eval step runs all of them.
+    `device` is then this rank's device, and every call is a collective:
+    every rank makes it."""
 
     def __init__(self, model_cfg: TwoViewConfig, train_cfg: TrainConfig,
-                 device="cuda", lpips_params=None, seed: int = 0):
+                 device="cuda", mesh=None, lpips_params=None,
+                 seed: int = 0):
+        from splatt3r_slam_tpu_torch.parallel.mesh import (
+            data_sum,
+            shard_model,
+        )
+
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
         self.model = init_weights(
             Splatt3RModel(model_cfg).to(self.device), seed).train()
         # LPIPS-VGG calibration tree (utils/lpips.py)
@@ -116,6 +146,12 @@ class Trainer:
         for name, p in self.model.named_parameters():
             p.requires_grad_(not train_cfg.train_gaussian_heads_only
                              or "gaussian_dpt" in name)
+        # sums over the ranks holding the batch's other rows (None: one
+        # device, the batch is all here)
+        self._total = None
+        if mesh is not None:
+            shard_model(self.model, mesh)
+            self._total = data_sum(mesh)
         self.trainable = [p for p in self.model.parameters()
                           if p.requires_grad]
         self.optimizer = torch.optim.Adam(
@@ -184,12 +220,13 @@ class Trainer:
                 H, W = rendered.shape[2:4]
                 gt = batch["target_img"]
                 mask = batch.get("loss_mask")
-                m = mse_fn(rendered, gt, mask)
+                m = mse_fn(rendered, gt, mask, total=self._total)
                 metrics["mse"] = m
                 loss = loss + cfg.mse_weight * m
                 if cfg.ssim_weight:
                     s = ssim_mean(rendered.reshape(-1, H, W, 3),
-                                  gt.reshape(-1, H, W, 3))
+                                  gt.reshape(-1, H, W, 3),
+                                  total=self._total)
                     metrics["ssim"] = s
                     loss = loss + cfg.ssim_weight * (1.0 - s)
                 if cfg.lpips_weight and self.lpips_params is not None:
@@ -197,7 +234,8 @@ class Trainer:
                                      rendered.reshape(-1, H, W, 3),
                                      gt.reshape(-1, H, W, 3),
                                      None if mask is None
-                                     else mask.reshape(-1, H, W))
+                                     else mask.reshape(-1, H, W),
+                                     total=self._total)
                     metrics["lpips"] = lp
                     loss = loss + cfg.lpips_weight * lp
 
@@ -207,7 +245,8 @@ class Trainer:
             with record_function("port.train.loss"):
                 r3d = regr3d_conf_loss(
                     pred1, pred2, batch["gt1_pts"], batch["gt2_pts"],
-                    batch["valid1"], batch["valid2"], cfg.conf_alpha)
+                    batch["valid1"], batch["valid2"], cfg.conf_alpha,
+                    total=self._total)
             metrics["regr3d"] = r3d
             loss = loss + w * r3d
 
@@ -216,7 +255,12 @@ class Trainer:
 
     def loss_fn(self, batch):
         """Model forward + `loss_from_predictions`. Returns (loss, metrics)
-        with the graph of every trainable parameter attached."""
+        with the graph of every trainable parameter attached. On a mesh
+        `batch` is the global batch and this rank takes its rows."""
+        if self.mesh is not None:
+            from splatt3r_slam_tpu_torch.parallel.mesh import batch_rows
+
+            batch = batch_rows(batch, self.mesh)
         batch = self.to_device(batch)
         with record_function("port.train.forward"):
             pred1, pred2 = self.model(batch["img1"].float(),
@@ -239,8 +283,7 @@ class Trainer:
                 self._micro = 0
                 with record_function("port.train.optimiser"):
                     if self.cfg.grad_clip_norm:
-                        torch.nn.utils.clip_grad_norm_(
-                            self.trainable, self.cfg.grad_clip_norm)
+                        self._clip_grads(self.cfg.grad_clip_norm)
                     self.optimizer.step()
                     self.scheduler.step()
                     self.optimizer.zero_grad(set_to_none=True)
@@ -248,6 +291,29 @@ class Trainer:
                     for k, v in metrics.items()}
 
         return train_step
+
+    def _clip_grads(self, max_norm: float):
+        """Scale the trainable gradients so that their global 2-norm is
+        at most `max_norm` (torch's clip_grad_norm_). On a mesh the
+        gradients are DTensors on two meshes (tensor-parallel weights on
+        (dp, fsdp, tp), the rest on (dp, fsdp)): the norm is taken per
+        mesh, whole, and the two are combined."""
+        if self.mesh is None:
+            torch.nn.utils.clip_grad_norm_(self.trainable, max_norm)
+            return
+        by_mesh: dict = {}
+        for p in self.trainable:
+            if p.grad is not None:
+                by_mesh.setdefault(p.grad.device_mesh, []).append(p.grad)
+        norms = [torch.nn.utils.get_total_norm(gs).full_tensor()
+                 for gs in by_mesh.values()]
+        if not norms:
+            return
+        norm = torch.linalg.vector_norm(torch.stack(norms))
+        coef = float(torch.clamp(max_norm / (norm + 1e-6), max=1.0))
+        for grads in by_mesh.values():
+            for g in grads:
+                g.mul_(coef)
 
     def make_eval_step(self, apply_mask: bool = False,
                        average_over_mask: bool = True):
@@ -298,21 +364,40 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def save_params(self, path):
-        """Persist the model's parameters as a compressed npz, keyed by the
-        state dict's names."""
+        """Persist the model's parameters as an npz (uncompressed: fp32
+        weights barely compress, and zlib on one core takes minutes at
+        ViT-L's size), keyed by the state dict's names. On a mesh the whole tensors are gathered (every
+        rank calls this) and rank 0 writes them, in the unsharded layout;
+        the other ranks may pass None."""
+        from splatt3r_slam_tpu_torch.parallel.mesh import (
+            full_tensors,
+            is_rank0,
+        )
+
+        sd = self.model.state_dict() if self.mesh is None \
+            else full_tensors(self.model)
+        if not is_rank0():
+            return
         path = pathlib.Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
-        np.savez_compressed(path, **{
-            k: v.detach().cpu().numpy()
-            for k, v in self.model.state_dict().items()})
+        np.savez(path, **{
+            k: v.detach().cpu().numpy() for k, v in sd.items()})
+
+    def load_state_dict(self, sd: dict) -> list:
+        """Load whole tensors in the unsharded layout into the model (on a
+        mesh every rank passes the same ones); checked as
+        `models/checkpoint.py::load_state_dict` checks them. Returns the
+        ignored extra keys."""
+        from splatt3r_slam_tpu_torch.models.checkpoint import load_state_dict
+        from splatt3r_slam_tpu_torch.parallel.mesh import load_full_state_dict
+
+        load = load_state_dict if self.mesh is None else load_full_state_dict
+        return load(self.model, sd)
 
     def load_params(self, path):
         """Load an npz written by `save_params`, or one written by the JAX
         package's `Trainer.save_params` (flat flax keys joined by '/')."""
-        from splatt3r_slam_tpu_torch.models.checkpoint import (
-            load_state_dict,
-            params_from_jax,
-        )
+        from splatt3r_slam_tpu_torch.models.checkpoint import params_from_jax
 
         z = np.load(path)
         flat = {k: z[k] for k in z.files}
@@ -320,7 +405,7 @@ class Trainer:
             sd = params_from_jax(_unflatten(flat), self.model_cfg)
         else:
             sd = {k: torch.from_numpy(v) for k, v in flat.items()}
-        load_state_dict(self.model, sd)
+        self.load_state_dict(sd)
 
     # ------------------------------------------------------------------
     def fit(self, batches, *, run_dir, run_name="train", log_every=1,
@@ -336,14 +421,16 @@ class Trainer:
             MetricsLogger,
             TraceWindow,
         )
+        from splatt3r_slam_tpu_torch.parallel.mesh import mesh_shape
 
         step_fn = self.make_train_step()
         eval_fn = self.make_eval_step() if eval_every else None
-        logger = MetricsLogger(
-            run_dir, run_name,
-            meta={"model_cfg": self.model_cfg._asdict(),
-                  "train_cfg": self.cfg._asdict(),
-                  "device": str(self.device)})
+        meta = {"model_cfg": self.model_cfg._asdict(),
+                "train_cfg": self.cfg._asdict(),
+                "device": str(self.device)}
+        if self.mesh is not None:
+            meta["mesh"] = mesh_shape(self.mesh)
+        logger = MetricsLogger(run_dir, run_name, meta=meta)
         tracer = (TraceWindow(pathlib.Path(run_dir) / "trace", *trace_steps)
                   if trace_steps else None)
         try:

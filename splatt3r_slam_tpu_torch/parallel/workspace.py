@@ -80,9 +80,19 @@ def git_provenance(repo_dir=".") -> dict:
 
 
 def create_workspace(root: str, name: str, config: dict) -> pathlib.Path:
-    """Timestamped run dir with the resolved config + provenance dumped."""
+    """Timestamped run dir with the resolved config + provenance dumped.
+    Under a process group it is a collective: rank 0 creates the directory
+    and every rank gets its path."""
+    import torch.distributed as dist
+
     stamp = datetime.datetime.now().strftime("%Y%m%d_%H%M%S")
     ws = pathlib.Path(root) / f"{name}_{stamp}"
+    if dist.is_initialized():
+        box = [ws]
+        dist.broadcast_object_list(box, src=0)
+        ws = box[0]
+        if dist.get_rank() != 0:
+            return ws
     ws.mkdir(parents=True, exist_ok=True)
     with open(ws / "config.yaml", "w") as f:
         try:

@@ -39,6 +39,7 @@ import subprocess
 
 import torch
 from torch.autograd.function import once_differentiable
+from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
 from splatt3r_slam_tpu_torch.splat.rasterizer import (
@@ -255,12 +256,24 @@ def composite_bwd_torch(counts, origins, rows, gout, out,
     return torch.cat(grows).reshape(T * k_max, ROWF)
 
 
+def _plain_tensors(who, **tensors):
+    """Raise unless every tensor is a plain local one: a DTensor (a
+    sharded model's activation) takes neither the kernel nor the plain
+    path."""
+    for name, t in tensors.items():
+        if isinstance(t, DTensor):
+            raise TypeError(f"{who}: {name} is a DTensor; the compositor "
+                            "takes plain local tensors")
+
+
 def composite(counts, origins, rows, bg):
     """Tile compositor: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. Arguments as `composite_torch`; raises
     ValueError on any other dtype, shape, device or a non-contiguous
-    tensor. Returns a tensor with no graph; `Composite` is the
-    differentiable form."""
+    tensor, TypeError on a DTensor. Returns a tensor with no graph;
+    `Composite` is the differentiable form."""
+    _plain_tensors("composite", counts=counts, origins=origins, rows=rows,
+                   bg=bg)
     T = counts.shape[0]
     dev = rows.device
     _check("composite", dev, (("counts", counts, torch.int32, (T,)),
@@ -281,6 +294,8 @@ def composite_bwd(counts, origins, rows, gout, out):
     """Backward tile compositor: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors. Arguments as `composite_bwd_torch`,
     checked as `composite` checks its own."""
+    _plain_tensors("composite_bwd", counts=counts, origins=origins,
+                   rows=rows, gout=gout, out=out)
     T = counts.shape[0]
     dev = rows.device
     _check("composite_bwd", dev,

@@ -1,6 +1,9 @@
-"""Training experiment runner on one GPU.
+"""Training experiment runner, on one GPU or a (dp, fsdp, tp) mesh of them.
 
     python -m splatt3r_slam_tpu_torch.train [--config ws.yaml] [--set k=v ...]
+    python -m splatt3r_slam_tpu_torch.train --devices N [--set parallel.fsdp=F
+        parallel.tp=T ...]
+    torchrun --nproc-per-node N -m splatt3r_slam_tpu_torch.train ...
 
 Counterpart of the repository's root `train.py`, with its flag surface plus
 `--device`: builds the model and the trainer from a workspace config, runs
@@ -15,34 +18,41 @@ context_pose, target_pose, target_K, target_img[, loss_mask]). Without
 `--data`, a synthetic batch generator drives the identical step for
 dry-runs; the same seed gives the batches of the root `train.py`.
 
-One device only: `--devices` above 1 raises (distributed training, the
-counterpart of `parallel/mesh.py` as torch DDP/FSDP, is not ported yet).
+Devices: without `--devices` (and without `parallel.devices` in the
+config, or a torchrun launch) the trainer runs on one device, as before.
+`--devices N` (or `parallel.devices: N`) runs on an N-rank mesh of shape
+(N / (fsdp·tp), fsdp, tp), with `parallel.fsdp` and `parallel.tp` from
+the config or `--set`; `--devices 1` is that mesh at world size 1, in this
+process. N above 1 starts N ranks with spawn (rank r on cuda:r over NCCL,
+or on the CPU over gloo with `--device cpu`); under torchrun (WORLD_SIZE
+in the environment) each process joins torchrun's group instead. On CUDA
+with fewer than N GPUs it raises. The global batch is `--batch-size`, by
+default one sample per rank; every rank draws the same batches and trains
+on its rows of each. Only rank 0 writes the workspace, the metrics and
+the checkpoint, which keeps the unsharded layout.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 import numpy as np
 
 
-def build_trainer(cfg: dict, args):
-    """Config dict -> (Trainer, model_cfg)."""
+def build_trainer(cfg: dict, args, devices: int = 0):
+    """Config dict -> (Trainer, model_cfg); with `devices` a mesh of that
+    many ranks (the process group's) from the config's parallel.fsdp and
+    parallel.tp."""
     from splatt3r_slam_tpu_torch.models import TwoViewConfig
     from splatt3r_slam_tpu_torch.parallel import TrainConfig, Trainer
+    from splatt3r_slam_tpu_torch.parallel.mesh import make_mesh
 
     mdl = cfg.get("model", {})
     trn = cfg.get("train", {})
     par = cfg.get("parallel", {})
-
-    devices = int(args.devices or par.get("devices", 1))
-    if devices > 1:
-        raise NotImplementedError(
-            f"--devices {devices}: this trainer runs on one device; "
-            "multi-GPU training (torch DDP/FSDP over parallel/mesh.py's "
-            "dp x fsdp x tp layout) comes with a later part of the port")
 
     model_cfg = TwoViewConfig(
         use_offsets=bool(mdl.get("use_offsets", False)),
@@ -79,7 +89,9 @@ def build_trainer(cfg: dict, args):
 
         lpips_params = load_lpips_params(lp_path, device=args.device)
 
-    return Trainer(model_cfg, tcfg, device=args.device,
+    mesh = make_mesh(devices, fsdp=int(par.get("fsdp", 1)),
+                     tp=int(par.get("tp", 1))) if devices else None
+    return Trainer(model_cfg, tcfg, device=args.device, mesh=mesh,
                    lpips_params=lpips_params, seed=args.seed), model_cfg
 
 
@@ -130,12 +142,21 @@ def npz_batches(paths, epochs):
             yield {k: z[k] for k in z.files}
 
 
+def _say(*a):
+    from splatt3r_slam_tpu_torch.parallel.mesh import is_rank0
+
+    if is_rank0():
+        print(*a)
+
+
 def run_test_sweep(trainer, args, h, w, ws):
     """Masked-metric test protocol: for each α=β, test batches whose loss
     mask covers ~α·β of the image (real masks come in via --data npz) are
     evaluated under (apply_mask, average_over_mask) ∈ {(True, False),
     (True, True)} with spatial LPIPS and masked SSIM, accumulating one
     `results.json` keyed by the sweep point."""
+    from splatt3r_slam_tpu_torch.parallel.mesh import is_rank0
+
     masking_configs = ((True, False), (True, True))
     eval_fns = {mc: trainer.make_eval_step(apply_mask=mc[0],
                                            average_over_mask=mc[1])
@@ -166,11 +187,12 @@ def run_test_sweep(trainer, args, h, w, ws):
                    f"apply_mask: {apply_mask}, "
                    f"average_over_mask: {average_over_mask}")
             results[key] = [res]
-            print(f"{key} -> psnr {res['test/psnr']:.2f} "
-                  f"ssim {res['test/ssim']:.4f}")
-            with open(ws / "results.json", "w") as f:
-                json.dump(results, f, indent=1)
-    print(f"results: {ws / 'results.json'}")
+            _say(f"{key} -> psnr {res['test/psnr']:.2f} "
+                 f"ssim {res['test/ssim']:.4f}")
+            if is_rank0():
+                with open(ws / "results.json", "w") as f:
+                    json.dump(results, f, indent=1)
+    _say(f"results: {ws / 'results.json'}")
     return 0
 
 
@@ -191,10 +213,11 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cpu' must be asked for")
     p.add_argument("--devices", type=int, default=0,
-                   help="device count (0 = config parallel.devices, dflt 1; "
-                        "above 1 is not supported yet)")
+                   help="ranks of the (dp, fsdp, tp) mesh (0 = config "
+                        "parallel.devices, else one device, no mesh)")
     p.add_argument("--batch-size", type=int, default=0,
-                   help="synthetic per-step batch (0 = 1)")
+                   help="synthetic global batch per step (0 = one sample "
+                        "per rank)")
     p.add_argument("--res", type=int, nargs=2, default=None,
                    metavar=("H", "W"))
     p.add_argument("--tiny-model", action="store_true")
@@ -221,35 +244,72 @@ def main(argv=None):
     from splatt3r_slam_tpu_torch import set_fp32_precision
     from splatt3r_slam_tpu_torch.parallel.workspace import (
         apply_dotlist,
-        create_workspace,
         load_config,
     )
 
     set_fp32_precision()
     cfg = load_config(args.config, dotlist=args.overrides) \
         if args.config else apply_dotlist({}, args.overrides)
+    devices = int(args.devices or cfg.get("parallel", {}).get("devices", 0)
+                  or os.environ.get("WORLD_SIZE", 0))
+    if not devices:
+        return _run(args, cfg, 0)
+    import torch
+    import torch.distributed as dist
 
-    trainer, model_cfg = build_trainer(cfg, args)
+    from splatt3r_slam_tpu_torch.parallel.mesh import launch
+
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        # join this process's group, or open torchrun's from its environment
+        up = dist.is_initialized()
+        world = dist.get_world_size() if up else int(os.environ["WORLD_SIZE"])
+        if world != devices:
+            raise ValueError(f"--devices {devices} in a process group of "
+                             f"{world} ranks")
+        rank = dist.get_rank() if up else int(os.environ["RANK"])
+        return _train_rank(rank, world, "env://", args, cfg)
+    return launch(_train_rank, devices, (args, cfg),
+                  device_type=torch.device(args.device).type)
+
+
+def _train_rank(rank, world, init_method, args, cfg):
+    """One rank of a mesh run: every rank runs the whole CLI body."""
+    import torch
+
+    from splatt3r_slam_tpu_torch.parallel.mesh import process_group
+
+    with process_group(rank, world, init_method,
+                       torch.device(args.device).type):
+        return _run(args, cfg, world)
+
+
+def _run(args, cfg, devices):
+    """The CLI body on one device (devices 0) or on this rank of a mesh
+    of `devices` ranks."""
+    from splatt3r_slam_tpu_torch.parallel.mesh import mesh_shape
+    from splatt3r_slam_tpu_torch.parallel.workspace import create_workspace
+
+    trainer, model_cfg = build_trainer(cfg, args, devices)
     h, w = args.res or ((32, 48) if args.tiny_model else (256, 384))
 
     if args.checkpoint:
         from splatt3r_slam_tpu_torch.models.checkpoint import (
-            load_state_dict,
             load_torch_checkpoint,
         )
 
-        print(f"init from checkpoint: {args.checkpoint}")
-        load_state_dict(trainer.model, load_torch_checkpoint(args.checkpoint))
+        _say(f"init from checkpoint: {args.checkpoint}")
+        trainer.load_state_dict(load_torch_checkpoint(args.checkpoint))
     elif args.resume:
-        print(f"resume params: {args.resume}")
+        _say(f"resume params: {args.resume}")
         trainer.load_params(args.resume)
 
     ws = create_workspace(args.out, args.name, cfg)
-    print(f"workspace: {ws} (device {trainer.device})")
+    _say(f"workspace: {ws} (device {trainer.device}"
+         + (f", mesh {mesh_shape(trainer.mesh)})" if devices else ")"))
 
     if args.test:
         return run_test_sweep(trainer, args, h, w, ws)
-    B = args.batch_size or 1
+    B = args.batch_size or (trainer.mesh.size() if devices else 1)
     if args.data:
         batches = npz_batches(args.data, args.epochs)
     else:
@@ -270,7 +330,7 @@ def main(argv=None):
         verbose=args.verbose,
     )
     trainer.save_params(ws / "params_final.npz")
-    print(f"metrics: {csv_path}\nparams: {ws / 'params_final.npz'}")
+    _say(f"metrics: {csv_path}\nparams: {ws / 'params_final.npz'}")
     return 0
 
 

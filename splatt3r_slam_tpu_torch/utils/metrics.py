@@ -46,20 +46,37 @@ def ssim(img1, img2, window_size: int = 11):
     return m[0] if squeeze else m
 
 
-def _masked_mean(x, mask):
+def batch_mean(x, total=None):
+    """Mean of every element of x. `total`, where given, sums a tensor
+    over the ranks that hold the batch's other rows (`parallel/mesh.py::
+    data_sum`), and the mean is then the whole batch's."""
+    if total is None:
+        return x.mean()
+    num, den = total(torch.stack([x.sum(), x.new_tensor(float(x.numel()))
+                                  ])).unbind()
+    return num / den
+
+
+def _masked_mean(x, mask, total=None):
     mask = mask[..., None].to(x.dtype).expand_as(x)
-    return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    if total is None:
+        return (x * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    num, den = total(torch.stack([(x * mask).sum(), mask.sum()])).unbind()
+    return num / torch.clamp(den, min=1.0)
 
 
-def ssim_mean(img1, img2, mask=None, window_size: int = 11):
-    """Scalar SSIM, optionally averaged over a validity mask."""
+def ssim_mean(img1, img2, mask=None, window_size: int = 11, total=None):
+    """Scalar SSIM, optionally averaged over a validity mask (`total` as
+    in `batch_mean`)."""
     m = ssim(img1, img2, window_size)
-    return m.mean() if mask is None else _masked_mean(m, mask)
+    return batch_mean(m, total) if mask is None \
+        else _masked_mean(m, mask, total)
 
 
-def mse(img1, img2, mask=None):
+def mse(img1, img2, mask=None, total=None):
     d = (img1 - img2) ** 2
-    return d.mean() if mask is None else _masked_mean(d, mask)
+    return batch_mean(d, total) if mask is None \
+        else _masked_mean(d, mask, total)
 
 
 def psnr_from_mse(m):

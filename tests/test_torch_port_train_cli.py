@@ -112,12 +112,17 @@ def test_train_from_npz_batches_and_config_file(tmp_path):
 
 
 def test_devices_above_one_and_missing_gpu_raise(tmp_path):
-    out = _run(["--tiny-model", "--devices", "2", "--steps", "1"], tmp_path,
-               ok=False)
-    assert out.returncode != 0 and "NotImplementedError" in out.stderr
-    assert "DDP" in out.stderr
+    """`--devices 2` trains on a 2-rank mesh (tests/
+    test_torch_port_parallel.py); on CUDA it needs two GPUs and raises
+    before anything starts, with no CPU or gloo run in their place and no
+    workspace written. Without a GPU the single-device CLI raises too."""
     import torch
 
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="2 CUDA ranks need 2 GPUs"):
+            t_train.main(["--tiny-model", "--devices", "2", "--steps", "1",
+                          "--out", str(tmp_path / "out")])
+        assert not (tmp_path / "out").exists()
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             t_train.main(["--tiny-model", "--steps", "1"])
