@@ -199,6 +199,31 @@ Phases, each printing one line of its own; any failure exits non-zero:
              the host and run calibrated tracking solves and
              `solve_GN_calib`; it prints the undistortion's host ms per
              frame;
+7b. scripts — the kernel, model and accuracy scripts and the ablation
+             runner, each through its `main` as a user runs it (CUDA,
+             defaults), the compositor's counts set to 0 just before each
+             and read just after, each result printed on a `[scripts-*]`
+             line: `scripts.bench_rasterizer` (400k, 1M and 4M gaussians at
+             384x512, 6 forward launches each; the image against the plain
+             renderer's within 2e-3, the JAX tests' compositor bar; then the
+             kernel against its plain version on each scene's own rows,
+             timed, with its bound); `scripts.bench_rasterizer_grad` (400k:
+             `backward_validated_on_hardware` true; 30 forward and 11
+             backward launches; both kernels against their plain versions
+             on its last backward's rows, the backward timed, with its
+             bound); `scripts.bench_attention` (flash and efficient SDPA run
+             at every shape; einsum vs SDPA within 0.05); `scripts.
+             bench_heads_batched tracking` (bf16 heads at full width; the
+             vmapped pair within 2^-5 of the peak of the sequential one);
+             `scripts.sweep_accuracy` (in a temporary directory; the
+             reference-exact variant tracks every pair); `ablations` (six
+             recipes, each a fresh full-width model on the world-size-1
+             mesh, 5 steps at 32x48: finite metrics, 30 launches each way);
+             `scripts.make_tum_fixture` into a temporary directory (the
+             committed fixture's pixels, its text files byte-identical),
+             `scripts.compute_ate` of the committed groundtruth against
+             itself (0) and `scripts.convert_lpips` of a seeded state dict
+             (loads back through `load_lpips_params`); no other launch;
 8. device  — the card's name and power limit (nvidia-smi);
 then one JSON line with the kernel table and, last, the ok/device line.
 
@@ -1181,17 +1206,17 @@ def _render_vs_plain(torch, cr, kept, path):
     return held["err"], held["rows"]
 
 
-def _run_entry(main, argv, model, cr):
-    """One entry point's `main(argv + ["--device", "cuda"], model=model)`
-    with the compositor's counts set to 0 just before and read just after,
-    and its own stdout kept apart → (result, seconds, (forward, backward)
-    launches). Its printed JSON must be its last line and equal what it
-    returned."""
+def _run_entry(main, argv, cr, **kw):
+    """One entry point's `main(argv + ["--device", "cuda"], **kw)` (the
+    measurement entry points take `model=`) with the compositor's counts
+    set to 0 just before and read just after, and its own stdout kept
+    apart → (result, seconds, (forward, backward) launches). Its printed
+    JSON must be its last line and equal what it returned."""
     buf = io.StringIO()
     cr.launches = cr.bwd_launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        res = main(list(argv) + ["--device", "cuda"], model=model)
+        res = main(list(argv) + ["--device", "cuda"], **kw)
     secs = time.perf_counter() - t0
     counts = (cr.launches, cr.bwd_launches)
     printed = json.loads(buf.getvalue().strip().splitlines()[-1])
@@ -1228,7 +1253,8 @@ def _entry_phase(torch, cr, model):
 
     fused.fused_track_step = checked
     try:
-        b, b_s, launches["bench"] = _run_entry(bench.main, [], model, cr)
+        b, b_s, launches["bench"] = _run_entry(bench.main, [], cr,
+                                               model=model)
     finally:
         fused.fused_track_step = real_step
     assert not off, f"fused-step inputs off the card: {sorted(off)}"
@@ -1256,8 +1282,8 @@ def _entry_phase(torch, cr, model):
 
     decoder.render_frame = counted
     try:
-        c, c_s, launches["system"] = _run_entry(bench_system.main,
-                                                ENTRY_SYSTEM, model, cr)
+        c, c_s, launches["system"] = _run_entry(
+            bench_system.main, ENTRY_SYSTEM, cr, model=model)
     finally:
         decoder.render_frame = real_render
     n_kf = 8  # frame 0 and the forced keyframes at frames 5, 10, ..., 35
@@ -1287,7 +1313,7 @@ def _entry_phase(torch, cr, model):
     res["kernel_vs_plain"], res["rows"] = err, n_rows
 
     o, o_s, launches["oracle"] = _run_entry(bench_system.main, ENTRY_ORACLE,
-                                            model, cr)
+                                            cr, model=model)
     assert o["relocs"] == 0, o["relocs"]
     assert 4 <= o["keyframes"] <= 10, o["keyframes"]
     assert o["ate_rmse_m"] < 0.16, o["ate_rmse_m"]
@@ -1302,7 +1328,7 @@ def _entry_phase(torch, cr, model):
     res["oracle"] = dict(o, seconds=o_s)
 
     r, r_s, launches["reloc"] = _run_entry(bench_system.main, ENTRY_RELOC,
-                                           model, cr)
+                                           cr, model=model)
     assert r["reloc_success"] == 3, r["reloc_success"]
     lines.append(
         f"[entry-reloc] {' '.join(ENTRY_RELOC)}: reloc_event_ms_p50 "
@@ -1311,7 +1337,8 @@ def _entry_phase(torch, cr, model):
         f" over 8 frames ({r['keyframes']} keyframes) | {r_s:.1f} s")
     res["reloc"] = dict(r, seconds=r_s)
 
-    s, s_s, launches["soak"] = _run_entry(soak.main, ENTRY_SOAK, model, cr)
+    s, s_s, launches["soak"] = _run_entry(soak.main, ENTRY_SOAK, cr,
+                                          model=model)
     assert s["keyframes_final"] > 16 and s["over_capacity_frames"] > 0, s
     assert s["edges_final"] <= 24 and all(
         t["edges"] <= 24 for t in s["thirds"]), s["thirds"]
@@ -1330,14 +1357,14 @@ def _entry_phase(torch, cr, model):
         f"{s_s:.1f} s")
     res["soak"] = dict(s, seconds=s_s)
 
-    p, p_s, launches["stages"] = _run_entry(profile_stages.main, [], model,
-                                            cr)
+    p, p_s, launches["stages"] = _run_entry(profile_stages.main, [], cr,
+                                            model=model)
     assert p["sum_stages_ms"] > 0 and p["fused_step_gflop"] > 0, p
     lines.append(f"[entry-stages] {json.dumps(p)} | {p_s:.1f} s")
     res["stages"] = dict(p, seconds=p_s)
 
     k, k_s, launches["kf_event"] = _run_entry(profile_keyframe_event.main,
-                                              [], model, cr)
+                                              [], cr, model=model)
     assert k["kf_event_sum_ms"] > 0, k
     lines.append(f"[entry-kf-event] {json.dumps(k)} | {k_s:.1f} s")
     res["kf_event"] = dict(k, seconds=k_s)
@@ -1888,6 +1915,264 @@ def _dist_phase(torch, cr, train_res, work):
     res["kernel_vs_plain"] = max(main_rows["fwd_err"], dry_rows["fwd_err"])
     res["bwd_rel_err"] = max(main_rows["bwd_rel_err"],
                              dry_rows["bwd_rel_err"])
+    return lines, res
+
+
+# The scripts phase: each script's `main(argv)` as a user runs it
+SCRIPT_ARGV = {
+    "bench_rasterizer": [],
+    "bench_rasterizer_grad": [],
+    "bench_attention": [],
+    "bench_heads_batched": ["tracking"],
+    "sweep_accuracy": [],
+    "ablations": [],
+}
+# the image-level difference of the plain renderer and the kernel's render
+# (a·du² against (a·du)·du moves a frame by ~2e-4): the JAX tests'
+# compositor bar (tests/test_pallas_rasterizer.py)
+IMAGE_BAR = 2e-3
+# the vmapped bf16 heads against the sequential ones, of the output's peak:
+# a few bf16 steps (2^-8) through a dozen bf16 convolutions and expm1
+HEADS_BAR = 2 ** -5
+# einsum attention against SDPA, both rounded to bf16, outputs of order 1
+ATTENTION_BAR = 0.05
+GRAD_FWD_LAUNCHES = 11 + 11 + 8  # value_and_grad, forward alone, FD probe
+GRAD_BWD_LAUNCHES = 11
+
+
+def _vgg_state_dict(torch, seed=0):
+    """A fabricated `lpips.LPIPS('vgg')` state dict: the module's keys and
+    shapes, seeded values."""
+    from splatt3r_slam_tpu_torch.utils.lpips import LIN_CHANNELS, VGG_SLICES
+
+    g = torch.Generator().manual_seed(seed)
+    base = [0, 4, 9, 16, 23]
+    sd = {}
+    for s, block in enumerate(VGG_SLICES):
+        for idx, cin, cout in block:
+            stem = f"net.slice{s + 1}.{idx - base[s]}"
+            sd[stem + ".weight"] = torch.randn(cout, cin, 3, 3, generator=g)
+            sd[stem + ".bias"] = torch.randn(cout, generator=g)
+        sd[f"lin{s}.model.1.weight"] = torch.rand(
+            1, LIN_CHANNELS[s], 1, 1, generator=g)
+    return sd
+
+
+def _scripts_phase(torch, root, cr, work):
+    """7b. The kernel, model and accuracy scripts and the ablation runner,
+    each through its `main` on the card, the compositor's counts set to 0
+    just before each and read just after; both kernels held against their
+    plain versions on the scripts' own rows → (lines, results)."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import ablations
+    from splatt3r_slam_tpu_torch.scripts import (
+        bench_attention,
+        bench_heads_batched,
+        bench_rasterizer,
+        bench_rasterizer_grad,
+        compute_ate,
+        convert_lpips,
+        make_tum_fixture,
+        sweep_accuracy,
+    )
+    from splatt3r_slam_tpu_torch.utils.image import read_png
+    from splatt3r_slam_tpu_torch.utils.lpips import (
+        convert_torch_lpips,
+        load_lpips_params,
+    )
+
+    lines, res, launches = [], {}, {}
+    t_phase = time.perf_counter()
+    smi = _smi()
+
+    # bench_rasterizer: 400k, 1M, 4M gaussians, one warm-up and 5 timed
+    # renders each through the kernel; then the kernel against its plain
+    # version on each scene's own rows, timed, with its bound
+    torch.cuda.reset_peak_memory_stats()
+    r, r_s, launches["bench_rasterizer"] = _run_entry(
+        bench_rasterizer.main, SCRIPT_ARGV["bench_rasterizer"], cr)
+    counts = bench_rasterizer.COUNTS
+    assert launches["bench_rasterizer"] == (
+        len(counts) * (1 + bench_rasterizer.ITERS), 0), \
+        launches["bench_rasterizer"]
+    rows = {}
+    for g in counts:
+        row = r[str(g)]
+        assert isinstance(row["plain_ms"], float) and \
+            isinstance(row["cuda_ms"], float), row
+        assert row["max_abs_diff"] <= IMAGE_BAR, (g, row)
+        scene = bench_rasterizer.scene_tensors(g, "cuda")
+        packed = cr.pack_rows(*scene, bench_rasterizer.HW, tpg_side=4,
+                              k_max=512)
+        rows[g] = _held_rows(torch, cr, packed, f"bench_rasterizer {g}",
+                             timed=True)
+        rows[g]["capped_tiles"] = int((packed[0] == 512).sum())
+        del scene, packed
+    lines.append(f"[scripts-bench_rasterizer] {json.dumps(r)} | {r_s:.1f} s")
+    lines.append(
+        "[scripts-bench_rasterizer-rows] " + "; ".join(
+            f"{g}: {h['rows']} rows ({h['capped_tiles']} tiles at the cap), "
+            f"kernel vs plain {h['err']:.3e} (tol {TOL:g}), {h['ms']:.4f} ms "
+            f"on the device, call_ms {h['call_ms']:.4f}, plain "
+            f"{h['plain_ms']:.3f} ms, bound {h['bound_ms']:.4f} ms by "
+            f"{h['bound_by']}" for g, h in rows.items()) + f" | {smi}")
+    res["bench_rasterizer"] = dict(r, seconds=r_s, rows=rows)
+
+    # bench_rasterizer_grad: the backward kernel's gate at 400k; the
+    # arguments of its last backward launch are kept for the hold below
+    kept = {}
+    real_bwd = cr.composite_bwd
+
+    def keep_bwd(*a):
+        kept["args"] = tuple(t.detach() for t in a)
+        return real_bwd(*a)
+
+    cr.composite_bwd = keep_bwd
+    try:
+        gr, gr_s, launches["bench_rasterizer_grad"] = _run_entry(
+            bench_rasterizer_grad.main, SCRIPT_ARGV["bench_rasterizer_grad"],
+            cr)
+    finally:
+        cr.composite_bwd = real_bwd
+    assert gr["backward_validated_on_hardware"] is True, gr
+    assert launches["bench_rasterizer_grad"] == (
+        GRAD_FWD_LAUNCHES, GRAD_BWD_LAUNCHES), \
+        launches["bench_rasterizer_grad"]
+    held = _held_step_rows(torch, cr, kept["args"], "bench_rasterizer_grad")
+    cnt, org, rw, gout, out = kept["args"]
+
+    def run_bwd():
+        return cr.composite_bwd(cnt, org, rw, gout, out)
+
+    held.update(
+        ms=device_ms(run_bwd, torch), call_ms=call_ms(run_bwd, torch),
+        plain_ms=call_ms(lambda: cr.composite_bwd_torch(cnt, org, rw, gout,
+                                                        out), torch, 3))
+    held["bound_ms"], held["bound_by"] = _bound_bwd_ms(cnt)
+    lines.append(f"[scripts-bench_rasterizer_grad] {json.dumps(gr)} | "
+                 f"{gr_s:.1f} s")
+    lines.append(
+        f"[scripts-bench_rasterizer_grad-rows] the last backward's "
+        f"{held['rows']} rows: forward kernel vs plain {held['fwd_err']:.3e} "
+        f"(tol {TOL:g}), backward {held['bwd_rel_err']:.3e} of a column's "
+        f"peak (tol {BWD_TOL:g}; {held['bwd_abs_err']:.3e} absolute) | "
+        f"backward {held['ms']:.4f} ms on the device, call_ms "
+        f"{held['call_ms']:.4f}, plain {held['plain_ms']:.3f} ms, bound "
+        f"{held['bound_ms']:.4f} ms by {held['bound_by']} | {smi}")
+    res["bench_rasterizer_grad"] = dict(gr, seconds=gr_s, rows=held)
+    del kept, cnt, org, rw, gout, out
+
+    # bench_attention: flash and efficient SDPA run at every shape
+    a, a_s, launches["bench_attention"] = _run_entry(
+        bench_attention.main, SCRIPT_ARGV["bench_attention"], cr)
+    for label, row in a["results"].items():
+        for b in ("flash", "efficient"):
+            assert isinstance(row[f"sdpa_{b}_ms"], float), (label, row)
+        assert row["max_abs_diff"] <= ATTENTION_BAR, (label, row)
+    lines.append(f"[scripts-bench_attention] {json.dumps(a)} | {a_s:.1f} s")
+    res["bench_attention"] = dict(a, seconds=a_s)
+
+    # bench_heads_batched: the vmapped heads equal the sequential ones
+    hb, hb_s, launches["bench_heads_batched"] = _run_entry(
+        bench_heads_batched.main, SCRIPT_ARGV["bench_heads_batched"], cr)
+    assert hb["max_abs_diff"] <= HEADS_BAR * hb["max_abs"], hb
+    lines.append(f"[scripts-bench_heads_batched] {json.dumps(hb)} (held "
+                 f"<= {HEADS_BAR:g} of the peak) | {hb_s:.1f} s")
+    res["bench_heads_batched"] = dict(hb, seconds=hb_s)
+
+    # sweep_accuracy, in the work directory (it writes logs/ there)
+    here = os.getcwd()
+    os.chdir(work)
+    try:
+        sw, sw_s, launches["sweep_accuracy"] = _run_entry(
+            sweep_accuracy.main, SCRIPT_ARGV["sweep_accuracy"], cr)
+        assert os.path.exists(os.path.join("logs", "sweep_accuracy.json"))
+    finally:
+        os.chdir(here)
+    ref = sw["tracking"]["reference-exact"]
+    assert ref["fails"] == 0, ref
+    lines.append(
+        "[scripts-sweep_accuracy] " + "; ".join(
+            f"{k}: rot {v['rot_deg_mean']:.4f} deg, t {v['t_err_mean']:.5f},"
+            f" fails {v['fails']}, match_frac {v['match_frac']:.3f}"
+            for k, v in sw["tracking"].items()) + " | " + "; ".join(
+            f"{k}: ATE {v['ate_mean']:.5f} (max {v['ate_max']:.5f})"
+            for k, v in sw["backend"].items()) + f" | {sw_s:.1f} s")
+    res["sweep_accuracy"] = dict(sw, seconds=sw_s)
+
+    # ablations: six recipes, each a fresh full-width model, 5 steps
+    torch.cuda.reset_peak_memory_stats()
+    ab, ab_s, launches["ablations"] = _run_entry(
+        ablations.main, SCRIPT_ARGV["ablations"]
+        + ["--out", os.path.join(work, "ablations")], cr)
+    assert list(ab) == list(ablations.ABLATIONS), list(ab)
+    assert all(np.isfinite(v) for m in ab.values() for v in m.values()), ab
+    n_steps = len(ablations.ABLATIONS) * 5
+    assert launches["ablations"] == (n_steps, n_steps), launches["ablations"]
+    ab_peak = torch.cuda.max_memory_allocated() / 2**30
+    lines.append(f"[scripts-ablations] {json.dumps(ab)} | peak "
+                 f"{ab_peak:.2f} GiB | {ab_s:.1f} s")
+    res["ablations"] = dict(ab, seconds=ab_s, peak_gib=ab_peak)
+
+    # the host tools
+    fx_src = os.path.join(root, "tests", "fixtures", "tum",
+                          "rgbd_dataset_freiburg1_fixture")
+    fx = os.path.join(work, "fixture")
+    f, f_s, launches["make_tum_fixture"] = _run_entry(
+        make_tum_fixture.main, ["--out", fx, "--frames", "24"], cr)
+    for name in ("rgb.txt", "groundtruth.txt"):
+        with open(os.path.join(fx, name), "rb") as x, \
+                open(os.path.join(fx_src, name), "rb") as y:
+            assert x.read() == y.read(), name
+    pngs = sorted(os.listdir(os.path.join(fx_src, "rgb")))
+    assert sorted(os.listdir(os.path.join(fx, "rgb"))) == pngs
+    for name in pngs:
+        assert np.array_equal(read_png(os.path.join(fx, "rgb", name)),
+                              read_png(os.path.join(fx_src, "rgb", name))), \
+            name
+    gt = os.path.join(fx_src, "groundtruth.txt")
+    c, c_s, launches["compute_ate"] = _run_entry(compute_ate.main, [gt, gt],
+                                                  cr)
+    assert c["ate_rmse"] <= 1e-9, c
+    sd = _vgg_state_dict(torch)
+    pt, npz = os.path.join(work, "lpips_vgg.pt"), os.path.join(work,
+                                                              "lpips.npz")
+    torch.save(sd, pt)
+    lp, lp_s, launches["convert_lpips"] = _run_entry(
+        convert_lpips.main, ["--from-file", pt, npz], cr)
+    back = load_lpips_params(npz, device="cuda")
+    want = convert_torch_lpips(sd, device="cuda")
+    assert all(torch.equal(x[k], y[k])
+               for bx, by in zip(back["convs"], want["convs"])
+               for x, y in zip(bx, by) for k in ("kernel", "bias")), \
+        "LPIPS kernels differ after the round trip"
+    assert all(torch.equal(x, y) for x, y in zip(back["lins"],
+                                                 want["lins"]))
+    lines.append(
+        f"[scripts-tools] make_tum_fixture {json.dumps(f)}: 24 PNGs with "
+        f"the committed fixture's pixels, rgb.txt and groundtruth.txt "
+        f"byte-identical ({f_s:.1f} s) | compute_ate of the groundtruth "
+        f"against itself {json.dumps(c)} ({c_s:.1f} s) | convert_lpips "
+        f"{json.dumps(lp)}: loads back through load_lpips_params equal to "
+        f"the converted state dict ({lp_s:.1f} s)")
+    res["tools"] = dict(make_tum_fixture=f, compute_ate=c, convert_lpips=lp)
+
+    quiet = [k for k in launches if k not in ("bench_rasterizer",
+                                              "bench_rasterizer_grad",
+                                              "ablations")]
+    assert all(launches[k] == (0, 0) for k in quiet), launches
+    res["launches"] = (sum(f for f, _ in launches.values()),
+                       sum(b for _, b in launches.values()))
+    res["launches_by_script"] = launches
+    res["kernel_vs_plain"] = max([h["err"] for h in rows.values()]
+                                 + [held["fwd_err"]])
+    res["bwd_rel_err"] = held["bwd_rel_err"]
+    res["bwd_abs_err"] = held["bwd_abs_err"]
+    res["seconds"] = time.perf_counter() - t_phase
+    lines.append(f"[scripts] {res['seconds']:.1f} s | compositor launches "
+                 f"forward {res['launches'][0]} / backward "
+                 f"{res['launches'][1]} ({launches})")
     return lines, res
 
 
@@ -2554,6 +2839,22 @@ def main(argv=None) -> int:
     results["cli_calibrated"] = calib_res
     calib_launches = sum(r["launches"] for r in calib_res.values())
 
+    # -- 7b. the kernel, model and accuracy scripts; the ablations ----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    scripts_work = tempfile.mkdtemp(prefix="chip_smoke_scripts_")
+    try:
+        scripts_lines, scripts_res = _scripts_phase(torch, root, cr,
+                                                    scripts_work)
+    finally:
+        shutil.rmtree(scripts_work, ignore_errors=True)
+    for ln in scripts_lines:
+        print(ln)
+    results["scripts"] = scripts_res
+    scripts_launches, scripts_bwd_launches = scripts_res["launches"]
+    br_rows = scripts_res["bench_rasterizer"]["rows"]
+    grad_rows = scripts_res["bench_rasterizer_grad"]["rows"]
+
     # -- 8. device ------------------------------------------------------------
     smi = _smi()
     kind = torch.cuda.get_device_name(0)
@@ -2566,7 +2867,7 @@ def main(argv=None) -> int:
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:61",
         "launches": (launches + cl_launches + entry_launches + train_launches
                      + dist_launches + cli_launches + calib_launches
-                     + viz_launches + cli_viz_launches),
+                     + viz_launches + cli_viz_launches + scripts_launches),
         "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err,
                            dist_res["kernel_vs_plain"],
                            cli_res["kernel_vs_plain"],
@@ -2574,6 +2875,7 @@ def main(argv=None) -> int:
                            entry_res["kernel_vs_plain"],
                            viz_res["kernel_vs_plain"],
                            cli_viz_res["kernel_vs_plain"],
+                           scripts_res["kernel_vs_plain"],
                            *(r["kernel_vs_plain"]
                              for r in calib_res.values())),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2602,21 +2904,27 @@ def main(argv=None) -> int:
         "ms_sweep_rows": viz_res["sweep"]["rows"]["ms"],
         "call_ms_sweep_rows": viz_res["sweep"]["rows"]["call_ms"],
         "bound_ms_sweep_rows": viz_res["sweep"]["rows"]["bound_ms"],
+        "launches_scripts": scripts_launches,
+        **{f"{k}_bench_rasterizer_{g // 1000}k_rows": h[k]
+           for g, h in br_rows.items()
+           for k in ("ms", "call_ms", "plain_ms", "bound_ms")},
     }, {
         "name": "composite_bwd_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:202",
         "launches": (serving_bwd_launches + train_bwd_launches
-                     + dist_bwd_launches),
+                     + dist_bwd_launches + scripts_bwd_launches),
         # on the seeded scenes, whose cotangent is unit normal; a training
         # step's own gradients are held relative to their peak (below)
-        "max_abs_err": max(bwd_abs, train_abs, small_abs, edge_abs),
+        "max_abs_err": max(bwd_abs, train_abs, small_abs, edge_abs,
+                           scripts_res["bwd_abs_err"]),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
         "call_ms": bwd_call_ms,
         "max_err_over_column_peak": max(bwd_rel, train_rel, small_rel,
                                         edge_rel, s_rel,
-                                        dist_res["bwd_rel_err"]),
+                                        dist_res["bwd_rel_err"],
+                                        scripts_res["bwd_rel_err"]),
         "ms_training_shape": t_bwd_ms,
         "bound_ms_training_shape": t_bwd_bound_ms,
         "ms_training_rows": s_bwd_ms, "call_ms_training_rows": s_bwd_call_ms,
@@ -2629,6 +2937,9 @@ def main(argv=None) -> int:
         "launches_cli_calibrated": 0,
         "launches_viz": 0,
         "launches_cli_viz": 0,
+        "launches_scripts": scripts_bwd_launches,
+        **{f"{k}_bench_rasterizer_grad_rows": grad_rows[k]
+           for k in ("ms", "call_ms", "plain_ms", "bound_ms")},
     }]
     results["kernels"] = kernels
     if args.out:

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import pathlib
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -23,14 +24,19 @@ import torch
 FULL_HW = (384, 512)
 TINY_HW = (48, 64)
 ROOT = pathlib.Path(__file__).resolve().parents[2]
+SLEEP_CYCLES = 3_000_000  # the device-side delay of `time_calls`, ~1.7 ms
 
 
-def add_device_args(ap) -> None:
+def add_device_args(ap, tiny: bool = True) -> None:
+    """`--device` and, unless `tiny` is False (a host tool with no tiny
+    form), `--tiny`."""
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; asking for cuda "
                          "without a GPU raises; cpu implies --tiny)")
-    ap.add_argument("--tiny", action="store_true",
-                    help="the tiny fp32 model at 48x64 (CPU smoke runs)")
+    if tiny:
+        ap.add_argument("--tiny", action="store_true",
+                        help="the tiny form: the fp32 model at 48x64, a "
+                             "few thousand gaussians (CPU smoke runs)")
 
 
 def setup(args):
@@ -40,7 +46,8 @@ def setup(args):
 
     set_fp32_precision()
     device = resolve_device(args.device)
-    return device, bool(args.tiny or device.type == "cpu")
+    return device, bool(getattr(args, "tiny", False)
+                        or device.type == "cpu")
 
 
 def load_base_config() -> dict:
@@ -95,6 +102,31 @@ def sync(device) -> None:
     """End of a timed window: wait for the device."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def time_calls(fn, device, iters: int):
+    """One warm-up `fn()`, then `iters` calls back to back → (ms per call,
+    the warm-up's output). On the card the calls are enqueued behind a
+    device-side delay and timed by two CUDA events, so that the host can
+    run ahead and the time is the device's (the JAX scripts' chained
+    dispatch); where the host is slower than the device, the gaps between
+    the calls count too. On the CPU a host clock ends in the last call."""
+    out = fn()
+    sync(device)
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters * 1e3, out
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters, out
 
 
 def kernel_profile(fn, device, iters: int = 2, top: int = 5):
