@@ -9,7 +9,8 @@ Phases, each printing one line of its own; any failure exits non-zero:
              composite_bwd.cu (both include composite_common.cuh) with nvcc
              (sm_90a) from this checkout, one nvcc each, started together;
              print the build seconds and what ptxas says of each kernel's
-             registers, shared memory and spills;
+             registers, shared memory and spills; then the host JPEG
+             entropy walk csrc/jpeg_huffman.cpp with g++ (`[build-host]`);
 2. kernel  — hold the tile compositor against its plain PyTorch version
              (`composite_torch`) at the production shape (393,216 gaussians,
              384x512, tpg_side=4, k_max=512), on a tile list longer than one
@@ -118,8 +119,9 @@ Phases, each printing one line of its own; any failure exits non-zero:
              vertices, 8 PNGs, 8 launches, the kernel against its plain
              version on the last view's rows (timed); the web app
              (`serve(engine, port=0)` on a thread): POST /reconstruct with
-             the two PNGs, GET /render at three yaws (3 launches, each PNG
-             body equal to `engine.render`'s pixels) and /gaussians.ply;
+             the two PNGs, GET /render at three yaws (3 launches, each JPEG
+             body the one `encode_jpeg` writes for `engine.render`'s
+             pixels) and /gaussians.ply;
              `scripts.sweep_rasterizer_fidelity` in full (30k, 150k, 600k
              gaussians at 192x256; k_max 128-1024; tpg_side 2, 4, 8: 36
              launches), the production caps (tpg_side 4, k_max 512) at PSNR
@@ -188,6 +190,20 @@ Phases, each printing one line of its own; any failure exits non-zero:
              checks of 6, one viewer PNG per tick, forward launches equal to
              the renders plus the ticks; the run's seconds printed beside
              the --no-viz run's;
+6c. jpeg  — JPEG without cv2 (`utils/jpeg.py`; `sys.modules["cv2"] = None`
+             for the whole phase, restored after): the committed corpus
+             (tests/fixtures/jpeg) decoded by both entropy walks and held
+             against cv2's committed pixels within one level, the
+             differing values counted; host ms per decode (C++ walk, plain
+             Python walk, each with its walk's share) beside `decode_png`
+             at 320x240, 640x480 and 752x480 (the TUM frame, resized,
+             quality 95); the CLI of 6 on the fixture's 24 frames written
+             as quality-95 JPEG into a folder (`RGBFiles`), with the checks
+             of 6 and its seconds beside 6's; `demo.main` on two JPEG files
+             (2 views, 2 launches) and the web app with a JPEG upload (200)
+             and a `/render` that is `image/jpeg`, read back by the port's
+             decoder (1 launch), on a fresh full-width model. Each line
+             carries the card's name and power limit;
 7. calib   — the same CLI with calibrated input, with the checks of 6: the
              fixture with `--calib` pointing at a YAML written here (width
              320, height 240, fr1's calibration halved: 258.65, 258.25,
@@ -1093,7 +1109,7 @@ def _viz_phase(torch, cr, model, system, work):
             t0 = time.perf_counter()
             with urllib.request.urlopen(f"{url}/render?yaw={yaw}&pitch=0.2",
                                         timeout=600) as r:
-                assert r.headers.get("Content-Type") == "image/png"
+                assert r.headers.get("Content-Type") == "image/jpeg"
                 bodies.append(r.read())
             get_ms.append((time.perf_counter() - t0) * 1e3)
         launches["web"] = (cr.launches, cr.bwd_launches)
@@ -1104,18 +1120,19 @@ def _viz_phase(torch, cr, model, system, work):
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    from splatt3r_slam_tpu_torch.utils.image import decode_png
+    from splatt3r_slam_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
 
     assert launches["web"] == (len(WEB_YAWS), 0), launches["web"]
     assert n_web_ply == 2 * H * W, n_web_ply
     for yaw, body in zip(WEB_YAWS, bodies):
-        assert (decode_png(body) == engine.render(yaw, 0.2)).all(), yaw
+        assert body == encode_jpeg(engine.render(yaw, 0.2), 90), yaw
+        assert decode_jpeg(body).shape == (H, W, 3), yaw
     emit(
         f"[viz-web] serve(engine, port=0) on a thread | POST /reconstruct "
         f"(2 PNG data URLs) {rec_ms:.1f} ms, {rec['n_gaussians']} gaussians "
         f"| GET /render at yaws {list(WEB_YAWS)}: "
         + ", ".join(f"{m:.2f}" for m in get_ms)
-        + f" ms, each PNG body equal to engine.render's pixels | "
+        + f" ms, each JPEG body encode_jpeg's of engine.render's pixels | "
         f"/gaussians.ply {n_web_ply} vertices | compositor launches "
         f"{launches['web'][0]} = renders {len(WEB_YAWS)}")
     res["web"] = dict(reconstruct_ms=rec_ms, render_ms=get_ms,
@@ -1618,6 +1635,260 @@ def _calibrated_phase(torch, root, cr, device="cuda", argv=()):
             f"{r['undistorted']} frames undistorted of {r['frames']}"
         assert r["calib_tracking_steps"] >= 1 and r["calib_solves"] >= 1, \
             "the calibrated solves did not run"
+    return lines, res
+
+
+JPEG_SIZES = ((240, 320), (480, 640), (480, 752))  # TUM, VGA, EuRoC
+JPEG_QUALITY = 95  # the frames' encoding
+JPEG_REPS = 10  # timed decodes per size (the plain walk: 2)
+JPEG_DEMO_VIEWS = 2
+JPEG_BAR = 1  # levels, on every value, against cv2's committed pixels
+
+
+def _jpeg_phase(torch, root, cr, png_cli, make_model, device="cuda",
+                argv=()):
+    """6c. JPEG input and output without cv2 (`utils/jpeg.py`), with any
+    import of cv2 failing for the whole phase → (lines, results): the
+    committed corpus against cv2's pixels; host ms per decode (the C++ and
+    the plain entropy walk) beside `decode_png` at three frame sizes; the
+    CLI on the TUM fixture's frames written as JPEG; the demo on two JPEG
+    files and the web app with a JPEG upload and a JPEG `/render`, on the
+    model `make_model()` gives. Each line carries the card's name and
+    power limit."""
+    had, saved = "cv2" in sys.modules, sys.modules.get("cv2")
+    sys.modules["cv2"] = None  # any import of cv2 now raises ImportError
+    try:
+        return _jpeg_phase_body(torch, root, cr, png_cli, make_model,
+                                device, argv)
+    finally:
+        if had:
+            sys.modules["cv2"] = saved
+        else:
+            sys.modules.pop("cv2", None)
+
+
+def _jpeg_phase_body(torch, root, cr, png_cli, make_model, device, argv):
+    import base64
+
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import demo
+    from splatt3r_slam_tpu_torch.runtime import webdemo
+    from splatt3r_slam_tpu_torch.utils import jpeg
+    from splatt3r_slam_tpu_torch.utils.image import (
+        decode_png,
+        encode_png,
+        read_png,
+        resize_crop_u8,
+    )
+
+    card = _smi() if device == "cuda" else "cpu"
+    lines, res = [], {}
+
+    def emit(line):
+        line = f"{line} | {card}"
+        print(line, flush=True)
+        lines.append(line)
+
+    # -- held decodes: the committed corpus against cv2's pixels --------------
+    fixtures = os.path.join(root, "tests", "fixtures", "jpeg")
+    want = np.load(os.path.join(fixtures, "pixels.npz"))
+    names = sorted(f[:-4] for f in os.listdir(fixtures) if f.endswith(".jpg"))
+    assert names == sorted(want.files), (names, want.files)
+    worst, differing, values = 0, 0, 0
+    for name in names:
+        with open(os.path.join(fixtures, f"{name}.jpg"), "rb") as f:
+            data = f.read()
+        for walk in ("native", "python"):
+            got = jpeg.decode_jpeg(data, name, walk)
+            assert got.shape == want[name].shape, (name, got.shape)
+            d = np.abs(got.astype(np.int16) - want[name])
+            worst = max(worst, int(d.max()))
+            differing += int(np.count_nonzero(d))
+            values += d.size
+    assert worst <= JPEG_BAR, f"a decode {worst} levels from cv2's"
+    emit(f"[jpeg-held] {len(names)} committed files (tests/fixtures/jpeg: "
+         f"baseline, progressive, every sampling, restart, optimized, gray, "
+         f"EXIF), both walks, against cv2's pixels: max |diff| {worst} "
+         f"(bar {JPEG_BAR}), {differing} of {values} values differ")
+    res["held"] = dict(files=len(names), max_abs_diff=worst,
+                       differing=differing, values=values)
+
+    # -- host ms per decode at three frame sizes ------------------------------
+    fixture = os.path.join(root, "tests", "fixtures", "tum",
+                           "rgbd_dataset_freiburg1_fixture")
+    pngs = sorted(os.listdir(os.path.join(fixture, "rgb")))
+    frame = read_png(os.path.join(fixture, "rgb", pngs[0]))
+    walk_ms = {}
+
+    def timed_walk(name):
+        real = getattr(jpeg, name)
+
+        def timed(*a):
+            t0 = time.perf_counter()
+            out = real(*a)
+            walk_ms.setdefault(name, []).append(
+                (time.perf_counter() - t0) * 1e3)
+            return out
+
+        setattr(jpeg, name, timed)
+        return lambda: setattr(jpeg, name, real)
+
+    def median_ms(fn, reps):
+        out = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return _median(out)
+
+    def decode_ms(data, walk, reps):
+        """Median host ms of a whole decode and of its entropy walk."""
+        total, walks = [], []
+        restore = timed_walk(f"_walk_{walk}")
+        try:
+            for _ in range(reps):
+                walk_ms.clear()
+                t0 = time.perf_counter()
+                jpeg.decode_jpeg(data, walk=walk)
+                total.append((time.perf_counter() - t0) * 1e3)
+                walks.append(sum(walk_ms[f"_walk_{walk}"]))
+        finally:
+            restore()
+        return _median(total), _median(walks)
+
+    res["decode"] = {}
+    for h, w in JPEG_SIZES:
+        img = frame if (h, w) == frame.shape[:2] else resize_crop_u8(
+            frame, h, w, h, w)
+        t0 = time.perf_counter()
+        data = jpeg.encode_jpeg(img, JPEG_QUALITY)
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        png = encode_png(img)
+        row = dict(jpeg_bytes=len(data), png_bytes=len(png), encode_ms=enc_ms)
+        for walk, reps in (("native", JPEG_REPS), ("python", 2)):
+            row[f"{walk}_ms"], row[f"{walk}_walk_ms"] = decode_ms(
+                data, walk, reps)
+        assert (jpeg.decode_jpeg(data, walk="python")
+                == jpeg.decode_jpeg(data)).all()
+        row["png_ms"] = median_ms(lambda: decode_png(png), JPEG_REPS)
+        res["decode"][f"{w}x{h}"] = row
+        emit(f"[jpeg-decode] {w}x{h} quality {JPEG_QUALITY} "
+             f"({row['jpeg_bytes']} bytes; PNG {row['png_bytes']}): host ms "
+             f"per decode, median: C++ walk {row['native_ms']:.2f} (walk "
+             f"{row['native_walk_ms']:.2f}), plain Python walk "
+             f"{row['python_ms']:.1f} (walk {row['python_walk_ms']:.1f}), "
+             f"decode_png {row['png_ms']:.2f} | encode_jpeg "
+             f"{row['encode_ms']:.2f} ms")
+
+    # -- the CLI on the fixture's frames written as JPEG ----------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jpeg_")
+    try:
+        seq = os.path.join(tmp, "tum_fixture_jpeg")
+        os.makedirs(seq)
+        for p in pngs:  # all 24: the fixture config subsamples by 2
+            with open(os.path.join(seq, p[:-4] + ".jpg"), "wb") as f:
+                f.write(jpeg.encode_jpeg(
+                    read_png(os.path.join(fixture, "rgb", p)), JPEG_QUALITY))
+        cli_line, cli = _cli_phase(
+            torch, root, cr, device, seq,
+            os.path.join(root, "tests", "fixtures", "tum",
+                         "eval_fixture.yaml"), argv, profile=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert cli["frames"] == png_cli["frames"], (cli["frames"],
+                                                png_cli["frames"])
+    assert cli["launches"] == cli["renders"] > 0, cli["launches"]
+    emit(cli_line.replace("[cli]", "[jpeg-cli]", 1)
+         + f" | {cli['run_s']:.1f} s on {len(pngs)} JPEG frames (quality "
+         f"{JPEG_QUALITY}, RGBFiles) vs {png_cli['run_s']:.1f} s on the PNG "
+         f"frames (rgb.txt)")
+    res["cli"] = cli
+
+    # -- the demo on two JPEG files, and the web app --------------------------
+    model = make_model()
+    rng = np.random.default_rng(7)
+    tex = (rng.random((H + 16, W + 32, 3)) * 255).astype(np.uint8)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_jpeg_demo_")
+    try:
+        imgs = [os.path.join(tmp, "a.jpg"), os.path.join(tmp, "b.jpg")]
+        for path, img in zip(imgs, (tex[:H, :W], tex[8:8 + H, 16:16 + W])):
+            with open(path, "wb") as f:
+                f.write(jpeg.encode_jpeg(img, JPEG_QUALITY))
+        out = os.path.join(tmp, "demo")
+        cr.launches = cr.bwd_launches = 0
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            rc = demo.main([*imgs, "--out", out, "--n-views",
+                            str(JPEG_DEMO_VIEWS), "--img-size", str(W),
+                            "--device", device], model=model)
+            demo_s = time.perf_counter() - t0
+        demo_launches = (cr.launches, cr.bwd_launches)
+        assert rc == 0
+        with open(os.path.join(out, "gaussians.ply"), "rb") as f:
+            n_ply = _ply_vertices(f.read())
+        views = sorted(f for f in os.listdir(out) if f.endswith(".png"))
+        urls = []
+        for path in imgs:
+            with open(path, "rb") as f:
+                urls.append("data:image/jpeg;base64,"
+                            + base64.b64encode(f.read()).decode())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    assert n_ply == 2 * H * W, n_ply
+    assert len(views) == JPEG_DEMO_VIEWS, views
+    assert demo_launches == (JPEG_DEMO_VIEWS, 0), demo_launches
+
+    engine = webdemo.DemoEngine(model, img_size=W, k_max=256, device=device)
+    server = webdemo.serve(engine, port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_address[1]}"
+    try:
+        req = urllib.request.Request(
+            url + "/reconstruct", headers={"Content-Type": "application/json"},
+            data=json.dumps({"images": urls}).encode())
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=600) as r:
+            code, rec = r.status, json.loads(r.read())
+        rec_ms = (time.perf_counter() - t0) * 1e3
+        assert code == 200 and rec["ok"] and rec["n_gaussians"] == 2 * H * W
+        cr.launches = cr.bwd_launches = 0
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f"{url}/render?yaw=0.6&pitch=0.2",
+                                    timeout=600) as r:
+            ctype, body = r.headers.get("Content-Type"), r.read()
+        get_ms = (time.perf_counter() - t0) * 1e3
+        web_launches = (cr.launches, cr.bwd_launches)
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    assert ctype == "image/jpeg", ctype
+    assert web_launches == (1, 0), web_launches
+    back = jpeg.decode_jpeg(body, "/render")
+    assert back.shape == (H, W, 3), back.shape
+    pixels = engine.render(0.6, 0.2)
+    t0 = time.perf_counter()
+    again = jpeg.encode_jpeg(pixels, 90)
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    assert again == body, "/render's body is not encode_jpeg's"
+    del engine, model
+    emit(f"[jpeg-demo] demo.main(2 {H}x{W} JPEG files, --n-views "
+         f"{JPEG_DEMO_VIEWS}) exit {rc} in {demo_s:.2f} s, PLY {n_ply} "
+         f"vertices, {len(views)} views, compositor launches "
+         f"{demo_launches[0]} | web app: POST /reconstruct (2 JPEG data URLs) "
+         f"{code} in {rec_ms:.1f} ms, {rec['n_gaussians']} gaussians; GET "
+         f"/render {ctype} in {get_ms:.2f} ms ({len(body)} bytes, read back "
+         f"{back.shape[1]}x{back.shape[0]}, equal to encode_jpeg of "
+         f"engine.render's pixels), compositor launches {web_launches[0]}; "
+         f"encode_jpeg of a {W}x{H} render {enc_ms:.2f} ms")
+    res["demo"] = dict(seconds=demo_s, launches=demo_launches[0], ply=n_ply)
+    res["web"] = dict(reconstruct_ms=rec_ms, render_ms=get_ms,
+                      render_bytes=len(body), encode_ms=enc_ms,
+                      launches=web_launches[0])
+    res["launches"] = cli["launches"] + demo_launches[0] + web_launches[0]
+    res["kernel_vs_plain"] = cli["kernel_vs_plain"]
     return lines, res
 
 
@@ -2213,6 +2484,7 @@ def main(argv=None) -> int:
         build_covariance,
         cov_to_triu,
     )
+    from splatt3r_slam_tpu_torch.utils import jpeg
 
     results: dict = {}
 
@@ -2231,6 +2503,12 @@ def main(argv=None) -> int:
     assert all("0 bytes spill stores, 0 bytes spill loads" in log
                for _, log in built.values()), "a kernel spills registers"
     results["build_s"] = build_s
+    t0 = time.perf_counter()
+    jpeg_so = jpeg.build_native()  # the host JPEG entropy walk (g++)
+    results["build_host_s"] = time.perf_counter() - t0
+    print(f"[build-host] {os.path.relpath(jpeg_so, root)} from "
+          f"{os.path.relpath(jpeg.SOURCE, root)} (g++ "
+          f"{' '.join(jpeg.CXX_FLAGS)}) in {results['build_host_s']:.2f} s")
 
     # -- 2. kernel against its plain version ----------------------------------
     set_fp32_precision()
@@ -2832,6 +3110,21 @@ def main(argv=None) -> int:
           f"{cli_res['run_s']:.1f} s with --no-viz")
     results["cli_viz"] = cli_viz_res
 
+    # -- 6c. JPEG frames, uploads and /render without cv2 ---------------------
+    t0 = time.perf_counter()
+    _, jpeg_res = _jpeg_phase(
+        torch, root, cr, cli_res,
+        lambda: init_model(TwoViewConfig(), seed=0, device="cuda"))
+    jpeg_res["seconds"] = time.perf_counter() - t0
+    results["jpeg"] = jpeg_res
+    jpeg_launches = jpeg_res["launches"]
+    print(f"[jpeg] {jpeg_res['seconds']:.1f} s | compositor launches "
+          f"{jpeg_launches} (CLI {jpeg_res['cli']['launches']}, demo "
+          f"{jpeg_res['demo']['launches']}, web "
+          f"{jpeg_res['web']['launches']})")
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # -- 7. calibrated input through the CLI ----------------------------------
     calib_lines, calib_res = _calibrated_phase(torch, root, cr)
     for ln in calib_lines:
@@ -2867,7 +3160,8 @@ def main(argv=None) -> int:
         "replaces": "splatt3r_slam_tpu/splat/pallas_rasterizer.py:61",
         "launches": (launches + cl_launches + entry_launches + train_launches
                      + dist_launches + cli_launches + calib_launches
-                     + viz_launches + cli_viz_launches + scripts_launches),
+                     + viz_launches + cli_viz_launches + scripts_launches
+                     + jpeg_launches),
         "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err,
                            dist_res["kernel_vs_plain"],
                            cli_res["kernel_vs_plain"],
@@ -2876,6 +3170,7 @@ def main(argv=None) -> int:
                            viz_res["kernel_vs_plain"],
                            cli_viz_res["kernel_vs_plain"],
                            scripts_res["kernel_vs_plain"],
+                           jpeg_res["kernel_vs_plain"],
                            *(r["kernel_vs_plain"]
                              for r in calib_res.values())),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -2905,6 +3200,7 @@ def main(argv=None) -> int:
         "call_ms_sweep_rows": viz_res["sweep"]["rows"]["call_ms"],
         "bound_ms_sweep_rows": viz_res["sweep"]["rows"]["bound_ms"],
         "launches_scripts": scripts_launches,
+        "launches_jpeg": jpeg_launches,
         **{f"{k}_bench_rasterizer_{g // 1000}k_rows": h[k]
            for g, h in br_rows.items()
            for k in ("ms", "call_ms", "plain_ms", "bound_ms")},
@@ -2938,6 +3234,7 @@ def main(argv=None) -> int:
         "launches_viz": 0,
         "launches_cli_viz": 0,
         "launches_scripts": scripts_bwd_launches,
+        "launches_jpeg": 0,
         **{f"{k}_bench_rasterizer_grad_rows": grad_rows[k]
            for k in ("ms", "call_ms", "plain_ms", "bound_ms")},
     }]

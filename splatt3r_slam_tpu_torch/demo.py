@@ -11,8 +11,9 @@ in the DC term, as the reference demo writes it; the web app's PLY holds
 the source images' colours there), and renders an orbit of
 `--n-views` novel views through the tile renderer (the hand-written CUDA
 compositor on the card) to PNGs, and to an MP4 where cv2 can be imported.
-`--serve PORT` runs the web app (`runtime/webdemo.py`) instead. PNG input
-is read without any image package; other formats need cv2. Weights come
+`--serve PORT` runs the web app (`runtime/webdemo.py`) instead. PNG and
+JPEG input are read without any image package (`utils/image.py`,
+`utils/jpeg.py`); only the MP4 needs cv2. Weights come
 from `--checkpoint`, else `checkpoints/` in the repository, else seeded
 random weights; nothing is downloaded. It runs on CUDA unless `--device
 cpu` is given, and raises without a GPU.
@@ -46,19 +47,11 @@ def _parser():
 
 
 def read_image(path) -> np.ndarray:
-    """An image file → (H, W, 3) float32 RGB in [0, 1]; PNG without cv2."""
-    from splatt3r_slam_tpu_torch.utils.image import read_png
+    """A PNG or JPEG file → (H, W, 3) float32 RGB in [0, 1], as the
+    reference demo's `cv2.imread` + BGR→RGB reads it, without cv2."""
+    from splatt3r_slam_tpu_torch.utils import image
 
-    if str(path).lower().endswith(".png"):
-        rgb = read_png(path)
-    else:
-        import cv2
-
-        bgr = cv2.imread(str(path))
-        if bgr is None:
-            raise FileNotFoundError(path)
-        rgb = bgr[..., ::-1]
-    return rgb.astype(np.float32) / 255.0
+    return image.read_image(path).astype(np.float32) / 255.0
 
 
 def _model(args, device, model):

@@ -3,17 +3,18 @@
 Counterpart of `splatt3r_slam_tpu/runtime/dataloader.py`: TUM `rgb.txt`
 lists, EuRoC `mav0/cam0` (`data.csv`, `sensor.yaml`), ETH3D
 `calibration.txt`, 7-Scenes `seq-01/*.color.png`, RGB folders, and the
-live and video sources. PNG frames are read by `utils/image.py`, so the
-readers need neither cv2 nor PIL. Timestamps stay the strings that the
-lists hold, so the trajectory writer prints them as they are.
+live and video sources. PNG and JPEG frames are read by `utils/image.py`
+and `utils/jpeg.py`, so the readers need neither cv2 nor PIL. Timestamps
+stay the strings that the lists hold, so the trajectory writer prints them
+as they are.
 
 Calibrated input (`use_calib`, `--calib`, and EuRoC always) undistorts each
 frame on the host in numpy, with the numbers of OpenCV 5's calls that the
 JAX package makes: `optimal_new_camera_matrix` (alpha 0,
 `getOptimalNewCameraMatrix`), `undistort_rectify_map`
 (`initUndistortRectifyMap`, float32 maps) and `Intrinsics.remap`
-(`remap`, bilinear, constant border 0). Video, webcam and `.jpg` frames
-import cv2, and RealSense imports pyrealsense2, only when used.
+(`remap`, bilinear, constant border 0). Video and webcam input import
+cv2, and RealSense imports pyrealsense2, only when used.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import re
 import numpy as np
 
 from splatt3r_slam_tpu_torch.config import config
-from splatt3r_slam_tpu_torch.utils.image import read_png, resize_img
+from splatt3r_slam_tpu_torch.utils.image import read_image, resize_img
 
 
 def _natsorted(paths):
@@ -42,14 +43,6 @@ def _import(name: str, what: str):
     except ImportError as e:
         raise ImportError(f"{what} needs the {name!r} package, which is not "
                           "installed") from e
-
-
-def _read_rgb(path) -> np.ndarray:
-    """(H, W, 3) uint8 RGB from a PNG file (or another format via cv2)."""
-    if str(path).lower().endswith(".png"):
-        return read_png(path)
-    cv2 = _import("cv2", f"reading {pathlib.Path(path).suffix} frames")
-    return cv2.cvtColor(cv2.imread(str(path)), cv2.COLOR_BGR2RGB)
 
 
 def _read_list(path) -> list[list[str]]:
@@ -85,7 +78,7 @@ class MonocularDataset:
         return self.timestamps[idx]
 
     def read_img(self, idx):
-        return _read_rgb(self.rgb_files[idx])
+        return read_image(self.rgb_files[idx])  # cv2.imread + BGR→RGB
 
     def get_image(self, idx):
         img = self.read_img(idx)

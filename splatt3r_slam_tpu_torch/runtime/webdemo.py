@@ -5,20 +5,19 @@ Gradio app: upload one or two images → two-view Gaussian prediction →
 `gaussians.ply` in a browser splat viewer). A stdlib `http.server` app
 whose 3D view is rendered remotely: the browser sends orbit angles, the
 device rasterizes the predicted gaussians through the tile renderer (the
-hand-written CUDA compositor on the card), and a PNG comes back. Drag to
+hand-written CUDA compositor on the card), and a JPEG comes back. Drag to
 orbit, scroll to dolly, download the .ply.
 
 Endpoints:
   GET  /                 HTML page (upload + viewer)
   POST /reconstruct      JSON {"images": [data URL or base64, ...]} (1 or 2)
                          → {"ok": true, "n_gaussians": N}
-  GET  /render?yaw=&pitch=&radius=   PNG of the current scene
+  GET  /render?yaw=&pitch=&radius=   JPEG (quality 90) of the current scene
   GET  /gaussians.ply    3DGS-format PLY of the current scene
 
-Uploads are decoded from PNG without any image package; a JPEG upload
-needs cv2 (a decoder of the port's own is ROADMAP Queue 1's "JPEG frames
-without cv2" item). `/render` sends PNG where the JAX app sends JPEG: the
-GPU host has no JPEG encoder.
+Uploads (PNG or JPEG) are decoded, and `/render` encoded, by the port's
+own codecs (`utils/image.py`, `utils/jpeg.py`), without any image package;
+the JPEG is the one the JAX app's `cv2.imencode` writes.
 """
 
 from __future__ import annotations
@@ -89,11 +88,6 @@ document.getElementById('run').onclick=async()=>{
 draw();
 </script></body></html>
 """
-
-_JPEG_TODO = ("a JPEG upload needs cv2, which is not installed (a JPEG "
-              "decoder of the port's own is ROADMAP Queue 1's 'JPEG frames "
-              "without cv2' item); upload PNG")
-
 
 @dataclass
 class Scene:
@@ -238,29 +232,16 @@ class DemoEngine:
 
 
 def _decode_image(data_url_or_b64: str) -> np.ndarray:
-    """data:image/...;base64,xxxx or bare base64 → HxWx3 float [0, 1].
-    PNG is decoded here; JPEG needs cv2."""
-    from splatt3r_slam_tpu_torch.utils.image import decode_png
+    """data:image/...;base64,xxxx or bare base64 of a PNG or JPEG → HxWx3
+    float [0, 1]."""
+    from splatt3r_slam_tpu_torch.utils.image import decode_image
 
     raw = base64.b64decode(data_url_or_b64.split(",", 1)[-1])
-    if raw[:8] == b"\x89PNG\r\n\x1a\n":
-        rgb = decode_png(raw, "upload")
-    elif raw[:3] == b"\xff\xd8\xff":
-        try:
-            import cv2
-        except ImportError:
-            raise ValueError(_JPEG_TODO) from None
-        bgr = cv2.imdecode(np.frombuffer(raw, np.uint8), cv2.IMREAD_COLOR)
-        if bgr is None:
-            raise ValueError("undecodable image")
-        rgb = bgr[..., ::-1]
-    else:
-        raise ValueError("undecodable image (PNG or JPEG expected)")
-    return rgb.astype(np.float32) / 255.0
+    return decode_image(raw, "upload").astype(np.float32) / 255.0
 
 
 def make_handler(engine: DemoEngine):
-    from splatt3r_slam_tpu_torch.utils.image import encode_png
+    from splatt3r_slam_tpu_torch.utils.jpeg import encode_jpeg
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
@@ -290,7 +271,7 @@ def make_handler(engine: DemoEngine):
                 if img is None:
                     self._send(404, b'{"error": "no scene yet"}')
                     return
-                self._send(200, encode_png(img), "image/png")
+                self._send(200, encode_jpeg(img, 90), "image/jpeg")
             elif url.path == "/gaussians.ply":
                 ply = engine.ply_bytes()
                 if ply is None:

@@ -7,6 +7,8 @@ the JAX `create_frame` uses where g++ is present
 - `read_png` / `write_png` (and `decode_png` / `encode_png` on bytes):
   8-bit PNG through `zlib` and `struct` (gray, RGB and RGBA read,
   non-interlaced, all five row filters; RGB written);
+- `read_image` / `decode_image`: PNG or JPEG (`utils/jpeg.py`), chosen by
+  the magic bytes as cv2 chooses, not by the file's suffix;
 - `resize_img`: the reference geometry (long side to `size`, centre crop
   to multiples of 16, the square 3:4 exception; short side to 224 and a
   square crop for `size == 224`), with the pixels of the native helper:
@@ -123,6 +125,26 @@ def decode_png(data: bytes, path="PNG data") -> np.ndarray:
     if bpp == 1:
         return np.repeat(img, 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
+
+
+def decode_image(data: bytes, what="image data") -> np.ndarray:
+    """The bytes of a PNG or JPEG file → (H, W, 3) uint8 RGB, as
+    `cv2.imdecode(..., IMREAD_COLOR)` + BGR→RGB gives; a ValueError that
+    names `what` for any other format."""
+    from splatt3r_slam_tpu_torch.utils.jpeg import decode_jpeg
+
+    if data[:8] == _PNG_SIG:
+        return decode_png(data, what)
+    if data[:3] == b"\xff\xd8\xff":
+        return decode_jpeg(data, what)
+    raise ValueError(f"{what}: not a PNG or JPEG file")
+
+
+def read_image(path) -> np.ndarray:
+    """`decode_image` on the file `path` (what `cv2.imread` + BGR→RGB
+    gives for PNG and JPEG files)."""
+    with open(path, "rb") as f:
+        return decode_image(f.read(), path)
 
 
 def _axis(n_out: int, offset: int, n_src: int, scale: np.float32):

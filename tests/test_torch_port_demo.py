@@ -19,9 +19,10 @@ does). Held:
   compositors' render-order difference, 2.25e-4, with margin) and within
   one level after it;
 - the port's HTTP app answers `/`, `/render`, `/gaussians.ply` and the
-  404s as `tests/test_webdemo.py` expects of the JAX app, with a PNG body
-  (equal to `engine.render`'s pixels) in place of the JPEG; a JPEG upload
-  decodes through cv2 and, without cv2, gets a 400 naming ROADMAP's item;
+  404s as `tests/test_webdemo.py` expects of the JAX app; `/render` sends
+  the JPEG that the JAX app's `cv2.imencode` (quality 90) writes for
+  `engine.render`'s pixels, byte for byte, and a JPEG upload decodes as
+  the JAX app's `_decode_image` decodes it, also with cv2 unimportable;
 - the demo CLI (`--tiny-model --device cpu`) writes its PLY and its views;
   on the carried weights, its PLY's DC term is the model's raw SH residual
   that the reference `demo.py` writes, within 1e-5 of the JAX model's
@@ -58,6 +59,7 @@ from splatt3r_slam_tpu_torch.models.checkpoint import (
 )
 from splatt3r_slam_tpu_torch.runtime import webdemo
 from splatt3r_slam_tpu_torch.utils.image import decode_png, write_png
+from splatt3r_slam_tpu_torch.utils.jpeg import decode_jpeg
 from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 POSES = ((0.0, 0.2, 0.0), (0.7, -0.1, 0.3), (2.5, 0.4, -0.2))
@@ -224,11 +226,20 @@ def test_http_app(server, monkeypatch):
     code, out = _post(url + "/reconstruct", {"images": imgs})
     assert code == 200 and out["ok"] and out["n_gaussians"] == 2 * 48 * 64
 
+    def jax_app_jpeg(img):  # what `webdemo.py:264-267` sends
+        ok, buf = cv2.imencode(".jpg", cv2.cvtColor(img, cv2.COLOR_RGB2BGR),
+                               [cv2.IMWRITE_JPEG_QUALITY, 90])
+        return buf.tobytes()
+
     code, body, ctype = _get(url + "/render?yaw=0.3&pitch=0.1")
-    assert code == 200 and ctype == "image/png"
-    np.testing.assert_array_equal(decode_png(body), engine.render(0.3, 0.1))
+    assert code == 200 and ctype == "image/jpeg"
+    assert body == jax_app_jpeg(engine.render(0.3, 0.1))
+    np.testing.assert_array_equal(
+        decode_jpeg(body),
+        cv2.imdecode(np.frombuffer(body, np.uint8), cv2.IMREAD_COLOR)[
+            ..., ::-1])
     code, body, _ = _get(url + "/render?yaw=bad")  # defaults for junk
-    np.testing.assert_array_equal(decode_png(body), engine.render())
+    assert body == jax_app_jpeg(engine.render())
 
     code, ply, _ = _get(url + "/gaussians.ply")
     assert code == 200 and ply.startswith(b"ply")
@@ -242,13 +253,18 @@ def test_http_app(server, monkeypatch):
     assert code == 400 and not out["ok"]
     assert _post(url + "/reconstruct", {"images": []})[0] == 400
 
-    # JPEG: through cv2 here; without cv2, a 400 that names the item
+    # JPEG uploads: decoded as the JAX app decodes them, and without cv2
     jpg = [_b64(".jpg", base)]
+    np.testing.assert_array_equal(webdemo._decode_image(jpg[0]),
+                                  jweb._decode_image(jpg[0]))
     code, out = _post(url + "/reconstruct", {"images": jpg})
     assert code == 200 and out["ok"]
     monkeypatch.setitem(sys.modules, "cv2", None)
     code, out = _post(url + "/reconstruct", {"images": jpg})
-    assert code == 400 and "JPEG frames without cv2" in out["error"]
+    assert code == 200 and out["ok"] and out["n_gaussians"] == 2 * 48 * 64
+    code, body, ctype = _get(url + "/render")
+    assert code == 200 and ctype == "image/jpeg"
+    assert decode_jpeg(body).shape == (48, 64, 3)
 
 
 def test_demo_cli(tmp_path):
