@@ -5,12 +5,15 @@
 
 Phases, each printing one line of its own; any failure exits non-zero:
 
-1. build   — compile splatt3r_slam_tpu_torch/csrc/composite.cu and
-             composite_bwd.cu (both include composite_common.cuh) with nvcc
-             (sm_90a) from this checkout, one nvcc each, started together;
-             print the build seconds and what ptxas says of each kernel's
-             registers, shared memory and spills; then the host JPEG
-             entropy walk csrc/jpeg_huffman.cpp with g++ (`[build-host]`);
+1. build   — compile every kernel of the port from this checkout:
+             splatt3r_slam_tpu_torch/csrc/composite.cu and composite_bwd.cu
+             (both include composite_common.cuh) and flash_attention.cu
+             (8 template instances: bf16 and fp32, Dh 64/128/192/256),
+             with nvcc (sm_90a), one nvcc each, started together
+             (`cuda_build.build`); print the build seconds and what ptxas
+             says of each kernel's registers, shared memory and spills
+             (none may spill); then the host JPEG entropy walk
+             csrc/jpeg_huffman.cpp with g++ (`[build-host]`);
 2. kernel  — hold the tile compositor against its plain PyTorch version
              (`composite_torch`) at the production shape (393,216 gaussians,
              384x512, tpg_side=4, k_max=512), on a tile list longer than one
@@ -240,6 +243,29 @@ Phases, each printing one line of its own; any failure exits non-zero:
              `scripts.compute_ate` of the committed groundtruth against
              itself (0) and `scripts.convert_lpips` of a seeded state dict
              (loads back through `load_lpips_params`); no other launch;
+             bench_attention's flash rows are the phase's only launches of
+             the flash-attention kernel (3 shapes x 34 calls);
+7c. flash — the flash-attention path (`--flash-attention on`; the kernel
+             csrc/flash_attention.cu replaces the TPU kernel that
+             `splatt3r_slam_tpu/models/layers.py::_attend_flash` reaches):
+             the kernel against its plain version (`flash_attention_torch`)
+             in the working dtype, within 2^-7 of the output's peak in bf16
+             and 1e-5 in fp32, at ViT-L's shapes (B2 N768 Dh64: encoder H16,
+             decoder self and cross H12), on v strided as the fused qkv
+             projection hands it over, at n_q 768 x n_kv 1024, in fp32 (B1
+             N768 H16) and at `auto`'s threshold (B1 N4096 H16), each timed
+             (`ms`, `call_ms`) beside the plain version, SDPA on the same
+             inputs (`library_ms`) and the bound; `auto` picks the kernel at
+             N4096 and SDPA at N768; the fixture CLI of 6 with
+             --flash-attention on and without the flag in turns (on, auto,
+             auto, on), with the checks of 6, every `attend` call of an
+             `on` run a kernel launch and none in an `auto` run, the kernel
+             held on the last call's own q, k and v; one tracked frame of a
+             fresh ViT-L with the mode on under torch.profiler (the flash
+             kernel's device time, the frame's idle share); `bench` with
+             the mode on (tracking_fps_512x384, times only). Every other
+             phase runs in the default mode ("auto") and launches the flash
+             kernel no time (`_no_flash`);
 8. device  — the card's name and power limit (nvidia-smi);
 then one JSON line with the kernel table and, last, the ok/device line.
 
@@ -473,10 +499,11 @@ def _bound_bwd_ms(counts):
                                  else "bytes")
 
 
-def _profile_frame(torch, run_frame):
+def _profile_frame(torch, run_frame, kernels=None):
     """One frame under torch.profiler → (wall ms, device kernel ms, spans):
     spans maps each `port.*` span to (host ms it was open, device ms of
-    the kernels launched inside it)."""
+    the kernels launched inside it). A dict given as `kernels` receives
+    each device kernel's name and its device ms."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -495,14 +522,17 @@ def _profile_frame(torch, run_frame):
         v = getattr(e, name, None)
         return (getattr(e, old, 0) if v is None else v) / 1e3
 
-    kernels = sum(dev_ms(e, self_only=True) for e in prof.key_averages()
-                  if on_cuda(e) and not e.key.startswith("port."))
+    by_name = {e.key: dev_ms(e, self_only=True)
+               for e in prof.key_averages()
+               if on_cuda(e) and not e.key.startswith("port.")}
+    if kernels is not None:
+        kernels.update(by_name)
     spans: dict = {}
     for e in prof.events():
         if e.name.startswith("port.") and not on_cuda(e):
             host, dev = spans.get(e.name, (0.0, 0.0))
             spans[e.name] = (host + e.cpu_time_total / 1e3, dev + dev_ms(e))
-    return wall_ms, kernels, spans
+    return wall_ms, sum(by_name.values()), spans
 
 
 def _boundary_tiles(torch, counts, k_max, seed):
@@ -2206,7 +2236,12 @@ IMAGE_BAR = 2e-3
 # a few bf16 steps (2^-8) through a dozen bf16 convolutions and expm1
 HEADS_BAR = 2 ** -5
 # einsum attention against SDPA, both rounded to bf16, outputs of order 1
+# (and against the flash kernel, which rounds p where the einsum path
+# rounds the normalised weights)
 ATTENTION_BAR = 0.05
+# bench_attention's flash calls at each shape: 2 warm-ups, time_calls' own
+# warm-up and 30 timed calls, and the difference from the einsum path
+ATTENTION_FLASH_LAUNCHES = 3 * (2 + 1 + 30 + 1)
 GRAD_FWD_LAUNCHES = 11 + 11 + 8  # value_and_grad, forward alone, FD probe
 GRAD_BWD_LAUNCHES = 11
 
@@ -2237,6 +2272,7 @@ def _scripts_phase(torch, root, cr, work):
     import numpy as np
 
     from splatt3r_slam_tpu_torch import ablations
+    from splatt3r_slam_tpu_torch.models import flash_attention as fl
     from splatt3r_slam_tpu_torch.scripts import (
         bench_attention,
         bench_heads_batched,
@@ -2334,14 +2370,23 @@ def _scripts_phase(torch, root, cr, work):
     res["bench_rasterizer_grad"] = dict(gr, seconds=gr_s, rows=held)
     del kept, cnt, org, rw, gout, out
 
-    # bench_attention: flash and efficient SDPA run at every shape
+    # bench_attention: flash and efficient SDPA run at every shape, and so
+    # does the port's flash kernel (the only flash launches of the phase)
+    _no_flash(fl, "scripts before bench_attention")
     a, a_s, launches["bench_attention"] = _run_entry(
         bench_attention.main, SCRIPT_ARGV["bench_attention"], cr)
+    res["flash_launches"] = fl.launches
+    fl.launches = 0
+    assert res["flash_launches"] == ATTENTION_FLASH_LAUNCHES, \
+        res["flash_launches"]
     for label, row in a["results"].items():
         for b in ("flash", "efficient"):
             assert isinstance(row[f"sdpa_{b}_ms"], float), (label, row)
         assert row["max_abs_diff"] <= ATTENTION_BAR, (label, row)
-    lines.append(f"[scripts-bench_attention] {json.dumps(a)} | {a_s:.1f} s")
+        assert isinstance(row["flash_ms"], float), (label, row)
+        assert row["flash_max_abs_diff"] <= ATTENTION_BAR, (label, row)
+    lines.append(f"[scripts-bench_attention] {json.dumps(a)} | flash "
+                 f"launches {res['flash_launches']} | {a_s:.1f} s")
     res["bench_attention"] = dict(a, seconds=a_s)
 
     # bench_heads_batched: the vmapped heads equal the sequential ones
@@ -2447,6 +2492,276 @@ def _scripts_phase(torch, root, cr, work):
     return lines, res
 
 
+# -- 7c. the flash-attention path ---------------------------------------------
+
+# (label, B, n_q, n_kv, H, Dh, dtype, v strided as the fused qkv hands it)
+FLASH_SHAPES = (
+    ("enc_self B2 N768 H16", 2, 768, 768, 16, 64, "bfloat16", False),
+    ("dec_self B2 N768 H12", 2, 768, 768, 12, 64, "bfloat16", False),
+    ("dec_cross B2 N768 H12", 2, 768, 768, 12, 64, "bfloat16", False),
+    ("strided_v B2 N768 H16", 2, 768, 768, 16, 64, "bfloat16", True),
+    ("cross B2 Nq768 Nkv1024 H12", 2, 768, 1024, 12, 64, "bfloat16", False),
+    ("fp32 B1 N768 H16", 1, 768, 768, 16, 64, "float32", False),
+    ("auto B1 N4096 H16", 1, 4096, 4096, 16, 64, "bfloat16", False),
+)
+# the kernel against its plain version: two bf16 steps of the output's peak
+# (both round p to bf16, against running maxima over 64 and 128 kv rows,
+# and round the output to bf16); fp32 absolute (sums in another order)
+FLASH_BF16_BAR = 2 ** -7
+FLASH_FP32_BAR = 1e-5
+# the fixture CLI with --flash-attention on and without the flag, in turns
+FLASH_CLI_RUNS = ("on", "auto", "auto", "on")
+PEAK_BF16 = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
+
+
+def _no_flash(fl, phase):
+    """A phase in the default mode ("auto") launches no flash kernel: at
+    the 768-token shape SDPA serves, as the einsum path does in the JAX
+    package. The count is never reset between such phases."""
+    assert fl.launches == 0, \
+        f"{phase}: {fl.launches} flash-attention launches in 'auto' mode"
+
+
+def _flash_bound_ms(B, n_q, n_kv, H, D, itemsize):
+    """Least time for one attention: the larger of its two products'
+    operations (4·B·H·n_q·n_kv·Dh) over the card's peak for the inputs'
+    type (bf16 tensor cores; fp32 outside them, no TF32) and the bytes of
+    q, k and v read once and the output written once over the memory rate
+    → (ms, what bounds it)."""
+    t_ops = 4 * B * H * n_q * n_kv * D / (PEAK_BF16 if itemsize == 2
+                                          else PEAK_FP32)
+    t_bytes = itemsize * B * H * D * (2 * n_q + 2 * n_kv) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _flash_held(torch, fl, q, k, v, scale, what, timed=True):
+    """The flash kernel against its plain version on (q, k, v), in their
+    working dtype, and with `timed` its device time, one isolated call,
+    the plain version's call, SDPA's device time on the same inputs and
+    the bound → dict."""
+    import torch.nn.functional as F
+
+    got = fl.flash_attention(q, k, v, scale)
+    want = fl.flash_attention_torch(q, k, v, scale)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == v.dtype, what
+    assert torch.isfinite(got).all(), f"{what}: flash output not finite"
+    err = float((got.float() - want.float()).abs().max())
+    peak = float(want.float().abs().max())
+    bar = (FLASH_BF16_BAR * peak if v.dtype == torch.bfloat16
+           else FLASH_FP32_BAR)
+    assert err <= bar, f"{what}: flash kernel vs plain {err} > {bar}"
+    B, n_q, H, D = q.shape
+    h = dict(shape=[B, n_q, k.shape[1], H, D], dtype=str(v.dtype)[6:],
+             v_contiguous=v.is_contiguous(), err=err, bar=bar, peak=peak)
+    if timed:
+        def run():
+            return fl.flash_attention(q, k, v, scale)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                scale=scale)
+
+        h.update(ms=device_ms(run, torch), call_ms=call_ms(run, torch),
+                 plain_ms=call_ms(lambda: fl.flash_attention_torch(
+                     q, k, v, scale), torch, 5),
+                 library_ms=device_ms(sdpa, torch))
+        h["bound_ms"], h["bound_by"] = _flash_bound_ms(
+            B, n_q, k.shape[1], H, D, v.element_size())
+    return h
+
+
+def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
+    """7c. The flash-attention path at full width → (lines, results): the
+    kernel against its plain version at the path's shapes (timed, beside
+    SDPA and the bound), `auto` at its threshold, the fixture CLI with
+    --flash-attention on and without it in turns (every attend call a
+    launch; the kernel held on the last call's own q, k and v), one
+    tracked frame under the profiler and `bench` with the mode on."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import bench
+    from splatt3r_slam_tpu_torch import config as cfgmod
+    from splatt3r_slam_tpu_torch.models import TwoViewConfig, init_model
+    from splatt3r_slam_tpu_torch.runtime.frame import create_frame
+    from splatt3r_slam_tpu_torch.runtime.inference import InferenceEngine
+    from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
+
+    assert layers.flash_attention_mode() == "auto"
+    lines, res = [], {}
+    t_phase = time.perf_counter()
+    smi = _smi()
+    rng = np.random.default_rng(11)
+
+    def rand(*shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(device, dtype)
+
+    # the kernel against its plain version at the path's shapes
+    shapes = {}
+    for label, B, nq, nk, nh, D, dt, strided in FLASH_SHAPES:
+        dt = getattr(torch, dt)
+        if strided:  # v as Attention hands it over; rope gives new q, k
+            qkv = rand(B, nq, 3 * nh * D, dtype=dt)
+            q, k, v = qkv.reshape(B, nq, 3, nh, D).unbind(2)
+            q, k = q.contiguous(), k.contiguous()
+            assert v.stride(1) == 3 * nh * D, v.stride()
+        else:
+            q, k, v = (rand(B, n, nh, D, dtype=dt) for n in (nq, nk, nk))
+        shapes[label] = _flash_held(torch, fl, q, k, v, D ** -0.5, label)
+        del q, k, v
+    for label, h in shapes.items():
+        lines.append(
+            f"[flash-kernel] {label} ({h['dtype']}, v "
+            f"{'contiguous' if h['v_contiguous'] else 'strided'}): kernel "
+            f"vs plain {h['err']:.3e} (bar {h['bar']:.3e}, peak "
+            f"{h['peak']:.3f}) | {h['ms']:.4f} ms on the device, call_ms "
+            f"{h['call_ms']:.4f}, plain {h['plain_ms']:.3f} ms, SDPA "
+            f"{h['library_ms']:.4f} ms | bound {h['bound_ms']:.4f} ms by "
+            f"{h['bound_by']} | {smi}")
+
+    # auto: the kernel at the threshold, SDPA at the tracking shape
+    picked = {}
+    for n in (4096, 768):
+        q, k, v = (rand(1, n, 16, 64, dtype=torch.bfloat16)
+                   for _ in range(3))
+        fl.launches = 0
+        layers.attend(q, k, v, 0.125)
+        picked[n] = fl.launches
+    fl.launches = 0
+    assert picked == {4096: 1, 768: 0}, picked
+    lines.append(f"[flash-auto] mode auto: B1 H16 Dh64 at N4096 "
+                 f"{picked[4096]} launch, at N768 {picked[768]} (SDPA)")
+
+    # the fixture CLI, --flash-attention on and without it, in turns
+    fixture = os.path.join(root, "tests", "fixtures", "tum")
+    seq = os.path.join(fixture, "rgbd_dataset_freiburg1_fixture")
+    config = os.path.join(fixture, "eval_fixture.yaml")
+    real_attend = layers.attend
+    seen = {"calls": 0}
+
+    def counted(q, k, v, scale):
+        seen["calls"] += 1
+        seen["last"] = (q, k, v, scale)
+        return real_attend(q, k, v, scale)
+
+    runs, last = [], None
+    layers.attend = counted
+    try:
+        for mode in FLASH_CLI_RUNS:
+            seen["calls"] = 0
+            fl.launches = 0
+            _, r = _cli_phase(torch, root, cr, device, seq, config,
+                              argv=["--flash-attention", mode],
+                              profile=False)
+            n_flash, n_attend = fl.launches, seen["calls"]
+            assert layers.flash_attention_mode() == mode
+            assert n_attend > 0, f"{mode}: no attention call"
+            assert n_flash == (n_attend if mode == "on" else 0), \
+                f"{mode}: {n_flash} flash launches, {n_attend} attend calls"
+            if mode == "on":
+                last = seen.pop("last")
+            runs.append(dict(
+                mode=mode, run_s=r["run_s"], frames=r["frames"],
+                process_frame_ms=_median(r["ms"]["process_frame"]),
+                attend_calls=n_attend, launches=n_flash,
+                compositor_launches=r["launches"],
+                kernel_vs_plain=r["kernel_vs_plain"]))
+    finally:
+        layers.attend = real_attend
+        layers.set_flash_attention("auto")
+    held = _flash_held(torch, fl, *last, "the CLI's last attention call")
+    del last, seen
+    lines.append(
+        "[flash-cli] the fixture CLI in turns: " + ", ".join(
+            f"{r['mode']} {r['run_s']:.1f} s (process_frame median "
+            f"{r['process_frame_ms']:.2f} ms, {r['frames']} frames, "
+            f"{r['attend_calls']} attend calls, {r['launches']} flash "
+            f"launches)" for r in runs)
+        + f" | the kernel vs plain on the last call's own q, k, v "
+        f"{held['shape']} (v "
+        f"{'contiguous' if held['v_contiguous'] else 'strided'}): "
+        f"{held['err']:.3e} (bar {held['bar']:.3e}), "
+        f"{held['ms']:.4f} ms on the device, call_ms {held['call_ms']:.4f}, "
+        f"SDPA {held['library_ms']:.4f}, bound {held['bound_ms']:.4f} | {smi}")
+
+    # one tracked frame with the mode on, under the profiler; then bench
+    cfgmod.reset_config()
+    cfgmod.config["tracking"]["max_iters"] = 0  # random weights
+    cfgmod.config["tracking"]["min_match_frac"] = 0.0
+    model = init_model(TwoViewConfig(), seed=0, device=device)
+    sysm = SLAMSystem(InferenceEngine(model, H, W), H, W)
+    base = (rng.random((2 * H, 2 * W, 3)) * 255).astype(np.uint8)
+
+    def frame(i):
+        return create_frame(i, base[i:i + H, 2 * i:2 * i + W], img_size=W,
+                            device=device)
+
+    kernels: dict = {}
+    layers.set_flash_attention("on")
+    seen = {"calls": 0}
+    layers.attend = counted
+    try:
+        for i in range(3):
+            sysm.process_frame(frame(i))
+        f = frame(3)
+        torch.cuda.synchronize()
+        seen["calls"] = 0
+        fl.launches = 0
+        wall, busy, spans = _profile_frame(
+            torch, lambda: sysm.process_frame(f), kernels)
+        n_prof, prof_calls = fl.launches, seen["calls"]
+        assert n_prof == prof_calls > 0, (n_prof, prof_calls)
+        seen.pop("last", None)
+        layers.attend = real_attend
+        fl.launches = 0
+        b, b_s, b_cr = _run_entry(bench.main, [], cr, model=model)
+        n_bench = fl.launches
+        assert n_bench > 0 and b["metric"] == "tracking_fps_512x384", b
+    finally:
+        layers.attend = real_attend
+        layers.set_flash_attention("auto")
+        cfgmod.reset_config()
+    flash_dev = sum(v for k, v in kernels.items() if "flash_fwd" in k)
+    lines.append(
+        f"[flash-profile] one tracked frame with the mode on: wall "
+        f"{wall:.2f} ms, device kernels {busy:.2f} ms (idle "
+        f"{max(0.0, 1 - busy / wall):.1%}), of which the flash kernel "
+        f"{flash_dev:.3f} ms over {n_prof} launches (= attend calls) | "
+        + ", ".join(f"{k} {hm:.2f} ms open / {d:.2f} ms on the device"
+                    for k, (hm, d) in sorted(spans.items(),
+                                             key=lambda kv: -kv[1][0])))
+    lines.append(
+        f"[flash-bench] bench with the mode on: {b['metric']} "
+        f"{b['value']:.3f} frames/s (passes "
+        + ", ".join(f"{x:.3f}" for x in b["passes"])
+        + f"), {n_bench} flash launches, compositor {b_cr} | {b['device']}, "
+        f"{b['power_limit_w']} W | {b_s:.1f} s (times only, no claim)")
+    del model, sysm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    res.update(
+        shapes=shapes, auto=picked, cli=runs, cli_held=held,
+        profile=dict(wall_ms=wall, device_ms=busy, spans=spans,
+                     flash_device_ms=flash_dev, launches=n_prof),
+        bench=dict(b, seconds=b_s, launches=n_bench, compositor=b_cr),
+        launches=dict(cli=sum(r["launches"] for r in runs), profile=n_prof,
+                      bench=n_bench),
+        compositor_launches=sum(r["compositor_launches"] for r in runs),
+        kernel_vs_plain=max(r["kernel_vs_plain"] for r in runs),
+        max_abs_err=max([h["err"] for h in shapes.values()]
+                        + [held["err"]]),
+        seconds=time.perf_counter() - t_phase)
+    lines.append(
+        f"[flash] {res['seconds']:.1f} s | flash launches on the main paths "
+        f"{sum(res['launches'].values())} ({res['launches']}), compositor "
+        f"launches {res['compositor_launches']} (CLI renders)")
+    return lines, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -2466,10 +2781,12 @@ def main(argv=None) -> int:
     root = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, root)
     from splatt3r_slam_tpu_torch import config as cfgmod
-    from splatt3r_slam_tpu_torch import set_fp32_precision
+    from splatt3r_slam_tpu_torch import cuda_build, set_fp32_precision
     from splatt3r_slam_tpu_torch.backend import FactorGraph
     from splatt3r_slam_tpu_torch.lie import sim3
     from splatt3r_slam_tpu_torch.models import TwoViewConfig, init_model
+    from splatt3r_slam_tpu_torch.models import flash_attention as fl
+    from splatt3r_slam_tpu_torch.models import layers
     from splatt3r_slam_tpu_torch.retrieval import RetrievalDatabase
     from splatt3r_slam_tpu_torch.runtime.frame import Mode, create_frame
     from splatt3r_slam_tpu_torch.runtime.inference import InferenceEngine
@@ -2490,11 +2807,13 @@ def main(argv=None) -> int:
 
     # -- 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    built = cr.build()
+    built = cuda_build.build()  # one nvcc a source, all started together
     build_s = time.perf_counter() - t0
-    assert set(built) == {"composite", "composite_bwd"}, sorted(built)
+    assert set(built) == {"composite", "composite_bwd", "flash_attention"}, \
+        sorted(built)
     for source, _, _ in cr.KERNELS.values():
         assert '#include "composite_common.cuh"' in source.read_text(), source
+    fl.launches = 0  # read at the end of every phase (`_no_flash`)
     print(f"[build] {build_s:.2f} s | " + " | ".join(
         f"{os.path.relpath(so, root)}: " + " ".join(
             ln.strip() for ln in log.splitlines()
@@ -2588,6 +2907,8 @@ def main(argv=None) -> int:
                              plain_ms=plain_ms, bound_ms=bound_ms,
                              bound_by=bound_by, rows=n_rows, tiles=T)
 
+    _no_flash(fl, "kernel")
+
     # -- 2b. backward kernel against its plain version ------------------------
     def bwd_case(cnt, org, rw, seed):
         """→ (gout, out, kernel grows, plain grows) on a seeded cotangent
@@ -2607,9 +2928,10 @@ def main(argv=None) -> int:
         # launched as the wrapper launches it but into memory filled with
         # NaN, must write every row and give the same bits
         again = torch.full_like(rw, float("nan"))
-        cr._launch("composite_bwd", rw.device, cnt.data_ptr(),
-                   org.data_ptr(), rw.data_ptr(), gout.data_ptr(),
-                   out.data_ptr(), again.data_ptr(), cnt.shape[0], k_max)
+        cuda_build.launch("composite_bwd", rw.device, cnt.data_ptr(),
+                          org.data_ptr(), rw.data_ptr(), gout.data_ptr(),
+                          out.data_ptr(), again.data_ptr(), cnt.shape[0],
+                          k_max)
         assert torch.equal(gk, again), \
             "two runs of the backward kernel differ, or a row is not written"
         return gout, out, gk, cr.composite_bwd_torch(cnt, org, rw, gout, out)
@@ -2739,6 +3061,8 @@ def main(argv=None) -> int:
               + " (the earlier backward with the memset it needs)")
         results["compare"] = found
     del gk, gp, t_gk, t_gp, gout, out_k, t_gout, t_out
+
+    _no_flash(fl, "kernel-bwd")
 
     # -- 3. the main path at full width ---------------------------------------
     cfgmod.reset_config()  # config/base.yaml defaults
@@ -2889,12 +3213,16 @@ def main(argv=None) -> int:
                                               key=lambda kv: -kv[1][0])))
     results["profile"] = dict(wall_ms=wall, device_ms=busy, spans=spans)
 
+    _no_flash(fl, "slice")
+
     # -- 4. the closed loop on the plane-scene oracle -------------------------
     cl_lines, cl_res, cl_system = _closed_loop_phase(torch, cr, model)
     for ln in cl_lines:
         print(ln)
     results["closed_loop"] = cl_res
     cl_launches = cl_res["launches"] + cl_res["noisy"]["launches"]
+
+    _no_flash(fl, "closed-loop")
 
     # -- 4c. viewer, session, demo, web app, fidelity sweep -------------------
     viz_work = tempfile.mkdtemp(prefix="chip_smoke_viz_")
@@ -2909,6 +3237,8 @@ def main(argv=None) -> int:
     results["viz"] = viz_res
     viz_launches = viz_res["launches"]
 
+    _no_flash(fl, "viz")
+
     # -- 4b. the measurement entry points on phase 3's model ------------------
     del engine, sysm, last, frame, kf, cat, retrieval, restore, cl_system
     gc.collect()  # phases 3-4's keyframes and backends: not in the soak's
@@ -2919,6 +3249,8 @@ def main(argv=None) -> int:
     results["entry"] = entry_res
     entry_launches = entry_res["launches"]
     cfgmod.reset_config()
+
+    _no_flash(fl, "entry")
 
     # -- 5. the training path at full width -----------------------------------
     from splatt3r_slam_tpu_torch.parallel import TrainConfig, Trainer
@@ -3064,6 +3396,8 @@ def main(argv=None) -> int:
         profile=dict(wall_ms=t_wall, device_ms=t_busy, spans=t_spans,
                      backward_device_ms_by_remainder=t_bwd_dev))
 
+    _no_flash(fl, "train")
+
     # -- 5b. multi-GPU training at world size 1 over NCCL ---------------------
     del trainer, step, named, batches, seen
     gc.collect()
@@ -3080,6 +3414,8 @@ def main(argv=None) -> int:
     dist_launches, dist_bwd_launches = dist_res["launches"]
     gc.collect()
     torch.cuda.empty_cache()
+
+    _no_flash(fl, "dist")
 
     # -- 6. the CLI's SLAM run at full width ----------------------------------
     fixture = os.path.join(root, "tests", "fixtures", "tum")
@@ -3099,6 +3435,8 @@ def main(argv=None) -> int:
                                               key=lambda kv: -kv[1][0])))
     results["cli"] = cli_res
 
+    _no_flash(fl, "cli")
+
     # -- 6b. the same CLI run as users run it: the viewer on, headless --------
     cli_viz_line, cli_viz_res = _cli_phase(
         torch, root, cr, "cuda",
@@ -3109,6 +3447,8 @@ def main(argv=None) -> int:
           + f" | {cli_viz_res['run_s']:.1f} s with the viewer vs "
           f"{cli_res['run_s']:.1f} s with --no-viz")
     results["cli_viz"] = cli_viz_res
+
+    _no_flash(fl, "viz-cli")
 
     # -- 6c. JPEG frames, uploads and /render without cv2 ---------------------
     t0 = time.perf_counter()
@@ -3125,12 +3465,16 @@ def main(argv=None) -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    _no_flash(fl, "jpeg")
+
     # -- 7. calibrated input through the CLI ----------------------------------
     calib_lines, calib_res = _calibrated_phase(torch, root, cr)
     for ln in calib_lines:
         print(ln)
     results["cli_calibrated"] = calib_res
     calib_launches = sum(r["launches"] for r in calib_res.values())
+
+    _no_flash(fl, "calib")
 
     # -- 7b. the kernel, model and accuracy scripts; the ablations ----------
     gc.collect()
@@ -3148,6 +3492,18 @@ def main(argv=None) -> int:
     br_rows = scripts_res["bench_rasterizer"]["rows"]
     grad_rows = scripts_res["bench_rasterizer_grad"]["rows"]
 
+    _no_flash(fl, "scripts")
+
+    # -- 7c. the flash-attention path (--flash-attention on) -----------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_lines, flash_res = _flash_phase(torch, root, cr, fl, layers)
+    for ln in flash_lines:
+        print(ln)
+    results["flash"] = flash_res
+    flash_launches = sum(flash_res["launches"].values())
+    assert layers.flash_attention_mode() == "auto"
+
     # -- 8. device ------------------------------------------------------------
     smi = _smi()
     kind = torch.cuda.get_device_name(0)
@@ -3161,7 +3517,7 @@ def main(argv=None) -> int:
         "launches": (launches + cl_launches + entry_launches + train_launches
                      + dist_launches + cli_launches + calib_launches
                      + viz_launches + cli_viz_launches + scripts_launches
-                     + jpeg_launches),
+                     + jpeg_launches + flash_res["compositor_launches"]),
         "max_abs_err": max(err, extra_err, edge_err, path_err, s_fwd_err,
                            dist_res["kernel_vs_plain"],
                            cli_res["kernel_vs_plain"],
@@ -3171,6 +3527,7 @@ def main(argv=None) -> int:
                            cli_viz_res["kernel_vs_plain"],
                            scripts_res["kernel_vs_plain"],
                            jpeg_res["kernel_vs_plain"],
+                           flash_res["kernel_vs_plain"],
                            *(r["kernel_vs_plain"]
                              for r in calib_res.values())),
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -3201,6 +3558,7 @@ def main(argv=None) -> int:
         "bound_ms_sweep_rows": viz_res["sweep"]["rows"]["bound_ms"],
         "launches_scripts": scripts_launches,
         "launches_jpeg": jpeg_launches,
+        "launches_flash": flash_res["compositor_launches"],
         **{f"{k}_bench_rasterizer_{g // 1000}k_rows": h[k]
            for g, h in br_rows.items()
            for k in ("ms", "call_ms", "plain_ms", "bound_ms")},
@@ -3235,8 +3593,32 @@ def main(argv=None) -> int:
         "launches_cli_viz": 0,
         "launches_scripts": scripts_bwd_launches,
         "launches_jpeg": 0,
+        "launches_flash": 0,
         **{f"{k}_bench_rasterizer_grad_rows": grad_rows[k]
            for k in ("ms", "call_ms", "plain_ms", "bound_ms")},
+    }, {
+        "name": "flash_attention_fwd_kernel", "route": "cuda",
+        "source": "splatt3r_slam_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "splatt3r_slam_tpu/models/layers.py:126",
+        # the CLI with --flash-attention on, the profiled frame and bench
+        # with the mode on, and bench_attention's flash rows
+        "launches": flash_launches + scripts_res["flash_launches"],
+        "max_abs_err": flash_res["max_abs_err"],
+        **{k: flash_res["shapes"][FLASH_SHAPES[0][0]][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "call_ms")},
+        "launches_cli": flash_res["launches"]["cli"],
+        "launches_profile": flash_res["launches"]["profile"],
+        "launches_bench": flash_res["launches"]["bench"],
+        "launches_scripts": scripts_res["flash_launches"],
+        "launches_other_phases": 0,
+        **{f"{k}_{label.split()[0]}": h[k]
+           for label, h in flash_res["shapes"].items()
+           for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                     "err")},
+        **{f"{k}_cli_call": flash_res["cli_held"][k]
+           for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                     "err")},
     }]
     results["kernels"] = kernels
     if args.out:

@@ -85,9 +85,13 @@ def parse_args(argv=None):
                    help="scaled-down model (CPU smoke runs)")
     p.add_argument("--flash-attention", choices=("auto", "on", "off"),
                    default="auto",
-                   help="accepted for main.py's flag surface; the port's "
-                        "attention is always "
-                        "torch.nn.functional.scaled_dot_product_attention")
+                   help="attention through the port's flash-attention "
+                        "kernel (csrc/flash_attention.cu): 'on' wherever "
+                        "n_q and n_kv are multiples of 256 and Dh of 64, "
+                        "'auto' on the GPU once n_q*n_kv >= 4096^2, 'off' "
+                        "never; otherwise "
+                        "torch.nn.functional.scaled_dot_product_attention. "
+                        "Forward only: training under 'on' raises")
     p.add_argument("--no-prewarm", action="store_true",
                    help="accepted for main.py's flag surface; eager "
                         "PyTorch has nothing to compile ahead, so it does "
@@ -163,6 +167,7 @@ def main(argv=None):
     from splatt3r_slam_tpu_torch import resolve_device, set_fp32_precision
     from splatt3r_slam_tpu_torch.backend import FactorGraph
     from splatt3r_slam_tpu_torch.models import TwoViewConfig
+    from splatt3r_slam_tpu_torch.models.layers import set_flash_attention
     from splatt3r_slam_tpu_torch.runtime import evaluate as ev
     from splatt3r_slam_tpu_torch.runtime.dataloader import (
         Intrinsics,
@@ -182,6 +187,7 @@ def main(argv=None):
 
     set_fp32_precision()
     device = resolve_device(args.device)
+    set_flash_attention(args.flash_attention)
     cfg = cfgmod.load_config(args.config)
     if args.calib:
         with open(args.calib) as f:

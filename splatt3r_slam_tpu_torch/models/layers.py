@@ -9,6 +9,11 @@ casts its input and weights to its compute dtype (bf16 in the production
 profile); LayerNorms compute in fp32; attention takes fp32 softmax over
 bf16 q/k/v. Token layout at the public functions is (B, N, H, Dh) and
 images are NHWC, as in the JAX package.
+
+Attention goes through the hand-written flash-attention kernel
+(`models/flash_attention.py`) where the flash-attention mode picks it, and
+through `F.scaled_dot_product_attention` otherwise (the counterpart of the
+JAX package's einsum path, which XLA computes).
 """
 
 from __future__ import annotations
@@ -16,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from splatt3r_slam_tpu_torch.models.flash_attention import FlashAttention
 
 
 def _dt(dtype):
@@ -103,15 +110,61 @@ def apply_rope2d(tokens, cos, sin):
     return torch.cat([ty, tx], dim=-1)
 
 
-def attend(q, k, v, scale):
-    """Softmax attention on (B, N, H, D) q/k/v with fp32 softmax.
+# Flash-attention mode, the JAX package's `set_flash_attention` with the
+# card in the TPU's place: "auto" picks the kernel for CUDA tensors once
+# n_q·n_kv reaches _FLASH_AUTO_MIN_SCORES (the crossover the JAX package
+# measured; at the 768-token tracking shape SDPA serves), never for CPU
+# tensors; "on" picks it wherever `_flash_shape_ok` admits the shape; "off"
+# never. Read at every call: eager PyTorch has no trace to bake it into.
+_FLASH_MODE = "auto"
+_FLASH_AUTO_MIN_SCORES = 4096 * 4096
+FLASH_MODES = ("auto", "on", "off")
 
-    The JAX package's einsum path (its `_attend` with flash off): fp32
-    logits and weights. No kernel of this repo is replaced here, so the
-    port uses PyTorch's fused attention."""
+
+def set_flash_attention(mode: str):
+    """Select the attention implementation: "auto" | "on" | "off"."""
+    global _FLASH_MODE
+    if mode not in FLASH_MODES:
+        raise ValueError(f"flash-attention mode {mode!r} is not one of "
+                         f"{FLASH_MODES}")
+    _FLASH_MODE = mode
+
+
+def flash_attention_mode() -> str:
+    return _FLASH_MODE
+
+
+def _flash_shape_ok(n_q: int, n_kv: int, dh: int) -> bool:
+    # the shapes the JAX package hands its flash kernel
+    return (n_q % 256 == 0 and n_kv % 256 == 0
+            and dh % 64 == 0 and dh >= 64)
+
+
+def _flash_wanted(n_q: int, n_kv: int, dh: int, device) -> bool:
+    if _FLASH_MODE == "off" or not _flash_shape_ok(n_q, n_kv, dh):
+        return False
+    if _FLASH_MODE == "on":
+        return True
+    return (torch.device(device).type == "cuda"
+            and n_q * n_kv >= _FLASH_AUTO_MIN_SCORES)
+
+
+def attend_sdpa(q, k, v, scale):
+    """Softmax attention on (B, N, H, D) q/k/v through PyTorch's fused
+    attention: the JAX package's einsum path (its `_attend` with flash
+    off), fp32 logits and weights."""
     out = F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), scale=scale)
     return out.transpose(1, 2).to(v.dtype)
+
+
+def attend(q, k, v, scale):
+    """Softmax attention on (B, N, H, D) q/k/v: the flash-attention kernel
+    where the mode picks it (no fallback: it launches or raises),
+    `attend_sdpa` otherwise."""
+    if _flash_wanted(q.shape[1], k.shape[1], q.shape[-1], q.device):
+        return FlashAttention.apply(q, k, v, scale)
+    return attend_sdpa(q, k, v, scale)
 
 
 class Attention(nn.Module):

@@ -1,4 +1,5 @@
-"""Microbenchmark: einsum-softmax attention against PyTorch's fused SDPA.
+"""Microbenchmark: einsum-softmax attention, the port's flash-attention
+kernel and PyTorch's fused SDPA.
 
     python -m splatt3r_slam_tpu_torch.scripts.bench_attention
         [--device cuda|cpu] [--tiny]
@@ -8,24 +9,28 @@ ViT runs ~72 attention ops per tracked frame (24 encoder + 2x12 decoder
 blocks, self and cross); at 512x384 each is N = 768 tokens of head dim 64
 in bf16. The JAX script weighs the JAX package's einsum path
 (`models/layers.py::_attend`: fp32 logits and softmax, the fp32 score
-tensor round-tripping through memory) against JAX's bundled Pallas TPU
-flash attention, which is not a kernel of this repository. The port
-attends through `F.scaled_dot_product_attention`
-(`models/layers.py::attend`), so this times the einsum path written in
-plain torch (`attend_einsum`, `einsum_ms`) against `attend` as the port
-calls it (`sdpa_ms`) and against it under `torch.nn.attention.sdpa_kernel`
-with each backend in turn (`sdpa_flash_ms`, `sdpa_efficient_ms`,
-`sdpa_cudnn_ms`, `sdpa_math_ms`): the library's kernels take the place of
-the JAX flash block sizes. A backend that refuses the shape is printed as
-"FAIL ...", as the JAX script prints a failing flash configuration.
+tensor round-tripping through memory) against the Pallas TPU flash kernel
+that `_attend_flash` reaches (`flash_ms_b*`, at three block sizes). Here
+the einsum path is written in plain torch (`attend_einsum`, `einsum_ms`);
+the port's hand-written flash kernel (`models/flash_attention.py`, one
+tiling) is `flash_ms`, with `flash_max_abs_diff` its largest difference
+from `attend_einsum` (it rounds the unnormalised p to bf16 where the
+einsum path rounds the normalised weights, so the two differ by up to
+about one bf16 ulp of the output's peak); the library's yardstick is the
+SDPA call that `attend` makes outside the flash path (`attend_sdpa`,
+`sdpa_ms`), and the same under `torch.nn.attention.sdpa_kernel` with each
+backend in turn (`sdpa_flash_ms`, `sdpa_efficient_ms`, `sdpa_cudnn_ms`,
+`sdpa_math_ms`). A backend that refuses the shape is printed as "FAIL
+...", as the JAX script prints a failing flash configuration.
 `max_abs_diff` is |einsum - sdpa| on the shape's inputs (seeded normal,
 bf16).
 
 Each timing is 30 calls after 3 warm-ups (`_common.time_calls`: device
 time on the card). Runs on CUDA unless `--device cpu` is given and raises
-without a GPU; `--tiny` (implied on the CPU) takes N = 64 tokens. The
-last line of stdout is the result as JSON: {"results": {shape: row},
-"device", "power_limit_w"}.
+without a GPU; `--tiny` (implied on the CPU) takes N = 64 tokens, where
+`flash_ms` times the kernel's plain version (`flash_attention` takes it
+for CPU tensors). The last line of stdout is the result as JSON:
+{"results": {shape: row}, "device", "power_limit_w"}.
 """
 
 from __future__ import annotations
@@ -72,7 +77,10 @@ def main(argv=None) -> dict:
     """Run the benchmark; returns the printed result."""
     from torch.nn.attention import sdpa_kernel
 
-    from splatt3r_slam_tpu_torch.models.layers import attend
+    from splatt3r_slam_tpu_torch.models.flash_attention import (
+        flash_attention,
+    )
+    from splatt3r_slam_tpu_torch.models.layers import attend_sdpa
     from splatt3r_slam_tpu_torch.scripts import _common as cm
 
     ap = argparse.ArgumentParser(
@@ -99,19 +107,25 @@ def main(argv=None) -> dict:
         with torch.no_grad():
             row = {"einsum_ms": timeit(
                 lambda q, k, v: attend_einsum(q, k, v, scale), q, k, v),
-                "sdpa_ms": timeit(lambda q, k, v: attend(q, k, v, scale),
-                                  q, k, v)}
+                "flash_ms": timeit(
+                    lambda q, k, v: flash_attention(q, k, v, scale), q, k,
+                    v),
+                "sdpa_ms": timeit(
+                    lambda q, k, v: attend_sdpa(q, k, v, scale), q, k, v)}
             for name in BACKENDS:
                 key = f"sdpa_{name}_ms"
                 try:
                     with sdpa_kernel(_sdpa_backend(name)):
                         row[key] = timeit(
-                            lambda q, k, v: attend(q, k, v, scale), q, k, v)
+                            lambda q, k, v: attend_sdpa(q, k, v, scale), q,
+                            k, v)
                 except RuntimeError as e:  # the backend refuses the shape
                     row[key] = f"FAIL {type(e).__name__}: {e}"[:120]
             a = attend_einsum(q, k, v, scale).float()
             row["max_abs_diff"] = float(
-                (a - attend(q, k, v, scale).float()).abs().max())
+                (a - attend_sdpa(q, k, v, scale).float()).abs().max())
+            row["flash_max_abs_diff"] = float(
+                (a - flash_attention(q, k, v, scale).float()).abs().max())
         results[label] = row
         print(label, row, flush=True)
     out = {"results": results, **cm.device_fields(device)}

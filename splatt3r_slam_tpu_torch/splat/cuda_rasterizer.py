@@ -13,8 +13,9 @@ r g b], and the gradient rows have the same layout — the TPU's transposed
 (16, T·k_max) layout existed only for Mosaic's (8, 128) tiling.
 
 Each source is compiled with nvcc for sm_90a into a shared library with a
-plain C interface at first use (`build`, one nvcc per source, started
-together), into `splatt3r_slam_tpu_torch/_build/`, and loaded with ctypes.
+plain C interface at first use (`cuda_build.build`, one nvcc per source,
+started together), into `splatt3r_slam_tpu_torch/_build/`, and loaded with
+ctypes.
 Both sources include `csrc/composite_common.cuh` (the staging ring and the
 one evaluation of alpha), so a library's name carries a hash of its source,
 of every header beside it and of the compiler flags. `composite` /
@@ -30,18 +31,19 @@ same kernel otherwise; the backward stages element-wise throughout.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
-
 import torch
 from torch.autograd.function import once_differentiable
 from torch.distributed.tensor import DTensor
 from torch.profiler import record_function
 
+from splatt3r_slam_tpu_torch import cuda_build
+from splatt3r_slam_tpu_torch.cuda_build import (  # noqa: F401
+    BUILD_DIR,
+    NVCC_FLAGS,
+    _digest,
+    _entry,
+    _nvcc,
+)
 from splatt3r_slam_tpu_torch.splat.rasterizer import (
     TILE,
     _pixel_offsets,
@@ -53,89 +55,12 @@ from splatt3r_slam_tpu_torch.splat.rasterizer import (
 
 NPIX = TILE * TILE
 ROWF = 9  # u v ca cb cc opa r g b
-_PKG = pathlib.Path(__file__).resolve().parents[1]
-# kernel name → (source, C entry point, number of pointer arguments)
-KERNELS = {
-    "composite": (_PKG / "csrc" / "composite.cu", "composite_launch", 5),
-    "composite_bwd": (_PKG / "csrc" / "composite_bwd.cu",
-                      "composite_bwd_launch", 6),
-}
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# the compositor's kernels: name → (source, C entry point, argument types)
+KERNELS = {name: cuda_build.KERNELS[name]
+           for name in ("composite", "composite_bwd")}
 
 launches = 0  # kernel launches made by `composite`
 bwd_launches = 0  # kernel launches made by `composite_bwd`
-_fns: dict = {}
-
-
-def _nvcc() -> str:
-    for c in (os.environ.get("NVCC"), shutil.which("nvcc"),
-              "/usr/local/cuda/bin/nvcc"):
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found (needs the CUDA toolkit, sm_90a)")
-
-
-def _digest(source: pathlib.Path, flags) -> str:
-    """Hash of a source, of the headers beside it and of the flags."""
-    h = hashlib.sha256()
-    for p in (source, *sorted(source.parent.glob("*.cuh"))):
-        h.update(p.read_bytes())
-    h.update("\0".join(flags).encode())
-    return h.hexdigest()[:12]
-
-
-def build() -> dict:
-    """Compile every kernel of `KERNELS` (once per `_digest`), one nvcc
-    each, all started together → {name: (library, ptxas log)}."""
-    done, running = {}, []
-    for name, (source, _, _) in KERNELS.items():
-        so = BUILD_DIR / f"lib{name}_{_digest(source, NVCC_FLAGS)}.so"
-        log = so.with_suffix(".log")
-        if so.exists():
-            done[name] = (so, log.read_text() if log.exists() else "")
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        running.append((name, so, log, tmp, proc))
-    for name, so, log, tmp, proc in running:
-        stdout, stderr = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name} ({proc.returncode}):\n{stderr}")
-        log.write_text(stdout + stderr)
-        os.replace(tmp, so)
-        done[name] = (so, stdout + stderr)
-    return {name: done[name] for name in KERNELS}
-
-
-def _entry(so, name: str):
-    """The C entry point of kernel `name` in the library `so`."""
-    _, entry, n_ptr = KERNELS[name]
-    fn = getattr(ctypes.CDLL(str(so)), entry)
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int, ctypes.c_int,
-                                               ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(name: str, dev, *args):
-    """Launch kernel `name` on `dev`'s current stream; raise if refused.
-    The entry point is resolved once."""
-    fn = _fns.get(name)
-    if fn is None:
-        fn = _fns[name] = _entry(build()[name][0], name)
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
 
 
 def _check(who, dev, specs):
@@ -283,8 +208,9 @@ def composite(counts, origins, rows, bg):
     if not rows.is_cuda:
         return composite_torch(counts, origins, rows, bg)
     out = torch.empty((T * NPIX, 4), dtype=torch.float32, device=dev)
-    _launch("composite", dev, counts.data_ptr(), origins.data_ptr(),
-            rows.data_ptr(), bg.data_ptr(), out.data_ptr(), T, k_max)
+    cuda_build.launch("composite", dev, counts.data_ptr(),
+                      origins.data_ptr(), rows.data_ptr(), bg.data_ptr(),
+                      out.data_ptr(), T, k_max)
     global launches
     launches += 1
     return out
@@ -310,9 +236,9 @@ def composite_bwd(counts, origins, rows, gout, out):
     # tile's count (through pack_rows' gather they scatter into real
     # gaussians)
     grows = torch.empty_like(rows)
-    _launch("composite_bwd", dev, counts.data_ptr(), origins.data_ptr(),
-            rows.data_ptr(), gout.data_ptr(), out.data_ptr(),
-            grows.data_ptr(), T, k_max)
+    cuda_build.launch("composite_bwd", dev, counts.data_ptr(),
+                      origins.data_ptr(), rows.data_ptr(), gout.data_ptr(),
+                      out.data_ptr(), grows.data_ptr(), T, k_max)
     global bwd_launches
     bwd_launches += 1
     return grows

@@ -234,6 +234,8 @@ def test_bench_attention_cli_tiny():
             v = row[f"sdpa_{b}_ms"]
             assert isinstance(v, float) or v.startswith("FAIL"), v
         assert row["max_abs_diff"] < 0.05
+        # the flash kernel's plain version on the CPU
+        assert row["flash_ms"] > 0 and row["flash_max_abs_diff"] < 0.05
 
 
 # -- synthetic_pair, sweep_accuracy -------------------------------------------
