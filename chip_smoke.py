@@ -7,12 +7,13 @@ Phases, each printing one line of its own; any failure exits non-zero:
 
 1. build   — compile every kernel of the port from this checkout:
              splatt3r_slam_tpu_torch/csrc/composite.cu and composite_bwd.cu
-             (both include composite_common.cuh) and flash_attention.cu
-             (8 template instances: bf16 and fp32, Dh 64/128/192/256),
-             with nvcc (sm_90a), one nvcc each, started together
-             (`cuda_build.build`); print the build seconds and what ptxas
-             says of each kernel's registers, shared memory and spills
-             (none may spill); then the host JPEG entropy walk
+             (both include composite_common.cuh), flash_attention.cu
+             (8 template instances: bf16 and fp32, Dh 64/128/192/256) and
+             flash_attention_bwd.cu (the dK/dV and dQ kernels, 16
+             instances), with nvcc (sm_90a), one nvcc a source, started
+             together (`cuda_build.build`); print the build seconds and
+             what ptxas says of each kernel's registers, shared memory and
+             spills (no kernel may spill); then the host JPEG entropy walk
              csrc/jpeg_huffman.cpp with g++ (`[build-host]`);
 2. kernel  — hold the tile compositor against its plain PyTorch version
              (`composite_torch`) at the production shape (393,216 gaussians,
@@ -265,7 +266,36 @@ Phases, each printing one line of its own; any failure exits non-zero:
              kernel's device time, the frame's idle share); `bench` with
              the mode on (tracking_fps_512x384, times only). Every other
              phase runs in the default mode ("auto") and launches the flash
-             kernel no time (`_no_flash`);
+             kernel no time (`_no_flash`), and no phase but 7d its
+             backward;
+7d. flash-train — full-finetune training with the mode on (the backward
+             kernels csrc/flash_attention_bwd.cu replace the TPU kernels
+             `_flash_attention_dkv_kernel` and `_flash_attention_dq_kernel`
+             that the Pallas flash attention's VJP runs): at 7c's shapes
+             and at Dh 128, 192 and 256 in bf16 and fp32 (B1 n_q 256 n_kv
+             512 H4, Dh 128 with v strided), the forward's output with its
+             residuals l and m the same as without, l and m within 1e-5 of
+             the plain version's, and both backward kernels against the
+             plain backward (`flash_attention_bwd_torch`), each gradient
+             within 2^-7 of its peak in bf16 and 1e-5 in fp32, each kernel
+             timed (`ms`, `call_ms`) beside the plain backward, SDPA's
+             backward on the same inputs (`library_ms`) and its bound;
+             `train.main` in this process with the mode on and
+             train.train_gaussian_heads_only=false (every parameter
+             training, remat on as the CLI's default), 3 steps at 384x512
+             (768 tokens), B=1, V=1, the render-loss recipe of phase 5: each
+             step's 96 attend calls (the encoder's 24 blocks once per view,
+             the decoder's 12 blocks x 2 views x self and cross) launch
+             the forward twice (the recompute) and each backward kernel
+             once, step ms and peak memory printed; then a step's forward
+             and backward on one fresh model and batch with "on" and
+             "auto" (SDPA) in turns (on, auto, auto, on), loss and gradient
+             norm within 5e-2 of each other (bf16 and a render whose
+             capped tile lists reorder), step ms and peak memory, and the
+             kernels held on the last attention call's own tensors; and
+             the same model in fp32 on the Regr3D loss alone (on, auto),
+             within 1e-4 (`[flash-train-kernel]`, `[flash-train-main]`,
+             `[flash-train-compare]`, `[flash-train]` lines);
 8. device  — the card's name and power limit (nvidia-smi);
 then one JSON line with the kernel table and, last, the ok/device line.
 
@@ -346,10 +376,13 @@ BWD_TOL = 1e-4  # of each gradient column's largest entry
 SLEEP_CYCLES = 3_000_000  # about 1.7 ms at 1.75 GHz
 
 
-def device_ms(fn, torch, launches: int = 20, groups: int = 5) -> float:
+def device_ms(fn, torch, launches: int = 20, groups: int = 5,
+              sleep_cycles: int = SLEEP_CYCLES) -> float:
     """Device time of one `fn()`: `launches` calls enqueued back to back
-    behind a device-side delay, so the host runs ahead of the card and the
-    two events bracket the card's work alone; median over `groups`."""
+    behind a device-side delay of `sleep_cycles`, so the host runs ahead of
+    the card and the two events bracket the card's work alone (the delay
+    must outlast the host's enqueueing of the calls); median over
+    `groups`."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -357,7 +390,7 @@ def device_ms(fn, torch, launches: int = 20, groups: int = 5) -> float:
     for _ in range(groups):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SLEEP_CYCLES)
+        torch.cuda._sleep(sleep_cycles)
         a.record()
         for _ in range(launches):
             fn()
@@ -2515,11 +2548,13 @@ PEAK_BF16 = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
 
 
 def _no_flash(fl, phase):
-    """A phase in the default mode ("auto") launches no flash kernel: at
-    the 768-token shape SDPA serves, as the einsum path does in the JAX
-    package. The count is never reset between such phases."""
-    assert fl.launches == 0, \
-        f"{phase}: {fl.launches} flash-attention launches in 'auto' mode"
+    """A phase in the default mode ("auto") launches no flash kernel,
+    forward or backward: at the 768-token shape SDPA serves, as the einsum
+    path does in the JAX package. The counts are never reset between such
+    phases."""
+    assert fl.launches == 0 and fl.bwd_launches == 0, \
+        f"{phase}: {fl.launches} flash-attention launches, " \
+        f"{fl.bwd_launches} backward, in 'auto' mode"
 
 
 def _flash_bound_ms(B, n_q, n_kv, H, D, itemsize):
@@ -2762,6 +2797,437 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
     return lines, res
 
 
+# -- 7d. full-finetune training with the mode on ------------------------------
+
+# the backward kernels (and the forward's residuals) at the forward's shapes
+# and at every other head dim the kernels are built for, bf16 and fp32:
+# (label, B, n_q, n_kv, H, Dh, dtype, v strided as the fused qkv hands it)
+FLASH_BWD_SHAPES = FLASH_SHAPES + tuple(
+    (f"{short}_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d, dt, d == 128)
+    for dt, short in (("bfloat16", "bf16"), ("float32", "fp32"))
+    for d in (128, 192, 256))
+# the kernels against the plain backward, each gradient's largest error over
+# its peak: two bf16 steps in bf16 (both round p, ds and the gradients to
+# bf16, with fp32 sums in another order: at most 0.52 of it on an H100);
+# fp32 sums in another order (at most 1.23e-6 there)
+FLASH_BWD_BF16_BAR = 2 ** -7
+FLASH_BWD_FP32_BAR = 1e-5
+# the forward's residuals against the plain version's: l relative, m over
+# its largest value (fp32 sums in another order: at most 2.4e-6 and 6.2e-7
+# on an H100)
+FLASH_RES_BAR = 1e-5
+FLASH_TRAIN_HW = (384, 512)  # 768 tokens: the serving shape, which "on" takes
+FLASH_TRAIN_STEPS = 3
+FLASH_TRAIN_TURNS = ("on", "auto", "auto", "on")
+# a step with "on" against a step with "auto" (SDPA) on the same weights and
+# batch, relative to the "auto" step's. bf16 model, render-loss recipe: the
+# bf16 trunk rounds the two attentions' outputs differently, 36 random
+# blocks carry the difference to the predictions and the capped tile lists
+# of the render reorder (loss 1.45e-2, gradient norm 1.49e-2 on an H100,
+# "on" against "on" 0); fp32 model, Regr3D alone: fp32 rounding only
+# (5.9e-6 and 6.3e-6 there)
+FLASH_TRAIN_LOSS_RTOL = 5e-2
+FLASH_TRAIN_GNORM_RTOL = 5e-2
+FLASH_TRAIN_FP32_LOSS_RTOL = 1e-4
+FLASH_TRAIN_FP32_GNORM_RTOL = 1e-4
+
+
+def _flash_bwd_bound_ms(B, n_q, n_kv, H, D, itemsize, dkv):
+    """Least time for one backward kernel: the larger of its products'
+    operations (dK/dV: S, dV, dP, dK, 8·B·H·n_q·n_kv·Dh; dQ: S, dP, dQ,
+    6·B·H·n_q·n_kv·Dh) over the card's peak for the inputs' type and the
+    bytes of q, k, v, do, m, l and di read once and its gradients written
+    once over the memory rate → (ms, what bounds it)."""
+    t_ops = (8 if dkv else 6) * B * H * n_q * n_kv * D / (
+        PEAK_BF16 if itemsize == 2 else PEAK_FP32)
+    n_out = 2 * n_kv if dkv else n_q
+    t_bytes = (itemsize * B * H * D * (2 * n_q + 2 * n_kv + n_out)
+               + 3 * 4 * B * H * n_q) / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def _flash_bwd_errors(torch, fl, args, scale, what):
+    """The backward kernels (`flash_attention_bwd`) against the plain
+    backward on args = (q, k, v, o, l, m, do), in their working dtype →
+    {dq, dk, dv: largest error over the gradient's peak, abs: the largest
+    absolute error, bar}."""
+    got = fl.flash_attention_bwd(*args, scale)
+    want = fl.flash_attention_bwd_torch(*args, scale)
+    torch.cuda.synchronize()
+    bar = (FLASH_BWD_BF16_BAR if args[0].dtype == torch.bfloat16
+           else FLASH_BWD_FP32_BAR)
+    h = {"bar": bar, "abs": 0.0}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, name)
+        assert torch.isfinite(g).all(), f"{what}: {name} not finite"
+        err = float((g.float() - w.float()).abs().max())
+        h[name] = err / float(w.float().abs().max())
+        h["abs"] = max(h["abs"], err)
+        assert h[name] <= bar, \
+            f"{what}: {name} kernel vs plain {h[name]} of its peak > {bar}"
+    return h
+
+
+def _flash_bwd_held(torch, fl, q, k, v, do, scale, what):
+    """The forward with and without its residuals (the same output), the
+    residuals against the plain version's, both backward kernels against
+    the plain backward, and their times: each kernel alone on the device
+    and one isolated call, the plain backward, SDPA's backward on the same
+    inputs (one `torch.autograd.grad` of one SDPA output, its forward
+    outside the window) and the bounds → dict."""
+    import torch.nn.functional as F
+
+    o0 = fl.flash_attention(q, k, v, scale)
+    o, l, m = fl.flash_attention(q, k, v, scale, residuals=True)
+    _, pl, pm = fl.flash_attention_torch(q, k, v, scale, residuals=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o0, o), f"{what}: the output moves with residuals"
+    l_err = float(((l - pl).abs() / pl).max())
+    m_err = float((m - pm).abs().max() / pm.abs().max())
+    assert l_err <= FLASH_RES_BAR and m_err <= FLASH_RES_BAR, \
+        f"{what}: residuals vs plain l {l_err}, m {m_err}"
+    h = _flash_bwd_errors(torch, fl, (q, k, v, o, l, m, do), scale, what)
+    B, n_q, H, D = q.shape
+    n_kv = k.shape[1]
+    h.update(shape=[B, n_q, n_kv, H, D], dtype=str(q.dtype)[6:],
+             v_contiguous=v.is_contiguous(), l_err=l_err, m_err=m_err)
+    do = do.contiguous()
+    di = fl._di(o, do)
+
+    def dkv():
+        return fl._launch_dkv(q, k, v, do, m, l, di, scale)
+
+    def dq():
+        return fl._launch_dq(q, k, v, do, m, l, di, scale)
+
+    lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(
+        lq.transpose(1, 2), lk.transpose(1, 2), lv.transpose(1, 2),
+        scale=scale)
+    sdpa_do = do.transpose(1, 2)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(sdpa_out, (lq, lk, lv), sdpa_do,
+                                   retain_graph=True)
+
+    # an autograd.grad costs the host 0.1-0.3 ms and a ctypes launch with
+    # its checks some 0.05: ten times the usual delay keeps the host ahead
+    # of 20 calls (with the usual one SDPA's backward read 0.08-0.35 ms at
+    # one shape between two calls)
+    slow = 10 * SLEEP_CYCLES
+    h.update(ms_dkv=device_ms(dkv, torch, sleep_cycles=slow),
+             ms_dq=device_ms(dq, torch, sleep_cycles=slow),
+             call_ms_dkv=call_ms(dkv, torch), call_ms_dq=call_ms(dq, torch),
+             plain_ms=call_ms(lambda: fl.flash_attention_bwd_torch(
+                 q, k, v, o, l, m, do, scale), torch, 3),
+             library_ms=device_ms(sdpa_bwd, torch, sleep_cycles=slow))
+    for name, is_dkv in (("dkv", True), ("dq", False)):
+        h[f"bound_ms_{name}"], h[f"bound_by_{name}"] = _flash_bwd_bound_ms(
+            B, n_q, n_kv, H, D, q.element_size(), is_dkv)
+    return h
+
+
+def _flash_train_turns(torch, fl, layers, model_cfg, render_loss, batch,
+                       modes, per_forward):
+    """A full-finetune step's forward and backward (no optimiser update)
+    of phase 5's recipe (`render_loss`) or of the Regr3D loss alone, on one
+    fresh seeded model and `batch`, once per entry of `modes`
+    ("on" or "auto"), in that order → ({turns, loss_diff, gnorm_diff,
+    repeat, bars}, the last "on" backward call's (q, k, v, o, l, m, do,
+    scale)). Each "on" turn must launch the forward twice (remat) and the
+    backward pair once per attend call, each "auto" turn none."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch.parallel import TrainConfig, Trainer
+
+    trainer = Trainer(
+        model_cfg, TrainConfig(render_loss=render_loss, ssim_weight=0.1,
+                               mast3r_loss_weight=1.0, k_max=256,
+                               train_gaussian_heads_only=False),
+        device="cuda", seed=0)
+    kept = {}
+    real_bwd = fl.flash_attention_bwd
+
+    def keep(*a):
+        kept["args"] = tuple(t.detach() for t in a[:7]) + a[7:]
+        return real_bwd(*a)
+
+    turns = []
+    try:
+        for mode in modes:
+            layers.set_flash_attention(mode)
+            trainer.optimizer.zero_grad(set_to_none=True)
+            fl.flash_attention_bwd = keep if mode == "on" else real_bwd
+            fl.launches = fl.bwd_launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            ta = time.perf_counter()
+            loss, _ = trainer.loss_fn(batch)
+            loss.backward()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - ta) * 1e3
+            gnorm = float(torch.stack([p.grad.float().norm()
+                                       for p in trainer.trainable
+                                       if p.grad is not None]).norm())
+            turns.append(dict(
+                mode=mode, loss=float(loss.detach()), gnorm=gnorm,
+                step_ms=step_ms,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                launches=(fl.launches, fl.bwd_launches)))
+    finally:
+        fl.flash_attention_bwd = real_bwd
+        layers.set_flash_attention("auto")
+    del trainer
+    for t in turns:
+        assert np.isfinite(t["loss"]) and np.isfinite(t["gnorm"]), t
+        assert t["launches"] == ((2 * per_forward, per_forward)
+                                 if t["mode"] == "on" else (0, 0)), t
+    on = [t for t in turns if t["mode"] == "on"]
+    auto = [t for t in turns if t["mode"] == "auto"]
+
+    def rel(a, b, key):
+        return abs(a[key] - b[key]) / abs(b[key])
+
+    repeat = {}
+    if len(on) > 1 and len(auto) > 1:
+        repeat = dict(loss_on=rel(on[0], on[1], "loss"),
+                      gnorm_on=rel(on[0], on[1], "gnorm"),
+                      loss_auto=rel(auto[0], auto[1], "loss"),
+                      gnorm_auto=rel(auto[0], auto[1], "gnorm"))
+    bf16 = model_cfg.dtype == "bfloat16"
+    return dict(
+        turns=turns, repeat=repeat, render=render_loss,
+        loss_diff=max(rel(a, b, "loss") for a in on for b in auto),
+        gnorm_diff=max(rel(a, b, "gnorm") for a in on for b in auto),
+        bars=((FLASH_TRAIN_LOSS_RTOL, FLASH_TRAIN_GNORM_RTOL) if bf16 else
+              (FLASH_TRAIN_FP32_LOSS_RTOL, FLASH_TRAIN_FP32_GNORM_RTOL)),
+    ), kept["args"]
+
+
+def _flash_train_phase(torch, cr, fl, layers, work):
+    """7d. Full-finetune training with the mode on, at full width →
+    (lines, results): the backward kernels (and the forward's residuals)
+    against their plain versions at every shape and head dim, timed beside
+    SDPA's backward and the bounds; `train.main` with the mode on, every
+    parameter training, at 384x512 (every attend call of its steps one
+    forward launch, two with remat, and one launch of each backward kernel);
+    then a step's forward and backward with "on" and with "auto" in turns
+    on the same weights and batch, for the bf16 model and for the same
+    model in fp32 (loss and gradient norm within their bars, step ms and
+    peak memory), and the kernels held on the last attention call's own q,
+    k, v, o, l, m and do."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import train as train_mod
+    from splatt3r_slam_tpu_torch.models import TwoViewConfig
+    from splatt3r_slam_tpu_torch.train import synthetic_batches
+
+    assert layers.flash_attention_mode() == "auto"
+    lines, res = [], {}
+    t_phase = time.perf_counter()
+    smi = _smi()
+    rng = np.random.default_rng(12)
+
+    def rand(*shape, dtype):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dtype)
+
+    shapes = {}
+    for label, B, nq, nk, nh, D, dt, strided in FLASH_BWD_SHAPES:
+        dt = getattr(torch, dt)
+        if strided:  # v as Attention hands it over; rope gives new q, k
+            qkv = rand(B, nk, 3 * nh * D, dtype=dt)
+            _, k, v = qkv.reshape(B, nk, 3, nh, D).unbind(2)
+            k = k.contiguous()
+            assert v.stride(1) == 3 * nh * D, v.stride()
+            q = rand(B, nq, nh, D, dtype=dt)
+        else:
+            q, k, v = (rand(B, n, nh, D, dtype=dt) for n in (nq, nk, nk))
+        do = rand(B, nq, nh, D, dtype=dt)
+        shapes[label] = _flash_bwd_held(torch, fl, q, k, v, do, D ** -0.5,
+                                        label)
+        del q, k, v, do
+    for label, h in shapes.items():
+        lines.append(
+            f"[flash-train-kernel] {label} ({h['dtype']}, v "
+            f"{'contiguous' if h['v_contiguous'] else 'strided'}): kernels "
+            f"vs plain dq {h['dq']:.2e}, dk {h['dk']:.2e}, dv {h['dv']:.2e} "
+            f"of each peak (bar {h['bar']:.2e}); residuals l {h['l_err']:.1e}"
+            f", m {h['m_err']:.1e}, output unchanged | dK/dV {h['ms_dkv']:.4f}"
+            f" ms on the device (call_ms {h['call_ms_dkv']:.4f}, bound "
+            f"{h['bound_ms_dkv']:.4f} by {h['bound_by_dkv']}), dQ "
+            f"{h['ms_dq']:.4f} (call_ms {h['call_ms_dq']:.4f}, bound "
+            f"{h['bound_ms_dq']:.4f} by {h['bound_by_dq']}) | plain backward "
+            f"{h['plain_ms']:.3f} ms, SDPA backward {h['library_ms']:.4f} ms"
+            f" | {smi}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # attend calls of one training forward: the encoder's blocks once per
+    # view and, per decoder block, each view's self and cross attention
+    mcfg = TwoViewConfig()
+    per_forward = 2 * mcfg.enc_depth + 2 * 2 * mcfg.dec_depth
+    th, tw = FLASH_TRAIN_HW
+
+    # train.main, the mode on, every parameter training
+    seen = {"step_ms": [], "losses": []}
+    real_build = train_mod.build_trainer
+
+    def build(cfg, args, devices=0):
+        trainer, model_cfg = real_build(cfg, args, devices)
+        seen["remat"] = model_cfg.remat
+        seen["params"] = (sum(p.numel() for p in trainer.trainable),
+                          sum(p.numel() for p in trainer.model.parameters()))
+        real_make = trainer.make_train_step
+
+        def make():
+            step = real_make()
+
+            def timed(batch):
+                torch.cuda.synchronize()
+                ta = time.perf_counter()
+                m = step(batch)
+                torch.cuda.synchronize()
+                seen["step_ms"].append((time.perf_counter() - ta) * 1e3)
+                seen["losses"].append(float(m["loss"]))
+                return m
+
+            return timed
+
+        trainer.make_train_step = make
+        return trainer, model_cfg
+
+    out_dir = os.path.join(work, "train_main")
+    train_mod.build_trainer = build
+    layers.set_flash_attention("on")
+    torch.cuda.reset_peak_memory_stats()
+    fl.launches = fl.bwd_launches = 0
+    cr.launches = cr.bwd_launches = 0
+    t_main = time.perf_counter()
+    try:
+        rc = train_mod.main([
+            "--steps", str(FLASH_TRAIN_STEPS), "--res", str(th), str(tw),
+            "--set", "train.render_loss=true", "train.ssim_weight=0.1",
+            "train.mast3r_loss_weight=1.0", "train.k_max=256",
+            "train.train_gaussian_heads_only=false", "--out", out_dir,
+            "--name", "flash_train"])
+    finally:
+        train_mod.build_trainer = real_build
+        layers.set_flash_attention("auto")
+    main_s = time.perf_counter() - t_main
+    main_launches = (fl.launches, fl.bwd_launches)
+    main_comp = (cr.launches, cr.bwd_launches)
+    main_peak = torch.cuda.max_memory_allocated() / 2**30
+    calls = FLASH_TRAIN_STEPS * per_forward
+    assert rc == 0, rc
+    assert seen["remat"], "the train CLI's model is not rematerialised"
+    assert seen["params"][0] == seen["params"][1], \
+        f"{seen['params']}: not every parameter trains"
+    assert main_launches == (2 * calls, calls), \
+        f"{main_launches} flash launches (forward, backward pairs) for " \
+        f"{calls} attend calls with remat"
+    assert main_comp == (FLASH_TRAIN_STEPS, FLASH_TRAIN_STEPS), main_comp
+    assert all(np.isfinite(v) for v in seen["losses"]), seen["losses"]
+    (ws,) = os.listdir(out_dir)
+    assert os.path.exists(os.path.join(out_dir, ws, "params_final.npz"))
+    lines.append(
+        f"[flash-train-main] train.main with the mode on, "
+        f"train.train_gaussian_heads_only=false ({seen['params'][0]:,} of "
+        f"{seen['params'][1]:,} parameters training, remat on) | "
+        f"{FLASH_TRAIN_STEPS} steps {th}x{tw} B=1 V=1 ViT-L bf16, render "
+        f"loss | step ms " + ", ".join(f"{x:.1f}" for x in seen["step_ms"])
+        + " | loss " + ", ".join(f"{x:.4f}" for x in seen["losses"])
+        + f" | peak memory {main_peak:.2f} GiB | flash launches: forward "
+        f"{main_launches[0]} = 2 x {calls} attend calls (remat), backward "
+        f"pairs {main_launches[1]} = {calls} (dK/dV and dQ each "
+        f"{main_launches[1]}) | compositor {main_comp[0]} / {main_comp[1]} "
+        f"| {main_s:.1f} s in all | {smi}")
+    res["train_main"] = dict(step_ms=seen["step_ms"], losses=seen["losses"],
+                             peak_gib=main_peak, launches=main_launches,
+                             compositor=main_comp, s=main_s,
+                             params=seen["params"], attend_calls=calls)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a step's forward and backward with "on" and with "auto" in turns, on
+    # the same weights and batch (no optimiser update): the bf16 model and
+    # recipe of train.main; then the same model in fp32 on the Regr3D loss
+    # alone, where the two attentions differ by fp32 rounding only and no
+    # capped tile list of the render can reorder
+    batch = next(synthetic_batches(1, 1, th, tw, True, seed=0))
+    compare, held = {}, None
+    for dtype, render, turn_modes in (
+            ("bfloat16", True, FLASH_TRAIN_TURNS),
+            ("float32", False, ("on", "auto"))):
+        c, kept = _flash_train_turns(
+            torch, fl, layers, TwoViewConfig(remat=True, dtype=dtype,
+                                             head_dtype=dtype),
+            render, batch, turn_modes, per_forward)
+        compare[dtype] = c
+        if dtype == "bfloat16":  # the kernels on a training call's tensors
+            (q, k, v, o, l, m, do), scale = kept[:7], kept[7]
+            held = _flash_bwd_errors(torch, fl, (q, k, v, o, l, m, do),
+                                     scale, "the step's last attention call")
+            held["shape"] = [q.shape[0], q.shape[1], k.shape[1], q.shape[2],
+                             q.shape[3]]
+            held["v_contiguous"] = v.is_contiguous()
+            del q, k, v, o, l, m, do
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    for dtype, c in compare.items():
+        lines.append(
+            f"[flash-train-compare] {dtype} model, "
+            f"{'the render-loss recipe' if c['render'] else 'Regr3D alone'}"
+            ", a step's forward and backward on the same weights and batch, "
+            "in turns: "
+            + ", ".join(
+                f"{t['mode']} {t['step_ms']:.1f} ms (loss {t['loss']:.6f}, "
+                f"gradient norm {t['gnorm']:.6e}, peak {t['peak_gib']:.2f} "
+                f"GiB, flash launches {t['launches'][0]} / backward pairs "
+                f"{t['launches'][1]})" for t in c["turns"])
+            + f" | on vs auto: loss {c['loss_diff']:.2e}, gradient norm "
+            f"{c['gnorm_diff']:.2e} (bars {c['bars'][0]:g}, "
+            f"{c['bars'][1]:g})"
+            + ("" if "loss_on" not in c["repeat"] else
+               f"; on vs on {c['repeat']['loss_on']:.1e} / "
+               f"{c['repeat']['gnorm_on']:.1e}, auto vs auto "
+               f"{c['repeat']['loss_auto']:.1e} / "
+               f"{c['repeat']['gnorm_auto']:.1e}")
+            + ("" if dtype != "bfloat16" else
+               f" | the kernels vs plain on the last call's own q, k, v, o, "
+               f"l, m, do {held['shape']} (v "
+               f"{'contiguous' if held['v_contiguous'] else 'strided'}): dq "
+               f"{held['dq']:.2e}, dk {held['dk']:.2e}, dv {held['dv']:.2e} "
+               f"of each peak (bar {held['bar']:.2e})") + f" | {smi}")
+    for dtype, c in compare.items():
+        assert c["loss_diff"] <= c["bars"][0] and \
+            c["gnorm_diff"] <= c["bars"][1], \
+            f"{dtype}: on vs auto beyond the bars: {lines[-2:]}"
+    turns = [dict(t, dtype=d) for d, c in compare.items() for t in c["turns"]]
+    loss_diff = compare["bfloat16"]["loss_diff"]
+    gnorm_diff = compare["bfloat16"]["gnorm_diff"]
+    repeat = compare["bfloat16"]["repeat"]
+    res.update(shapes=shapes, turns=turns, loss_diff=loss_diff,
+               gnorm_diff=gnorm_diff, repeat=repeat, held=held,
+               compare={d: {k: v for k, v in c.items() if k != "turns"}
+                        for d, c in compare.items()},
+               compare_launches=tuple(sum(t["launches"][i] for t in turns)
+                                      for i in (0, 1)),
+               max_abs_err=max(h["abs"] for h in shapes.values()),
+               max_rel_err=max(max(h[g] for g in ("dq", "dk", "dv"))
+                               for h in (*shapes.values(), held)),
+               seconds=time.perf_counter() - t_phase)
+    lines.append(
+        f"[flash-train] {res['seconds']:.1f} s | flash launches on the main "
+        f"path (train.main): forward {main_launches[0]}, dK/dV "
+        f"{main_launches[1]}, dQ {main_launches[1]}; in the comparison "
+        f"steps: forward {res['compare_launches'][0]}, each backward kernel "
+        f"{res['compare_launches'][1]}")
+    return lines, res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -2809,19 +3275,28 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     built = cuda_build.build()  # one nvcc a source, all started together
     build_s = time.perf_counter() - t0
-    assert set(built) == {"composite", "composite_bwd", "flash_attention"}, \
-        sorted(built)
+    assert set(built) == {"composite", "composite_bwd", "flash_attention",
+                          "flash_attention_bwd_dkv",
+                          "flash_attention_bwd_dq"}, sorted(built)
     for source, _, _ in cr.KERNELS.values():
         assert '#include "composite_common.cuh"' in source.read_text(), source
-    fl.launches = 0  # read at the end of every phase (`_no_flash`)
+    fl.launches = fl.bwd_launches = 0  # read after every phase (`_no_flash`)
+    libraries = dict(built.values())  # the two backward kernels share one
     print(f"[build] {build_s:.2f} s | " + " | ".join(
         f"{os.path.relpath(so, root)}: " + " ".join(
             ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln)
-        for so, log in built.values()))
-    assert all("0 bytes spill stores, 0 bytes spill loads" in log
-               for _, log in built.values()), "a kernel spills registers"
+        for so, log in libraries.items()))
+    for so, log in libraries.items():  # every kernel of every library
+        spills = [ln for ln in log.splitlines() if "spill stores" in ln]
+        assert spills and all("0 bytes spill stores, 0 bytes spill loads"
+                               in ln for ln in spills), \
+            f"a kernel of {so.name} spills registers"
     results["build_s"] = build_s
+    results["ptxas"] = {  # each kernel's entry, registers and spills
+        so.name: [ln.strip() for ln in log.splitlines()
+                  if "Compiling entry" in ln or "registers" in ln
+                  or "spill" in ln] for so, log in libraries.items()}
     t0 = time.perf_counter()
     jpeg_so = jpeg.build_native()  # the host JPEG entropy walk (g++)
     results["build_host_s"] = time.perf_counter() - t0
@@ -3503,6 +3978,22 @@ def main(argv=None) -> int:
     results["flash"] = flash_res
     flash_launches = sum(flash_res["launches"].values())
     assert layers.flash_attention_mode() == "auto"
+    assert fl.bwd_launches == 0, "the serving path launched the backward"
+
+    # -- 7d. full-finetune training with the mode on -------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ft_work = tempfile.mkdtemp(prefix="chip_smoke_flash_train_")
+    try:
+        ft_lines, ft_res = _flash_train_phase(torch, cr, fl, layers, ft_work)
+    finally:
+        shutil.rmtree(ft_work, ignore_errors=True)
+    for ln in ft_lines:
+        print(ln)
+    results["flash_train"] = ft_res
+    ft_fwd, ft_bwd = ft_res["train_main"]["launches"]
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # -- 8. device ------------------------------------------------------------
     smi = _smi()
@@ -3601,8 +4092,9 @@ def main(argv=None) -> int:
         "source": "splatt3r_slam_tpu_torch/csrc/flash_attention.cu",
         "replaces": "splatt3r_slam_tpu/models/layers.py:126",
         # the CLI with --flash-attention on, the profiled frame and bench
-        # with the mode on, and bench_attention's flash rows
-        "launches": flash_launches + scripts_res["flash_launches"],
+        # with the mode on, bench_attention's flash rows and train.main with
+        # the mode on
+        "launches": flash_launches + scripts_res["flash_launches"] + ft_fwd,
         "max_abs_err": flash_res["max_abs_err"],
         **{k: flash_res["shapes"][FLASH_SHAPES[0][0]][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
@@ -3611,6 +4103,8 @@ def main(argv=None) -> int:
         "launches_profile": flash_res["launches"]["profile"],
         "launches_bench": flash_res["launches"]["bench"],
         "launches_scripts": scripts_res["flash_launches"],
+        "launches_flash_train": ft_fwd,
+        "launches_flash_train_compare": ft_res["compare_launches"][0],
         "launches_other_phases": 0,
         **{f"{k}_{label.split()[0]}": h[k]
            for label, h in flash_res["shapes"].items()
@@ -3619,7 +4113,32 @@ def main(argv=None) -> int:
         **{f"{k}_cli_call": flash_res["cli_held"][k]
            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "err")},
-    }]
+    }] + [{
+        "name": f"flash_attention_bwd_{kind}_kernel", "route": "cuda",
+        "source": "splatt3r_slam_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                    f"{line}",
+        # train.main with the mode on: one launch per attend call
+        "launches": ft_bwd,
+        # on the seeded unit-normal inputs; a training call's gradients
+        # (up to 1e9 on the random model) are held relative to their peak
+        "max_abs_err": ft_res["max_abs_err"],
+        "ms": ft_res["shapes"][FLASH_SHAPES[0][0]][f"ms_{kind}"],
+        # the plain backward computes dq, dk and dv together; SDPA's
+        # backward too (one autograd.grad)
+        "plain_ms": ft_res["shapes"][FLASH_SHAPES[0][0]]["plain_ms"],
+        "bound_ms": ft_res["shapes"][FLASH_SHAPES[0][0]][f"bound_ms_{kind}"],
+        "bound_by": ft_res["shapes"][FLASH_SHAPES[0][0]][f"bound_by_{kind}"],
+        "library_ms": ft_res["shapes"][FLASH_SHAPES[0][0]]["library_ms"],
+        "call_ms": ft_res["shapes"][FLASH_SHAPES[0][0]][f"call_ms_{kind}"],
+        "max_err_over_peak": ft_res["max_rel_err"],
+        "launches_flash_train_compare": ft_res["compare_launches"][1],
+        "launches_other_phases": 0,
+        **{f"{k}_{label.split()[0]}": h[k if k in ("plain_ms", "library_ms")
+                                        else f"{k}_{kind}"]
+           for label, h in ft_res["shapes"].items()
+           for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")},
+    } for kind, line in (("dkv", 796), ("dq", 1146))]
     results["kernels"] = kernels
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

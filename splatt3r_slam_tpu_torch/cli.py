@@ -90,8 +90,7 @@ def parse_args(argv=None):
                         "n_q and n_kv are multiples of 256 and Dh of 64, "
                         "'auto' on the GPU once n_q*n_kv >= 4096^2, 'off' "
                         "never; otherwise "
-                        "torch.nn.functional.scaled_dot_product_attention. "
-                        "Forward only: training under 'on' raises")
+                        "torch.nn.functional.scaled_dot_product_attention")
     p.add_argument("--no-prewarm", action="store_true",
                    help="accepted for main.py's flag surface; eager "
                         "PyTorch has nothing to compile ahead, so it does "

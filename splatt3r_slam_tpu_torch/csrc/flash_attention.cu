@@ -34,6 +34,14 @@
 // long as the products, and they do not overlap with them inside one warp.
 // In fp32 (no TF32) the products run on the fp32 pipes (67 TFLOP/s).
 //
+// Residuals. Under autograd the TPU kernel runs with save_residuals and
+// also writes, for every query row, the final running max m and running
+// sum l (fp32; l is the sum of the fp32 p = exp(s - m) before any
+// division). Given non-null `l` and `m` pointers ((B, H, n_q) fp32,
+// contiguous) this kernel writes the same two values after its last tile;
+// with null pointers it writes neither, and the output is the same either
+// way. The backward (flash_attention_bwd.cu) reads them.
+//
 // Design (simple first; wgmma, TMA and warp specialisation come later).
 // bf16: one block of 4 warps per (b, h, 64 query rows), each warp 16 rows.
 // The block's q rows and a ring of two k/v tiles of 64 rows are staged in
@@ -66,6 +74,8 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* l;  // (B, H, n_q) residuals, or null
+  float* m;
   int n_q, n_kv;
   long long q_b, q_n, q_h, k_b, k_n, k_h, v_b, v_n, v_h, o_b, o_n, o_h;
   float scale;
@@ -268,9 +278,20 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_bf16(const Params p) {
     __syncthreads();  // the ring buffer is refilled by the next tile
   }
 
-  float inv[2];
+  float sum[2], inv[2];
 #pragma unroll
-  for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(l[r]);
+  for (int r = 0; r < 2; ++r) {
+    sum[r] = quad_sum(l[r]);
+    inv[r] = 1.f / sum[r];
+  }
+  if (p.l != nullptr && t4 == 0) {  // rows g and g + 8 of the warp's 16
+    const long long i = (static_cast<long long>(b) * gridDim.y + h) * p.n_q +
+                        q0 + warp * 16 + g;
+    p.l[i] = sum[0];
+    p.l[i + 8] = sum[1];
+    p.m[i] = m[0];
+    p.m[i + 8] = m[1];
+  }
   __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_b +
                       h * p.o_h + (q0 + warp * 16 + g) * p.o_n + 2 * t4;
 #pragma unroll
@@ -379,7 +400,14 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(const Params p) {
     __syncthreads();  // the ring buffer and p are refilled by the next tile
   }
 
-  const float inv = 1.f / quad_sum(l);
+  const float sum = quad_sum(l);
+  const float inv = 1.f / sum;
+  if (p.l != nullptr && c4 == 0) {
+    const long long i =
+        (static_cast<long long>(b) * gridDim.y + h) * p.n_q + q0 + row;
+    p.l[i] = sum;
+    p.m[i] = m;
+  }
   float* og = static_cast<float*>(p.o) + b * p.o_b + h * p.o_h +
               (q0 + row) * p.o_n + c4;
 #pragma unroll
@@ -414,18 +442,21 @@ int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
 
 // dtype 0: bf16, 1: fp32 (q, k, v and the output alike). Strides in
 // elements: (batch, row, head) of q, k, v and the output; Dh is contiguous.
+// l and m: the residuals, (B, H, n_q) fp32, both or neither (null).
 // Returns a cudaError_t: not 0 if the shape is refused or the launch
 // failed.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
-    int H, int n_q, int n_kv, int D, long long q_b, long long q_n,
-    long long q_h, long long k_b, long long k_n, long long k_h, long long v_b,
-    long long v_n, long long v_h, long long o_b, long long o_n, long long o_h,
-    float scale, void* stream) {
-  if (B < 1 || H < 1 || n_q < flash::BQ || n_q % flash::BQ != 0 || n_kv < 1)
+    const void* q, const void* k, const void* v, void* o, float* l, float* m,
+    int dtype, int B, int H, int n_q, int n_kv, int D, long long q_b,
+    long long q_n, long long q_h, long long k_b, long long k_n, long long k_h,
+    long long v_b, long long v_n, long long v_h, long long o_b, long long o_n,
+    long long o_h, float scale, void* stream) {
+  if (B < 1 || H < 1 || n_q < flash::BQ || n_q % flash::BQ != 0 ||
+      n_kv < 1 || (l == nullptr) != (m == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const flash::Params p{q,   k,   v,   o,   n_q, n_kv, q_b, q_n, q_h,
-                        k_b, k_n, k_h, v_b, v_n, v_h,  o_b, o_n, o_h, scale};
+  const flash::Params p{q,   k,   v,   o,   l,   m,   n_q, n_kv, q_b, q_n,
+                        q_h, k_b, k_n, k_h, v_b, v_n, v_h,  o_b,  o_n, o_h,
+                        scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return flash::launch<64>(dtype, B, H, p, st);

@@ -1,8 +1,9 @@
 """Build and launch the port's hand-written CUDA kernels.
 
 Every kernel of `csrc/` has a plain C entry point and is registered in
-`KERNELS`. `build()` compiles each source with nvcc for sm_90a into a
-shared library of its own, one nvcc per source, all started together, into
+`KERNELS`; kernels whose entry points share a source share its library.
+`build()` compiles each source with nvcc for sm_90a into a shared library
+of its own, one nvcc per source, all started together, into
 `splatt3r_slam_tpu_torch/_build/` (git-ignored). A library's name carries a
 hash of its source, of every header beside it and of the compiler flags, so
 an edit of any of them gives a new library. `launch` loads a library with
@@ -32,11 +33,21 @@ KERNELS = {
                   [_P] * 5 + [_I] * 2),
     "composite_bwd": (_PKG / "csrc" / "composite_bwd.cu",
                       "composite_bwd_launch", [_P] * 6 + [_I] * 2),
-    # q, k, v, out; dtype, B, H, n_q, n_kv, Dh; the (batch, row, head)
-    # strides of q, k, v and out in elements; the softmax scale
+    # q, k, v, out, the residuals l and m (or null); dtype, B, H, n_q,
+    # n_kv, Dh; the (batch, row, head) strides of q, k, v and out in
+    # elements; the softmax scale
     "flash_attention": (_PKG / "csrc" / "flash_attention.cu",
                         "flash_attention_launch",
-                        [_P] * 4 + [_I] * 6 + [_L] * 12 + [_F]),
+                        [_P] * 6 + [_I] * 6 + [_L] * 12 + [_F]),
+    # q, k, v, do, m, l, di, dk, dv; dtype, B, H, n_q, n_kv, Dh; the
+    # strides of q, k, v, do, dk and dv; the softmax scale
+    "flash_attention_bwd_dkv": (_PKG / "csrc" / "flash_attention_bwd.cu",
+                                "flash_attention_bwd_dkv_launch",
+                                [_P] * 9 + [_I] * 6 + [_L] * 18 + [_F]),
+    # q, k, v, do, m, l, di, dq; ...; the strides of q, k, v, do and dq
+    "flash_attention_bwd_dq": (_PKG / "csrc" / "flash_attention_bwd.cu",
+                               "flash_attention_bwd_dq_launch",
+                               [_P] * 8 + [_I] * 6 + [_L] * 15 + [_F]),
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -63,33 +74,32 @@ def _digest(source: pathlib.Path, flags) -> str:
 
 
 def build(names=None) -> dict:
-    """Compile the kernels `names` (default: all of `KERNELS`), once per
-    `_digest`, one nvcc each, all started together → {name: (library,
-    ptxas log)}."""
+    """Compile the sources of the kernels `names` (default: all of
+    `KERNELS`), once per `_digest`, one nvcc a source, all started
+    together → {name: (library, ptxas log)}."""
     names = list(KERNELS) if names is None else list(names)
     done, running = {}, []
-    for name in names:
-        source = KERNELS[name][0]
-        so = BUILD_DIR / f"lib{name}_{_digest(source, NVCC_FLAGS)}.so"
+    for source in dict.fromkeys(KERNELS[n][0] for n in names):
+        so = BUILD_DIR / f"lib{source.stem}_{_digest(source, NVCC_FLAGS)}.so"
         log = so.with_suffix(".log")
         if so.exists():
-            done[name] = (so, log.read_text() if log.exists() else "")
+            done[source] = (so, log.read_text() if log.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
         proc = subprocess.Popen(
             [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        running.append((name, so, log, tmp, proc))
-    for name, so, log, tmp, proc in running:
+        running.append((source, so, log, tmp, proc))
+    for source, so, log, tmp, proc in running:
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {name} ({proc.returncode}):\n{stderr}")
+            raise RuntimeError(f"nvcc failed on {source.name} "
+                               f"({proc.returncode}):\n{stderr}")
         log.write_text(stdout + stderr)
         os.replace(tmp, so)
-        done[name] = (so, stdout + stderr)
-    return {name: done[name] for name in names}
+        done[source] = (so, stdout + stderr)
+    return {name: done[KERNELS[name][0]] for name in names}
 
 
 def _entry(so, name: str):

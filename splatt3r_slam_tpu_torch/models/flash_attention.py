@@ -1,31 +1,48 @@
-"""Flash attention, forward: the hand-written CUDA kernel and its plain
-PyTorch version.
+"""Flash attention: the hand-written CUDA kernels, forward and backward,
+and their plain PyTorch versions.
 
 Counterpart of `splatt3r_slam_tpu/models/layers.py::_attend_flash`, which
 calls JAX's bundled Pallas TPU flash attention (non-causal, no bias, no
-segment ids). The kernel `csrc/flash_attention.cu` replaces that TPU kernel
-(`_flash_attention_kernel`); the note at the top of the source says what
-bounds it on the card and how the design answers. Built and launched
-through `cuda_build` (nvcc for sm_90a, ctypes).
+segment ids) and, under `jax.grad`, its custom VJP. The kernel
+`csrc/flash_attention.cu` replaces the TPU's forward kernel
+(`_flash_attention_kernel`); `csrc/flash_attention_bwd.cu` replaces its two
+backward kernels (`_flash_attention_dkv_kernel`, `_flash_attention_dq_kernel`).
+The notes at the top of the sources say what bounds each on the card and
+how the design answers. Built and launched through `cuda_build` (nvcc for
+sm_90a, ctypes).
 
-- `flash_attention_torch(q, k, v, scale)`: the plain version, the TPU
+- `flash_attention_torch(q, k, v, scale)`: the plain forward, the TPU
   kernel's algorithm step by step: kv blocks of 128 rows (its default
   `BlockSizes`), s = q·kᵀ in fp32 and then times the scale, an online
   softmax with running max and sum, p rounded to v's dtype before p·v,
   which is summed in fp32, and the fp32 accumulator renormalised by
-  l_corr / l_next at every block; the output rounded to v's dtype.
-- `flash_attention(q, k, v, scale)`: the kernel for CUDA tensors (it
-  launches or raises), the plain version for CPU tensors; no fallback from
-  one to the other. `launches` counts kernel launches.
+  l_corr / l_next at every block; the output rounded to v's dtype. With
+  `residuals` it also returns the running sum l and max m after the last
+  block, (B, H, n_q) fp32, as the TPU kernel's `save_residuals` does.
+- `flash_attention_bwd_torch(q, k, v, o, l, m, do, scale)`: the plain
+  backward, the two TPU backward kernels' steps over 128 x 128 blocks (their
+  default `BlockSizes`): di = Σ o·do in fp32, p = exp(s - m)·(1/l),
+  dv += p_bf16ᵀ·do, dp = do·vᵀ, ds = (dp - di)·p·scale, dk += ds_bf16ᵀ·q,
+  dq += ds_bf16·k, the sums in fp32 and each gradient rounded once to its
+  input's dtype.
+- `flash_attention(q, k, v, scale, residuals=False)` and
+  `flash_attention_bwd(q, k, v, o, l, m, do, scale)`: the kernels for CUDA
+  tensors (they launch or raise), the plain versions for CPU tensors; no
+  fallback from one to the other. `launches` counts forward kernel
+  launches; `bwd_launches` counts backward calls that launched the pair
+  (the dK/dV kernel, then the dQ kernel).
 - `FlashAttention`: the `torch.autograd.Function` that `models/layers.py::
-  attend` calls. Its backward raises: the TPU package's two backward
-  kernels are still to be ported (ROADMAP Queue 2).
+  attend` calls. Its forward asks for l and m only when autograd records
+  the call for an input that requires grad (`ctx.needs_input_grad`); its
+  backward is `flash_attention_bwd`.
 
 Tensors are (B, N, H, Dh), the JAX layout; k and v share their N, which
-may differ from q's (cross-attention). The kernel takes Dh in
+may differ from q's (cross-attention). The kernels take Dh in
 `HEAD_DIMS`, q, k and v of one dtype (bf16 or fp32), n_q and n_kv
 multiples of 64, Dh contiguous and every row 16-byte aligned; a strided
-view (v straight from the fused qkv projection) is read in place.
+view (v straight from the fused qkv projection) is read in place, forward
+and backward. The backward makes its cotangent contiguous once (a no-op for
+the cotangent autograd hands over from the output projection).
 """
 
 from __future__ import annotations
@@ -35,25 +52,26 @@ from torch.distributed.tensor import DTensor
 
 from splatt3r_slam_tpu_torch import cuda_build
 
-BLOCK_K = 128  # the TPU kernel's kv block (BlockSizes.get_default)
-HEAD_DIMS = (64, 128, 192, 256)  # the kernel's template instances
+BLOCK_K = 128  # the TPU kernels' blocks (BlockSizes.get_default)
+HEAD_DIMS = (64, 128, 192, 256)  # the kernels' template instances
 ROWS = 64  # n_q and n_kv must be multiples of this
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
-BACKWARD_TODO = (
-    "flash attention has no backward kernel yet: the TPU package's "
-    "_flash_attention_bwd_dkv and _flash_attention_bwd_dq are still to be "
-    "ported (ROADMAP Queue 2, the flash backward slice); train with "
-    "--flash-attention auto or off")
 
-launches = 0  # kernel launches made by `flash_attention`
+launches = 0  # forward kernel launches made by `flash_attention`
+bwd_launches = 0  # backward kernel pairs launched by `flash_attention_bwd`
 
 
-def flash_attention_torch(q, k, v, scale, block_k: int = BLOCK_K):
-    """Plain PyTorch version of the kernel: (B, n_q, H, D) q and (B, n_kv,
-    H, D) k, v → (B, n_q, H, D) in v's dtype, the TPU kernel's steps."""
-    qf = q.transpose(1, 2).float()  # (B, H, n_q, D)
-    kf = k.transpose(1, 2).float()
-    vt = v.transpose(1, 2)
+def _heads_first(t):
+    """(B, N, H, D) → (B, H, N, D) in fp32."""
+    return t.transpose(1, 2).float()
+
+
+def flash_attention_torch(q, k, v, scale, block_k: int = BLOCK_K,
+                          residuals: bool = False):
+    """Plain PyTorch version of the forward kernel: (B, n_q, H, D) q and
+    (B, n_kv, H, D) k, v → (B, n_q, H, D) in v's dtype, the TPU kernel's
+    steps; with `residuals` → (out, l, m), l and m (B, H, n_q) fp32."""
+    qf, kf, vt = _heads_first(q), _heads_first(k), v.transpose(1, 2)
     B, H, n_q, D = qf.shape
     m = torch.full((B, H, n_q, 1), float("-inf"), device=q.device)
     l = torch.zeros((B, H, n_q, 1), device=q.device)
@@ -73,7 +91,46 @@ def flash_attention_torch(q, k, v, scale, block_k: int = BLOCK_K):
                               vt[:, :, s0:s0 + block_k].float())
         acc = acc + o_curr * inv
         m, l = m_next, l_next
-    return acc.to(v.dtype).transpose(1, 2).contiguous()
+    out = acc.to(v.dtype).transpose(1, 2).contiguous()
+    if not residuals:
+        return out
+    return out, l[..., 0].contiguous(), m[..., 0].contiguous()
+
+
+def _di(o, do):
+    """di = Σ o·do over Dh in fp32, (B, H, n_q): the TPU backward computes
+    it in XLA before its kernels, and so does the wrapper."""
+    return (o.float() * do.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_torch(q, k, v, o, l, m, do, scale,
+                              block: int = BLOCK_K):
+    """Plain PyTorch version of the two backward kernels: (q, k, v) of the
+    forward, its output o and residuals l, m ((B, H, n_q) fp32), the
+    cotangent do of o → (dq, dk, dv) in the inputs' dtype, the TPU kernels'
+    steps over `block` x `block` blocks."""
+    dt = q.dtype
+    qf, kf, vf, dof = (_heads_first(t) for t in (q, k, v, do))
+    di = _di(o, do)[..., None]
+    inv_l = (1 / l)[..., None]
+    m = m[..., None]
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    n_q, n_kv = qf.shape[2], kf.shape[2]
+    for k0 in range(0, n_kv, block):
+        ks, vs = kf[:, :, k0:k0 + block], vf[:, :, k0:k0 + block]
+        for q0 in range(0, n_q, block):
+            rows = slice(q0, q0 + block)
+            s = torch.matmul(qf[:, :, rows], ks.transpose(-1, -2)) * scale
+            p = torch.exp(s - m[:, :, rows]) * inv_l[:, :, rows]
+            dv[:, :, k0:k0 + block] += torch.matmul(
+                p.to(dt).float().transpose(-1, -2), dof[:, :, rows])
+            dp = torch.matmul(dof[:, :, rows], vs.transpose(-1, -2))
+            ds = (dp - di[:, :, rows]) * p * scale
+            ds = ds.to(dt).float()
+            dk[:, :, k0:k0 + block] += torch.matmul(ds.transpose(-1, -2),
+                                                    qf[:, :, rows])
+            dq[:, :, rows] += torch.matmul(ds, ks)
+    return tuple(g.to(dt).transpose(1, 2).contiguous() for g in (dq, dk, dv))
 
 
 def _check(q, k, v):
@@ -106,6 +163,31 @@ def _check(q, k, v):
                          f"{k.device}, {v.device}")
 
 
+def _check_bwd(q, o, l, m, do):
+    """Raise unless the backward kernels take the forward's output o, its
+    residuals l and m and the cotangent do (beside `_check` of q, k, v)."""
+    for name, t in (("o", o), ("l", l), ("m", m), ("do", do)):
+        if isinstance(t, DTensor):
+            raise TypeError(f"flash_attention backward: {name} is a "
+                            "DTensor; the kernels take plain local tensors")
+        if t.device != q.device:
+            raise ValueError(f"flash_attention backward: {name} on "
+                             f"{t.device}, q on {q.device}")
+    B, n_q, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or \
+            not o.dtype == do.dtype == q.dtype:
+        raise ValueError(f"flash_attention backward: o and do must be q's "
+                         f"shape and dtype {tuple(q.shape)} {q.dtype}, got "
+                         f"{tuple(o.shape)} {o.dtype}, {tuple(do.shape)} "
+                         f"{do.dtype}")
+    for name, t in (("l", l), ("m", m)):
+        if t.shape != (B, H, n_q) or t.dtype != torch.float32 or \
+                not t.is_contiguous():
+            raise ValueError(f"flash_attention backward: {name} must be "
+                             f"contiguous fp32 {(B, H, n_q)}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+
+
 def _strides(who, t):
     """(batch, row, head) strides of `t` in elements; raise unless Dh is
     contiguous and every row starts 16 bytes aligned."""
@@ -118,35 +200,102 @@ def _strides(who, t):
     return s[0], s[1], s[2]
 
 
-def flash_attention(q, k, v, scale):
+def flash_attention(q, k, v, scale, residuals: bool = False):
     """Softmax attention: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors. (B, n_q, H, Dh) q, (B, n_kv, H, Dh) k and v
     → (B, n_q, H, Dh) in v's dtype, with no graph (`FlashAttention` is the
-    autograd form)."""
+    autograd form); with `residuals` → (out, l, m), l and m (B, H, n_q)
+    fp32 for `flash_attention_bwd`."""
     _check(q, k, v)
     if not q.is_cuda:
-        return flash_attention_torch(q, k, v, scale)
+        return flash_attention_torch(q, k, v, scale, residuals=residuals)
     B, n_q, H, D = q.shape
     out = torch.empty((B, n_q, H, D), dtype=v.dtype, device=q.device)
+    l = m = None
+    if residuals:
+        l, m = (torch.empty((B, H, n_q), dtype=torch.float32,
+                            device=q.device) for _ in range(2))
     cuda_build.launch(
         "flash_attention", q.device, q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], B, H, n_q,
+        v.data_ptr(), out.data_ptr(), 0 if l is None else l.data_ptr(),
+        0 if m is None else m.data_ptr(), _DTYPE_CODE[q.dtype], B, H, n_q,
         k.shape[1], D, *_strides("q", q), *_strides("k", k),
         *_strides("v", v), *_strides("out", out), float(scale))
     global launches
     launches += 1
-    return out
+    return (out, l, m) if residuals else out
+
+
+def flash_attention_bwd(q, k, v, o, l, m, do, scale):
+    """Gradient of `flash_attention`: the two CUDA kernels for CUDA tensors
+    (dK/dV, then dQ), the plain version for CPU tensors. q, k, v as the
+    forward took them, its output o and residuals l, m, the cotangent do
+    (B, n_q, H, Dh) → (dq, dk, dv) in the inputs' dtype."""
+    _check(q, k, v)
+    _check_bwd(q, o, l, m, do)
+    if not q.is_cuda:
+        return flash_attention_bwd_torch(q, k, v, o, l, m, do, scale)
+    do = do.contiguous()
+    di = _di(o, do)
+    dk, dv = _launch_dkv(q, k, v, do, m, l, di, scale)
+    dq = _launch_dq(q, k, v, do, m, l, di, scale)
+    global bwd_launches
+    bwd_launches += 1
+    return dq, dk, dv
+
+
+def _bwd_args(q, k, v, do, m, l, di):
+    """The arguments both backward kernels take before their outputs, and
+    those between their outputs and the outputs' strides."""
+    B, n_q, H, D = q.shape
+    return ((q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             m.data_ptr(), l.data_ptr(), di.data_ptr()),
+            (_DTYPE_CODE[q.dtype], B, H, n_q, k.shape[1], D,
+             *_strides("q", q), *_strides("k", k), *_strides("v", v),
+             *_strides("do", do)))
+
+
+def _launch_dkv(q, k, v, do, m, l, di, scale):
+    """The dK/dV kernel alone on checked CUDA tensors → (dk, dv). The launch
+    of `flash_attention_bwd`; `chip_smoke.py` also times it alone."""
+    head, tail = _bwd_args(q, k, v, do, m, l, di)
+    dk, dv = (torch.empty(k.shape, dtype=q.dtype, device=q.device)
+              for _ in range(2))
+    cuda_build.launch("flash_attention_bwd_dkv", q.device, *head,
+                      dk.data_ptr(), dv.data_ptr(), *tail,
+                      *_strides("dk", dk), *_strides("dv", dv),
+                      float(scale))
+    return dk, dv
+
+
+def _launch_dq(q, k, v, do, m, l, di, scale):
+    """The dQ kernel alone on checked CUDA tensors → dq (as `_launch_dkv`)."""
+    head, tail = _bwd_args(q, k, v, do, m, l, di)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    cuda_build.launch("flash_attention_bwd_dq", q.device, *head,
+                      dq.data_ptr(), *tail, *_strides("dq", dq),
+                      float(scale))
+    return dq
 
 
 class FlashAttention(torch.autograd.Function):
-    """`flash_attention` under autograd: forward only. The backward raises
-    NotImplementedError (no backward kernel yet) rather than differentiate
-    through another attention."""
+    """`flash_attention` under autograd: the forward kernel, and the two
+    backward kernels for the gradient. The forward asks for the residuals
+    l and m, and saves q, k, v, the output, l and m, only when autograd
+    records the call for an input that requires grad."""
 
     @staticmethod
     def forward(ctx, q, k, v, scale):
-        return flash_attention(q, k, v, scale)
+        if not any(ctx.needs_input_grad[:3]):
+            return flash_attention(q, k, v, scale)
+        out, l, m = flash_attention(q, k, v, scale, residuals=True)
+        ctx.save_for_backward(q, k, v, out, l, m)
+        ctx.scale = scale
+        return out
 
     @staticmethod
     def backward(ctx, gout):
-        raise NotImplementedError(BACKWARD_TODO)
+        q, k, v, out, l, m = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, l, m, gout,
+                                         ctx.scale)
+        return dq, dk, dv, None

@@ -10,10 +10,11 @@ profile); LayerNorms compute in fp32; attention takes fp32 softmax over
 bf16 q/k/v. Token layout at the public functions is (B, N, H, Dh) and
 images are NHWC, as in the JAX package.
 
-Attention goes through the hand-written flash-attention kernel
-(`models/flash_attention.py`) where the flash-attention mode picks it, and
-through `F.scaled_dot_product_attention` otherwise (the counterpart of the
-JAX package's einsum path, which XLA computes).
+Attention goes through the hand-written flash-attention kernels
+(`models/flash_attention.py`: the forward, and under autograd its two
+backward kernels) where the flash-attention mode picks them, and through
+`F.scaled_dot_product_attention` otherwise (the counterpart of the JAX
+package's einsum path, which XLA computes).
 """
 
 from __future__ import annotations
@@ -160,8 +161,8 @@ def attend_sdpa(q, k, v, scale):
 
 def attend(q, k, v, scale):
     """Softmax attention on (B, N, H, D) q/k/v: the flash-attention kernel
-    where the mode picks it (no fallback: it launches or raises),
-    `attend_sdpa` otherwise."""
+    where the mode picks it, its gradient through the two backward kernels
+    (no fallback: each launches or raises), `attend_sdpa` otherwise."""
     if _flash_wanted(q.shape[1], k.shape[1], q.shape[-1], q.device):
         return FlashAttention.apply(q, k, v, scale)
     return attend_sdpa(q, k, v, scale)

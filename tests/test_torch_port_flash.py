@@ -239,15 +239,6 @@ def test_head_dim_above_256_is_refused():
         TL.attend(q, k, v, 0.05)
 
 
-def test_backward_raises():
-    TL.set_flash_attention("on")
-    q, k, v = (torch.from_numpy(a).requires_grad_() for a in _qkv(
-        (1, 256, 256, 1, 64), "float32", seed=5))
-    out = TL.attend(q, k, v, 0.125)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 2"):
-        out.sum().backward()
-
-
 def test_wrapper_refuses_what_the_kernel_does_not_take():
     z = torch.zeros
     bad = [
@@ -299,18 +290,23 @@ def test_registry_matches_the_c_entry_points(name):
         assert want in p, (p, t)
 
 
-def test_flash_source_is_hand_written():
-    """The kernel is mma.sync written out, with one template instance per
-    head dim the wrapper admits, and no library on the route."""
-    code = cuda_build.KERNELS["flash_attention"][0].read_text()
+@pytest.mark.parametrize("name, case", [
+    ("flash_attention", r"case (\d+): return flash::launch<\d+>"),
+    ("flash_attention_bwd_dkv", r"case (\d+): return launch<\d+, DKV>"),
+    ("flash_attention_bwd_dq", r"case (\d+): return launch<\d+, DKV>")])
+def test_flash_source_is_hand_written(name, case):
+    """The forward and the two backward kernels are mma.sync written out,
+    with one template instance per head dim the wrapper admits, no library
+    on the route and (backward) no atomics."""
+    code = cuda_build.KERNELS[name][0].read_text()
     assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
     assert "cp.async.cg.shared.global" in code
     for banned in ("cublas", "cudnn", "cutlass", "torch", "#include <mma"):
         assert banned not in code.lower(), banned
-    cases = [int(d) for d in re.findall(r"case (\d+): return flash::launch",
-                                        code)]
-    assert tuple(cases) == fa.HEAD_DIMS
-    csrc = cuda_build.KERNELS["flash_attention"][0].parent
+    ops = re.sub(r"//[^\n]*", "", code).lower()  # without the comments
+    assert not re.search(r"\b(atomic|atom\.|red\.)", ops)
+    assert tuple(int(d) for d in re.findall(case, code)) == fa.HEAD_DIMS
+    csrc = cuda_build.KERNELS[name][0].parent
     assert {p.name for p in csrc.glob("*.cu")} == {
         s.name for s, _, _ in cuda_build.KERNELS.values()}
 
