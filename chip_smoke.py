@@ -271,23 +271,30 @@ Phases, each printing one line of its own; any failure exits non-zero:
 7d. flash-train — full-finetune training with the mode on (the backward
              kernels csrc/flash_attention_bwd.cu replace the TPU kernels
              `_flash_attention_dkv_kernel` and `_flash_attention_dq_kernel`
-             that the Pallas flash attention's VJP runs): at 7c's shapes
-             and at Dh 128, 192 and 256 in bf16 and fp32 (B1 n_q 256 n_kv
-             512 H4, Dh 128 with v strided), the forward's output with its
+             that the Pallas flash attention's VJP runs): at 7c's shapes,
+             at the full-finetune step's own (B1 N768 H16 with v strided,
+             the encoder; B1 N768 H12, the decoder) and at Dh 128, 192 and
+             256 in bf16 and fp32 (B1 n_q 256 n_kv 512 H4, Dh 128 with v
+             strided), the forward's output with its
              residuals l and m the same as without, l and m within 1e-5 of
              the plain version's, and both backward kernels against the
              plain backward (`flash_attention_bwd_torch`), each gradient
              within 2^-7 of its peak in bf16 and 1e-5 in fp32, each kernel
              timed (`ms`, `call_ms`) beside the plain backward, SDPA's
-             backward on the same inputs (`library_ms`) and its bound;
-             `train.main` in this process with the mode on and
+             backward on the same inputs (`library_ms`) and its bound, and
+             for bf16 each kernel's blocks, blocks an SM (the occupancy
+             API), waves and ptxas registers; `train.main` in this process
+             with the mode on and
              train.train_gaussian_heads_only=false (every parameter
              training, remat on as the CLI's default), 3 steps at 384x512
              (768 tokens), B=1, V=1, the render-loss recipe of phase 5: each
              step's 96 attend calls (the encoder's 24 blocks once per view,
              the decoder's 12 blocks x 2 views x self and cross) launch
              the forward twice (the recompute) and each backward kernel
-             once, step ms and peak memory printed; then a step's forward
+             once, step ms and peak memory printed, its third step under
+             torch.profiler (`[flash-train-profile]`: the backward pair's
+             device ms and launches in the step, the step's device time and
+             idle share); then a step's forward
              and backward on one fresh model and batch with "on" and
              "auto" (SDPA) in turns (on, auto, auto, on), loss and gradient
              norm within 5e-2 of each other (bf16 and a render whose
@@ -295,7 +302,8 @@ Phases, each printing one line of its own; any failure exits non-zero:
              kernels held on the last attention call's own tensors; and
              the same model in fp32 on the Regr3D loss alone (on, auto),
              within 1e-4 (`[flash-train-kernel]`, `[flash-train-main]`,
-             `[flash-train-compare]`, `[flash-train]` lines);
+             `[flash-train-profile]`, `[flash-train-compare]`,
+             `[flash-train]` lines);
 8. device  — the card's name and power limit (nvidia-smi);
 then one JSON line with the kernel table and, last, the ok/device line.
 
@@ -304,7 +312,12 @@ found in DIR (an earlier commit's sources, e.g. written there with `git show
 REV:path`; same C entry points) and, after phase 2, times them in turns
 with this checkout's kernels at the production and the training shape, on
 the device alone, median of 7 rounds (`[compare]`). The earlier backward
-wrote live rows only, so it is timed with the memset it needs.
+wrote live rows only, so it is timed with the memset it needs. Where DIR
+holds a `flash_attention_bwd.cu`, it also builds that into a library of its
+own and, after phase 7d, times its dK/dV and dQ kernels in turns with this
+checkout's at every bf16 Dh-64 shape of 7d, median of 7 rounds
+(`[compare-flash-bwd]`); each set of sources is compared only where DIR
+holds it.
 
 Times. A kernel's `ms` is its time on the device alone: 20 launches enqueued
 back to back behind a device-side delay, so that the host is ahead of the
@@ -337,6 +350,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import gc
 import io
 import json
@@ -566,6 +580,28 @@ def _profile_frame(torch, run_frame, kernels=None):
             host, dev = spans.get(e.name, (0.0, 0.0))
             spans[e.name] = (host + e.cpu_time_total / 1e3, dev + dev_ms(e))
     return wall_ms, sum(by_name.values()), spans
+
+
+def _profile_kernels(torch, run):
+    """`run()` under torch.profiler tracing the device alone (a training
+    step's tens of thousands of host ops would cost the trace's processing
+    seconds) → (wall ms, device kernel ms, {kernel: (device ms,
+    launches)})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = {}
+    for e in prof.key_averages():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            v = getattr(e, "self_device_time_total", None)
+            ms = (getattr(e, "self_cuda_time_total", 0) if v is None
+                  else v) / 1e3
+            kernels[e.key] = (ms, e.count)
+    return wall_ms, sum(ms for ms, _ in kernels.values()), kernels
 
 
 def _boundary_tiles(torch, counts, k_max, seed):
@@ -2802,7 +2838,12 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
 # the backward kernels (and the forward's residuals) at the forward's shapes
 # and at every other head dim the kernels are built for, bf16 and fp32:
 # (label, B, n_q, n_kv, H, Dh, dtype, v strided as the fused qkv hands it)
-FLASH_BWD_SHAPES = FLASH_SHAPES + tuple(
+FLASH_BWD_SHAPES = FLASH_SHAPES + (
+    # the full-finetune step's own calls (B=1, each view alone): the
+    # encoder's self attention (v strided) and the decoder's
+    ("train_enc B1 N768 H16", 1, 768, 768, 16, 64, "bfloat16", True),
+    ("train_dec B1 N768 H12", 1, 768, 768, 12, 64, "bfloat16", False),
+) + tuple(
     (f"{short}_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d, dt, d == 128)
     for dt, short in (("bfloat16", "bf16"), ("float32", "fp32"))
     for d in (128, 192, 256))
@@ -2845,6 +2886,67 @@ def _flash_bwd_bound_ms(B, n_q, n_kv, H, D, itemsize, dkv):
                + 3 * 4 * B * H * n_q) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
+
+
+def _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D, dtype, strided):
+    """Seeded unit-normal (q, k, v, do) of one backward shape on the card;
+    with `strided`, v is the strided view Attention hands over (its fused
+    qkv projection, row stride 3·H·Dh) and k a contiguous copy (rope gives
+    new q and k)."""
+    import numpy as np
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to("cuda", dtype)
+
+    if strided:
+        qkv = rand(B, nk, 3 * nh * D)
+        _, k, v = qkv.reshape(B, nk, 3, nh, D).unbind(2)
+        k = k.contiguous()
+        assert v.stride(1) == 3 * nh * D, v.stride()
+        q = rand(B, nq, nh, D)
+    else:
+        q, k, v = (rand(B, n, nh, D) for n in (nq, nk, nk))
+    return q, k, v, rand(B, nq, nh, D)
+
+
+def _ptxas_registers(log):
+    """{entry function: registers} from a `ptxas -v` log."""
+    regs, name = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif name and "Used" in ln and "registers" in ln:
+            regs[name] = int(ln.split("Used")[1].split("registers")[0])
+    return regs
+
+
+def _flash_bwd_plans(torch, so, log):
+    """plan(dkv, B, n_q, n_kv, H, D) → how the bf16 dK/dV (dkv) or dQ
+    kernel of the library `so` runs at that shape: the blocks it launches,
+    its blocks an SM (the occupancy API), the waves over the card's SMs
+    and its registers (from the library's ptxas log `log`)."""
+    fn = ctypes.CDLL(str(so)).flash_attention_bwd_plan
+    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs = _ptxas_registers(log)
+
+    def plan(dkv, B, n_q, n_kv, H, D):
+        out = (ctypes.c_int * 2)()
+        assert fn(int(dkv), D, B, H, n_q, n_kv, out) == 0
+        (r,) = [v for k, v in regs.items()
+                if f"flash_bwd_bf16ILi{D}ELb{int(dkv)}E" in k]
+        return dict(blocks=out[0], blocks_per_sm=out[1], registers=r,
+                    waves=out[0] / (sms * out[1]), sms=sms)
+
+    return plan
+
+
+def _is_dkv_kernel(name):
+    """Whether a profiler kernel name (mangled or not) is the bf16 dK/dV
+    kernel rather than the dQ one."""
+    return "Lb1E" in name or ", true>" in name
 
 
 def _flash_bwd_errors(torch, fl, args, scale, what):
@@ -3019,6 +3121,7 @@ def _flash_train_phase(torch, cr, fl, layers, work):
     k, v, o, l, m and do."""
     import numpy as np
 
+    from splatt3r_slam_tpu_torch import cuda_build
     from splatt3r_slam_tpu_torch import train as train_mod
     from splatt3r_slam_tpu_torch.models import TwoViewConfig
     from splatt3r_slam_tpu_torch.train import synthetic_batches
@@ -3028,27 +3131,24 @@ def _flash_train_phase(torch, cr, fl, layers, work):
     t_phase = time.perf_counter()
     smi = _smi()
     rng = np.random.default_rng(12)
-
-    def rand(*shape, dtype):
-        return torch.from_numpy(rng.standard_normal(shape).astype(
-            np.float32)).to("cuda", dtype)
+    plan = _flash_bwd_plans(torch, *cuda_build.build(
+        ["flash_attention_bwd_dkv"])["flash_attention_bwd_dkv"])
 
     shapes = {}
     for label, B, nq, nk, nh, D, dt, strided in FLASH_BWD_SHAPES:
-        dt = getattr(torch, dt)
-        if strided:  # v as Attention hands it over; rope gives new q, k
-            qkv = rand(B, nk, 3 * nh * D, dtype=dt)
-            _, k, v = qkv.reshape(B, nk, 3, nh, D).unbind(2)
-            k = k.contiguous()
-            assert v.stride(1) == 3 * nh * D, v.stride()
-            q = rand(B, nq, nh, D, dtype=dt)
-        else:
-            q, k, v = (rand(B, n, nh, D, dtype=dt) for n in (nq, nk, nk))
-        do = rand(B, nq, nh, D, dtype=dt)
+        q, k, v, do = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D,
+                                        getattr(torch, dt), strided)
         shapes[label] = _flash_bwd_held(torch, fl, q, k, v, do, D ** -0.5,
                                         label)
+        if dt == "bfloat16":
+            shapes[label].update(plan_dkv=plan(True, B, nq, nk, nh, D),
+                                 plan_dq=plan(False, B, nq, nk, nh, D))
         del q, k, v, do
     for label, h in shapes.items():
+        grid = "" if "plan_dkv" not in h else " | " + ", ".join(
+            f"{name} {g['blocks']} blocks, {g['blocks_per_sm']} an SM, "
+            f"{g['waves']:.2f} waves, {g['registers']} registers"
+            for name, g in (("dK/dV", h["plan_dkv"]), ("dQ", h["plan_dq"])))
         lines.append(
             f"[flash-train-kernel] {label} ({h['dtype']}, v "
             f"{'contiguous' if h['v_contiguous'] else 'strided'}): kernels "
@@ -3060,7 +3160,7 @@ def _flash_train_phase(torch, cr, fl, layers, work):
             f"{h['ms_dq']:.4f} (call_ms {h['call_ms_dq']:.4f}, bound "
             f"{h['bound_ms_dq']:.4f} by {h['bound_by_dq']}) | plain backward "
             f"{h['plain_ms']:.3f} ms, SDPA backward {h['library_ms']:.4f} ms"
-            f" | {smi}")
+            f"{grid} | {smi}")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3086,10 +3186,19 @@ def _flash_train_phase(torch, cr, fl, layers, work):
 
             def timed(batch):
                 torch.cuda.synchronize()
-                ta = time.perf_counter()
-                m = step(batch)
-                torch.cuda.synchronize()
-                seen["step_ms"].append((time.perf_counter() - ta) * 1e3)
+                if len(seen["losses"]) == FLASH_TRAIN_STEPS - 1:
+                    # the last step under torch.profiler
+                    got = {}
+                    wall, busy, kern = _profile_kernels(
+                        torch, lambda: got.update(m=step(batch)))
+                    seen["profile"] = dict(wall_ms=wall, device_ms=busy,
+                                           kernels=kern)
+                    m = got["m"]
+                else:
+                    ta = time.perf_counter()
+                    m = step(batch)
+                    torch.cuda.synchronize()
+                    seen["step_ms"].append((time.perf_counter() - ta) * 1e3)
                 seen["losses"].append(float(m["loss"]))
                 return m
 
@@ -3131,18 +3240,47 @@ def _flash_train_phase(torch, cr, fl, layers, work):
     assert all(np.isfinite(v) for v in seen["losses"]), seen["losses"]
     (ws,) = os.listdir(out_dir)
     assert os.path.exists(os.path.join(out_dir, ws, "params_final.npz"))
+    prof = seen["profile"]
+    pair = {}
+    for name, (ms, n) in prof["kernels"].items():
+        if "flash_bwd_bf16" in name:
+            which = "dkv" if _is_dkv_kernel(name) else "dq"
+            got_ms, got_n = pair.get(which, (0.0, 0))
+            pair[which] = (got_ms + ms, got_n + n)
+    fwd = [v for name, v in prof["kernels"].items()
+           if "flash_fwd_bf16" in name]
+    prof.update(pair_ms=pair["dkv"][0] + pair["dq"][0],
+                dkv=pair["dkv"], dq=pair["dq"],
+                fwd=(sum(x for x, _ in fwd), sum(n for _, n in fwd)),
+                idle=max(0.0, 1 - prof["device_ms"] / prof["wall_ms"]))
+    assert pair["dkv"][1] == pair["dq"][1] == per_forward, pair
+    assert prof["fwd"][1] == 2 * per_forward, prof["fwd"]
     lines.append(
         f"[flash-train-main] train.main with the mode on, "
         f"train.train_gaussian_heads_only=false ({seen['params'][0]:,} of "
         f"{seen['params'][1]:,} parameters training, remat on) | "
         f"{FLASH_TRAIN_STEPS} steps {th}x{tw} B=1 V=1 ViT-L bf16, render "
         f"loss | step ms " + ", ".join(f"{x:.1f}" for x in seen["step_ms"])
-        + " | loss " + ", ".join(f"{x:.4f}" for x in seen["losses"])
+        + f" (step {FLASH_TRAIN_STEPS} under the profiler: "
+        f"{prof['wall_ms']:.1f}) | loss "
+        + ", ".join(f"{x:.4f}" for x in seen["losses"])
         + f" | peak memory {main_peak:.2f} GiB | flash launches: forward "
         f"{main_launches[0]} = 2 x {calls} attend calls (remat), backward "
         f"pairs {main_launches[1]} = {calls} (dK/dV and dQ each "
         f"{main_launches[1]}) | compositor {main_comp[0]} / {main_comp[1]} "
         f"| {main_s:.1f} s in all | {smi}")
+    lines.append(
+        f"[flash-train-profile] train.main's step {FLASH_TRAIN_STEPS} with "
+        f"the mode on under torch.profiler: wall {prof['wall_ms']:.1f} ms, "
+        f"device kernels {prof['device_ms']:.1f} ms (idle "
+        f"{prof['idle']:.1%}) | dK/dV {prof['dkv'][0]:.3f} ms in "
+        f"{prof['dkv'][1]} launches, dQ {prof['dq'][0]:.3f} ms in "
+        f"{prof['dq'][1]} launches: the pair {prof['pair_ms']:.3f} ms, "
+        f"{prof['pair_ms'] / prof['device_ms']:.1%} of the device time | "
+        f"flash forward {prof['fwd'][0]:.3f} ms in {prof['fwd'][1]} launches"
+        f" | {smi}")
+    res["train_profile"] = {k: v for k, v in prof.items()
+                            if k != "kernels"}
     res["train_main"] = dict(step_ms=seen["step_ms"], losses=seen["losses"],
                              peak_gib=main_peak, launches=main_launches,
                              compositor=main_comp, s=main_s,
@@ -3228,13 +3366,85 @@ def _flash_train_phase(torch, cr, fl, layers, work):
     return lines, res
 
 
+def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
+    """Build the flash_attention_bwd.cu found in `parent` (an earlier
+    commit's, with the same C entry points) into a library of its own and
+    time its dK/dV and dQ kernels in turns with this checkout's at every
+    bf16 Dh-64 shape of FLASH_BWD_SHAPES → {shape: {dkv: (parent ms, this
+    checkout's ms), dq: (...), diff: the largest difference of the two
+    builds' gradients over each gradient's peak}}, each ms the median over
+    `rounds` of a device-only time of 20 launches."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import cuda_build
+
+    names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+    source = cuda_build.KERNELS[names[0]][0]
+    so = cuda_build.BUILD_DIR / f"libparent_{source.stem}.so"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                    str(so), os.path.join(parent, source.name)], check=True,
+                   capture_output=True, timeout=600)
+    old = {n: cuda_build._entry(so, n) for n in names}
+    new = {n: cuda_build._fns[n] for n in names}  # resolved by phase 7d
+
+    def using(entries, fn):
+        """fn with the wrapper's launches going to `entries`."""
+        def run():
+            cuda_build._fns.update(entries)
+            try:
+                return fn()
+            finally:
+                cuda_build._fns.update(new)
+        return run
+
+    rng = np.random.default_rng(13)
+    runs, found = {}, {}
+    for label, B, nq, nk, nh, D, dt, strided in FLASH_BWD_SHAPES:
+        if dt != "bfloat16" or D != 64:
+            continue
+        q, k, v, do = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D,
+                                        torch.bfloat16, strided)
+        scale = D ** -0.5
+        o, l, m = fl.flash_attention(q, k, v, scale, residuals=True)
+        di = fl._di(o, do)
+
+        def dkv(q=q, k=k, v=v, do=do, m=m, l=l, di=di, scale=scale):
+            return fl._launch_dkv(q, k, v, do, m, l, di, scale)
+
+        def dq(q=q, k=k, v=v, do=do, m=m, l=l, di=di, scale=scale):
+            return fl._launch_dq(q, k, v, do, m, l, di, scale)
+
+        got = [(using(e, dq)(), *using(e, dkv)()) for e in (old, new)]
+        torch.cuda.synchronize()
+        found[label] = {"diff": max(
+            float((a.float() - b.float()).abs().max() / b.float().abs().max())
+            for a, b in zip(*got))}
+        assert found[label]["diff"] <= FLASH_BWD_BF16_BAR, (label, found)
+        runs[label] = {"dkv": (using(old, dkv), using(new, dkv)),
+                       "dq": (using(old, dq), using(new, dq))}
+    samples = {(label, kind): ([], []) for label in runs
+               for kind in ("dkv", "dq")}
+    slow = 10 * SLEEP_CYCLES  # a ctypes launch with its checks, as in 7d
+    for r in range(rounds):
+        for (label, kind), got in samples.items():
+            pair = list(zip(got, runs[label][kind]))
+            for into, fn in (pair if r % 2 == 0 else pair[::-1]):
+                into.append(device_ms(fn, torch, groups=1,
+                                      sleep_cycles=slow))
+    for (label, kind), got in samples.items():
+        found[label][kind] = tuple(statistics.median(x) for x in got)
+    return found
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
                     help="also write the results as JSON to this path")
     ap.add_argument("--parent", default=None,
                     help="directory with an earlier composite.cu and "
-                         "composite_bwd.cu to time beside this checkout's")
+                         "composite_bwd.cu and/or flash_attention_bwd.cu to "
+                         "time beside this checkout's")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -3522,7 +3732,9 @@ def main(argv=None) -> int:
                          bound_ms=t_bwd_bound_ms, bound_by=t_bwd_bound_by,
                          fwd_ms=t_fwd_ms, fwd_call_ms=t_fwd_call_ms,
                          fwd_bound_ms=t_fwd_bound_ms))
-    if args.parent:
+    if args.parent and all(
+            os.path.exists(os.path.join(args.parent, source.name))
+            for source, _, _ in cr.KERNELS.values()):
         found = _compare_with_parent(
             torch, cr, args.parent,
             {"cap": (counts, origins, rows, gout, out_k),
@@ -3992,6 +4204,21 @@ def main(argv=None) -> int:
         print(ln)
     results["flash_train"] = ft_res
     ft_fwd, ft_bwd = ft_res["train_main"]["launches"]
+    if args.parent and os.path.exists(
+            os.path.join(args.parent, "flash_attention_bwd.cu")):
+        found = _compare_flash_bwd_with_parent(torch, fl, args.parent)
+        faster = all(f[kind][1] < f[kind][0] for f in found.values()
+                     for kind in ("dkv", "dq"))
+        print("[compare-flash-bwd] device ms, the flash_attention_bwd.cu in "
+              "--parent → this checkout's, in turns, median of 7 rounds of "
+              "20 launches | " + " | ".join(
+                  f"{label}: dK/dV {f['dkv'][0]:.4f} → {f['dkv'][1]:.4f}, dQ "
+                  f"{f['dq'][0]:.4f} → {f['dq'][1]:.4f} (gradients differ by "
+                  f"{f['diff']:.1e} of their peak)"
+                  for label, f in found.items())
+              + f" | this checkout's faster at every shape: {faster} | "
+              f"{_smi()}")
+        results["compare_flash_bwd"] = found
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -4132,6 +4359,9 @@ def main(argv=None) -> int:
         "library_ms": ft_res["shapes"][FLASH_SHAPES[0][0]]["library_ms"],
         "call_ms": ft_res["shapes"][FLASH_SHAPES[0][0]][f"call_ms_{kind}"],
         "max_err_over_peak": ft_res["max_rel_err"],
+        # ptxas registers, blocks an SM (occupancy API) and waves there
+        **{k: ft_res["shapes"][FLASH_SHAPES[0][0]][f"plan_{kind}"][k]
+           for k in ("registers", "blocks_per_sm", "waves")},
         "launches_flash_train_compare": ft_res["compare_launches"][1],
         "launches_other_phases": 0,
         **{f"{k}_{label.split()[0]}": h[k if k in ("plain_ms", "library_ms")

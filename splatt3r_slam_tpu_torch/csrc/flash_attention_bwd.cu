@@ -21,10 +21,9 @@
 //        the inputs' dtype, summed in fp32;
 //   each gradient rounded once to its input's dtype at the end.
 // As on the TPU the two are separate kernels: each gradient row is summed
-// by one block in one order, with no atomics, so the gradients are the
-// same bits from run to run. The TPU walks 128 x 128 blocks; these kernels
-// walk tiles of 64 rows (bf16) or 32 (fp32): only the order of the fp32
-// sums differs.
+// by one block in one order (the streamed tiles in turn, 64 rows each),
+// with no atomics, so the gradients are the same bits from run to run.
+// The TPU walks 128 x 128 blocks: only the order of the fp32 sums differs.
 //
 // Layout. q, k, v, do and the gradients are in the JAX layout (B, N, H,
 // Dh) with Dh contiguous, each given by its (batch, row, head) strides in
@@ -37,41 +36,60 @@
 // 9.66 GFLOP, 9.8 us at the dense bf16 tensor-core peak (989 TFLOP/s); dQ
 // three (S, dP, dQ), 7.25 GFLOP, 7.3 us. Each also evaluates B·H·n_q·n_kv
 // exponentials (18.9 M) on the special function units, about 4.7 us, and
-// moves a few MB (under 3 us at 3.35 TB/s): both are bound by operations.
-// In fp32 (no TF32) the products run on the fp32 pipes (67 TFLOP/s).
+// moves a few MB (under 3 us at 3.35 TB/s): both are bound by operations,
+// so the design is about keeping the tensor cores fed. In fp32 (no TF32)
+// the products run on the fp32 pipes (67 TFLOP/s).
 //
-// Design (simple first; wgmma, TMA and warp specialisation come later).
-// Both kernels have one shape: a block owns a tile of "fixed" rows and
-// walks the other side's rows in tiles of "streamed" rows.
+// Design, bf16. A block is one warpgroup (128 threads). It owns a tile of
+// 64 "fixed" rows and 64 columns of the gradients it writes, and walks the
+// other side's rows in tiles of 64 "streamed" rows:
 //   dK/dV: fixed rows are kv rows (k and v); streamed rows are q rows (q,
-//          do and their m, l, di). The warp computes S^T = K Q^T and
-//          dP^T = V dO^T, so that P^T and dS^T come out of the
-//          accumulators already transposed, as A fragments of
-//          dV += P^T dO and dK += dS^T Q: no transpose through shared
-//          memory.
-//   dQ:    fixed rows are q rows (q, do, m, l, di); streamed rows are kv
-//          rows (k, v). S = Q K^T, dP = dO V^T, dQ += dS K.
-// In both, acc1 += dS' B1 and (dK/dV only) acc2 += P' B2, where B1 is the
-// streamed tile that entered S (Q or K) and B2 the one that entered dP (dO).
-// bf16: mma.sync.m16n8k16 (bf16 in, fp32 accumulate), as the forward. A
-// warp owns 16 fixed rows and 64 output columns; the S and dP tiles
-// (16 x 64) are accumulators whose neighbouring 8-column pairs are, element
-// for element, the A fragments of the next product, so P and dS go from
-// registers to the tensor cores rounded to bf16. For Dh above 64 the
-// output columns are split over Dh / 64 warps that share their fixed rows
-// and each recompute S and dP: every warp then holds 64 accumulator
-// columns (32 registers a gradient), whatever Dh, and nothing spills.
-// Blocks of 64 fixed rows (4 row groups) for Dh 64 and 128, 32 (2 row
-// groups) for Dh 192 and 256, so a block has at most 8 warps. The fixed
-// rows stay in shared memory; the streamed rows (and m, l, di for dK/dV)
-// pass through a two-stage 16-byte cp.async ring, tile j + 1 in flight
-// while tile j is consumed; rows are padded by 16 bytes so that every
-// fragment load is free of bank conflicts. fp32: the fp32 FMA pipes (no
-// tensor cores, so no TF32); 8 threads a fixed row, 32 fixed rows a block,
-// streamed tiles of 32 rows; a thread owns 4 of the tile's scores and Dh/8
-// columns of each gradient; P and dS pass through shared memory within the
-// 8 lanes of their row.
+//          do and their m, l, di). S^T = K Q^T and dP^T = V dO^T, so that
+//          P^T and dS^T come out of the accumulators already transposed,
+//          as the A operands of dV += P^T dO and dK += dS^T Q.
+//   dQ:    fixed rows are q rows (q, do; m, 1/l, di in registers);
+//          streamed rows are kv rows (k, v). S = Q K^T, dP = dO V^T,
+//          dQ += dS K.
+// The products are wgmma m64n64k16 (bf16 in, fp32 accumulate). S and dP read
+// both operands from shared memory (K-major). The fp32 accumulator of m64n64
+// holds, pair by pair, the bf16 A-register fragment of the next wgmma, so P
+// and dS go from registers to the tensor cores rounded to bf16, and the
+// second products read their B operand (the streamed tile that entered S, or
+// dO) from the same shared tile, transposed by the wgmma itself (MN-major,
+// tnspB): no shared-memory transpose and no scalar loads. Tiles arrive by TMA
+// (cuTensorMapEncodeTiled on the host, from the strides the entry point is
+// given; a 4-d (Dh, N, H, B) map, boxes of 64 rows x 64 columns, 128 bytes a
+// row, 128-byte swizzle, which is the layout wgmma's descriptors read),
+// completing on an mbarrier: the fixed tiles once, the streamed tiles (and,
+// for dK/dV, m, l and di by a bulk copy) through a ring of 3 stages (Dh 64)
+// or 2 (Dh above 64). One thread issues each tile's copies, so no thread
+// spends registers or instructions on addresses. For dK/dV, 1/l is computed
+// once per tile into shared memory. Within a tile, S and dP are two commit
+// groups: P is formed while dP runs. dQ leaves its product dQ += dS K in
+// flight over the next tile's S and dP; dK/dV retires dV and dK within the
+// tile, because with them in flight ptxas serialised every wgmma of the
+// kernel (C7515; measurably slower on an H100).
+// Occupancy: one warpgroup a block and no producer warp, so the registers
+// go to the accumulators (S, dP and the gradients, 32 fp32 registers each
+// a thread): at Dh 64, 158 registers (dK/dV) and 138 (dQ), 3 blocks an
+// SM, and the blocks on one SM overlap one's exponentials with another's
+// products. ViT-L's grids are 144 to 384 blocks of 64 rows, 0.36 to 0.97
+// waves of 396 slots. A cluster of two blocks splitting the streamed tiles
+// of the small B1 grids (and adding its halves through distributed shared
+// memory) measured no faster and is not kept. For Dh above 64 the
+// gradient's columns are split over Dh/64 blocks that share their fixed
+// rows and each recompute S and dP (every block holds 64 accumulator
+// columns a gradient, whatever Dh, and nothing spills).
+// The exponential is __expf's (ex2.approx of x log2 e) with denormal
+// results flushed to zero.
+// fp32: the fp32 FMA pipes (no tensor cores, so no TF32); 8 threads a
+// fixed row, 32 fixed rows a block, streamed tiles of 32 rows through a
+// two-stage 16-byte cp.async ring; a thread owns 4 of the tile's scores
+// and Dh/8 columns of each gradient; P and dS pass through shared memory
+// within the 8 lanes of their row.
 
+#include <cuda.h>          // CUtensorMap and its enums (declarations only)
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled, as declared here
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -137,15 +155,12 @@ __device__ __forceinline__ void stage_stats(float* dst, const Params& p,
   }
 }
 
-// d += a b, one m16n8k16 tile: bf16 inputs, fp32 accumulator.
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// __expf's steps (ex2.approx of x times log2 e) with denormals flushed
+__device__ __forceinline__ float exp_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n"
+      : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
 }
 
 // Two floats rounded to bf16 and packed, the first in the low half.
@@ -156,220 +171,349 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // ---------------------------------------------------------------- bf16 ----
 
-constexpr int BC = 64;  // streamed rows a tile
-constexpr int PAD = 8;  // bf16 elements of padding a row
+constexpr int ROWS = 64;             // rows of every tile, fixed or streamed
+constexpr int BOX = ROWS * 64 * 2;   // bytes of a 64 x 64 box (128-byte rows)
+constexpr int WG = 128;              // threads a block: one warpgroup
 
 template <int D>
-struct Shape {
-  static constexpr int SPLIT = D / 64;         // warps sharing a row group
-  static constexpr int WR = D <= 128 ? 4 : 2;  // row groups of 16 rows
-  static constexpr int THREADS = 32 * WR * SPLIT;
-  static constexpr int BR = 16 * WR;  // fixed rows a block
+struct Ring {
+  static constexpr int NSUB = D / 64;             // boxes a tile
+  static constexpr int TILE = NSUB * BOX;         // bytes of a 64-row tile
+  static constexpr int STAGES = D == 64 ? 3 : 2;  // streamed tiles a ring
 };
 
+// 1024 bytes to align the swizzled tiles, the two fixed tiles, the ring
+// (two tiles a stage), for dK/dV m, l, di and 1/l of each stage, and the
+// barriers (one a stage, one for the fixed tiles)
 template <int D, bool DKV>
 constexpr int smem_bf16() {
-  return (2 * Shape<D>::BR + 4 * BC) * (D + PAD) * 2 +
-         (DKV ? 2 * 3 * BC * 4 : 0);
+  using R = Ring<D>;
+  return 1024 + (2 + 2 * R::STAGES) * R::TILE +
+         (DKV ? R::STAGES * 4 * ROWS * 4 : 0) + 8 * (R::STAGES + 1);
 }
 
-// One block an SM at least: ptxas may then take up to 255 registers a
-// thread (with the thread count alone it capped them at 168 and spilled).
-template <int D, bool DKV>
-__global__ void __launch_bounds__(Shape<D>::THREADS, 1)
-    flash_bwd_bf16(const Params p) {
-  static_assert(D % 64 == 0, "Dh must be a multiple of 64");
-  using S = Shape<D>;
-  constexpr int LD = D + PAD;  // bf16 elements a shared row
-  constexpr int LDW = LD / 2;  // 32-bit words a shared row
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* f1 = reinterpret_cast<__nv_bfloat16*>(smem);  // k | q
-  __nv_bfloat16* f2 = f1 + S::BR * LD;                          // v | do
-  __nv_bfloat16* s1 = f2 + S::BR * LD;      // [2][BC][LD] q | k
-  __nv_bfloat16* s2 = s1 + 2 * BC * LD;     // [2][BC][LD] do | v
-  float* st = reinterpret_cast<float*>(s2 + 2 * BC * LD);  // [2][3][BC]
+struct TmaParams {
+  CUtensorMap f1, f2;  // fixed rows: k, v (dK/dV) or q, do (dQ)
+  CUtensorMap s1, s2;  // streamed rows: q, do (dK/dV) or k, v (dQ)
+  Params p;
+};
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int rg = warp / S::SPLIT, c0 = (warp % S::SPLIT) * 64;
-  const int r0 = blockIdx.x * S::BR, h = blockIdx.y, b = blockIdx.z;
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(bar) : "memory");
+}
+
+// The one arrival of the barrier's phase, with the bytes its copies bring.
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred ready;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 ready, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, ready;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 64 x 64 box of a (Dh, N, H, B) tensor map, at column `col` and row
+// `row` of head h of batch b, into shared memory at `dst`.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        int col, int row, int h, int b,
+                                        uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+         "r"(h), "r"(b), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// wgmma's descriptor of an operand in shared memory in the 128-byte
+// swizzled layout that TMA writes (rows of 128 bytes, 1024-byte aligned
+// groups of 8 rows): the start address, both byte offsets 1024 (the next
+// group of 8 rows; the other offset is not stepped by a 64-wide operand
+// in either major order) and layout 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it.
+__device__ __forceinline__ void hold(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define FLASH_BWD_ACC32(d)                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+
+#define FLASH_BWD_D32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64 x 64, fp32) = a b^T (+ d if `accumulate`): a (64 x 16) and b
+// (64 x 16) both K-major in shared memory.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_BWD_D32
+      ", %32, %33, acc, 1, 1, 0, 0;\n}\n"
+      : FLASH_BWD_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += a b: a (64 x 16, bf16) from registers, b (16 x 64)
+// MN-major in shared memory (the streamed tile's rows as they lie).
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_BWD_D32
+      ", {%32, %33, %34, %35}, %36, acc, 1, 1, 1;\n}\n"
+      : FLASH_BWD_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// Accumulator element i of m64n64 lies at row 16 warp + g + 8 ((i >> 1) & 1)
+// and column 8 (i >> 2) + 2 c + (i & 1) (g = lane / 4, c = lane % 4); the
+// A fragment of the k-step kk (columns 16 kk to 16 kk + 15) is elements
+// 8 kk to 8 kk + 7, paired in order.
+template <int D, bool DKV>
+__global__ void __launch_bounds__(WG, DKV ? 2 : 3)
+    flash_bwd_bf16(const __grid_constant__ TmaParams tp) {
+  static_assert(D % 64 == 0, "Dh must be a multiple of 64");
+  using R = Ring<D>;
+  constexpr int ST = R::STAGES;
+  constexpr uint32_t STAGE_BYTES = 2 * R::TILE + (DKV ? 3 * ROWS * 4 : 0);
+  const Params& p = tp.p;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t f1 = base, f2 = base + R::TILE;  // fixed tiles
+  const uint32_t ring = base + 2 * R::TILE;       // stage s: s1, then s2
+  float* stats = reinterpret_cast<float*>(sm + (2 + 2 * ST) * R::TILE);
+  float* inv = stats + ST * 3 * ROWS;  // [ST][64] 1 / l (dK/dV)
+  const uint32_t bars = smem_addr(stats) + (DKV ? ST * 4 * ROWS * 4 : 0);
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, c = tid & 3;
+  const int sub = blockIdx.x % R::NSUB;  // the block's 64 gradient columns
+  const int r0 = (blockIdx.x / R::NSUB) * ROWS, h = blockIdx.y,
+            b = blockIdx.z;
+  const int tiles = (DKV ? p.n_q : p.n_kv) / ROWS;
   const long long sbase =
       (static_cast<long long>(b) * gridDim.y + h) * p.n_q;  // m, l, di
-  const __nv_bfloat16* q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.q_b + h * p.q_h;
-  const __nv_bfloat16* k =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.k_b + h * p.k_h;
-  const __nv_bfloat16* v =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.v_b + h * p.v_h;
-  const __nv_bfloat16* dout =
-      static_cast<const __nv_bfloat16*>(p.dout) + b * p.d_b + h * p.d_h;
-  // fixed rows (r0 on), streamed rows (from 0), their row strides
-  const __nv_bfloat16* fg1 = DKV ? k + r0 * p.k_n : q + r0 * p.q_n;
-  const __nv_bfloat16* fg2 = DKV ? v + r0 * p.v_n : dout + r0 * p.d_n;
-  const long long fn1 = DKV ? p.k_n : p.q_n, fn2 = DKV ? p.v_n : p.d_n;
-  const __nv_bfloat16* sg1 = DKV ? q : k;
-  const __nv_bfloat16* sg2 = DKV ? dout : v;
-  const long long sn1 = DKV ? p.q_n : p.k_n, sn2 = DKV ? p.d_n : p.v_n;
-  const int tiles = (DKV ? p.n_q : p.n_kv) / BC;
 
-  stage_rows<D, S::THREADS>(f1, LD, fg1, fn1, S::BR, tid);
-  stage_rows<D, S::THREADS>(f2, LD, fg2, fn2, S::BR, tid);
-  stage_rows<D, S::THREADS>(s1, LD, sg1, sn1, BC, tid);
-  stage_rows<D, S::THREADS>(s2, LD, sg2, sn2, BC, tid);
-  if constexpr (DKV) stage_stats<S::THREADS>(st, p, sbase, 0, BC, tid);
-  cp_async_commit();
+  // streamed tile j into its stage, by thread 0
+  auto load = [&](int j) {
+    const int s = j % ST;
+    const uint32_t bar = bars + 8 * s, dst = ring + 2 * s * R::TILE;
+    bar_expect(bar, STAGE_BYTES);
+#pragma unroll
+    for (int x = 0; x < R::NSUB; ++x) {
+      tma_box(dst + x * BOX, &tp.s1, 64 * x, j * ROWS, h, b, bar);
+      tma_box(dst + R::TILE + x * BOX, &tp.s2, 64 * x, j * ROWS, h, b, bar);
+    }
+    if constexpr (DKV) {
+      const long long i = sbase + static_cast<long long>(j) * ROWS;
+      const uint32_t st = smem_addr(stats + s * 3 * ROWS);
+      bulk_copy(st, p.m + i, ROWS * 4, bar);
+      bulk_copy(st + ROWS * 4, p.l + i, ROWS * 4, bar);
+      bulk_copy(st + 2 * ROWS * 4, p.di + i, ROWS * 4, bar);
+    }
+  };
 
-  // dQ: m, 1 / l and di of the warp's rows g and g + 8
+  if (tid == 0) {
+    for (int s = 0; s <= ST; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const uint32_t bar = bars + 8 * ST;
+    bar_expect(bar, 2 * R::TILE);
+#pragma unroll
+    for (int x = 0; x < R::NSUB; ++x) {
+      tma_box(f1 + x * BOX, &tp.f1, 64 * x, r0, h, b, bar);
+      tma_box(f2 + x * BOX, &tp.f2, 64 * x, r0, h, b, bar);
+    }
+    for (int j = 0; j < ST && j < tiles; ++j) load(j);
+  }
+  __syncwarp();
+
+  // dQ: m, 1 / l and di of the thread's rows g and g + 8 of its warp's 16
   float rm[2] = {0.f, 0.f}, rinv[2] = {0.f, 0.f}, rdi[2] = {0.f, 0.f};
   if constexpr (!DKV) {
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
-      const long long i = sbase + r0 + rg * 16 + g + 8 * r;
+      const long long i = sbase + r0 + warp * 16 + g + 8 * r;
       rm[r] = p.m[i];
       rinv[r] = 1.f / p.l[i];
       rdi[r] = p.di[i];
     }
   }
 
-  float acc1[8][4], acc2[DKV ? 8 : 1][4];  // dK | dQ, and dV
+  float acc1[32], acc2[32], sc[32], dp[32];  // dK | dQ, dV, S, dP
+  uint32_t pa[4][4], da[4][4];               // P and dS as A fragments
 #pragma unroll
-  for (int t = 0; t < 8; ++t)
-    acc1[t][0] = acc1[t][1] = acc1[t][2] = acc1[t][3] = 0.f;
-#pragma unroll
-  for (int t = 0; t < (DKV ? 8 : 1); ++t)
-    acc2[t][0] = acc2[t][1] = acc2[t][2] = acc2[t][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc1[i] = acc2[i] = sc[i] = dp[i] = 0.f;
+  bar_wait(bars + 8 * ST, 0);
 
-  const uint32_t* fw1 =
-      reinterpret_cast<const uint32_t*>(f1) + (rg * 16) * LDW;
-  const uint32_t* fw2 =
-      reinterpret_cast<const uint32_t*>(f2) + (rg * 16) * LDW;
   for (int j = 0; j < tiles; ++j) {
-    const int s = j & 1;
-    if (j + 1 < tiles) {
-      const long long r = static_cast<long long>(j + 1) * BC;
-      stage_rows<D, S::THREADS>(s1 + (s ^ 1) * BC * LD, LD, sg1 + r * sn1,
-                                sn1, BC, tid);
-      stage_rows<D, S::THREADS>(s2 + (s ^ 1) * BC * LD, LD, sg2 + r * sn2,
-                                sn2, BC, tid);
-      if constexpr (DKV)
-        stage_stats<S::THREADS>(st + (s ^ 1) * 3 * BC, p, sbase,
-                                (j + 1) * BC, BC, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    const int s = j % ST;
+    const uint32_t t1 = ring + 2 * s * R::TILE, t2 = t1 + R::TILE;
+    const float* tm = stats + s * 3 * ROWS;
+    const float* ti = inv + s * ROWS;
+    bar_wait(bars + 8 * s, (j / ST) & 1);
+    if constexpr (DKV) {
+      if (tid < ROWS) inv[s * ROWS + tid] = 1.f / tm[ROWS + tid];
     }
-    __syncthreads();
-    const __nv_bfloat16* t1 = s1 + s * BC * LD;
-    const __nv_bfloat16* t2 = s2 + s * BC * LD;
-    const uint32_t* sw1 = reinterpret_cast<const uint32_t*>(t1);
-    const uint32_t* sw2 = reinterpret_cast<const uint32_t*>(t2);
 
-    // S = F1 S1^T and dP = F2 S2^T: 16 fixed rows x 64 streamed columns
-    float sc[BC / 8][4], dp[BC / 8][4];
+    // S = F1 S1^T and dP = F2 S2^T, one commit group each
+    hold(sc);
+    hold(dp);
+    wg_fence();
 #pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-      sc[nt][0] = sc[nt][1] = sc[nt][2] = sc[nt][3] = 0.f;
-      dp[nt][0] = dp[nt][1] = dp[nt][2] = dp[nt][3] = 0.f;
-    }
-#pragma unroll 2
     for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4], c[4];
-      a[0] = fw1[g * LDW + kk * 8 + t4];
-      a[1] = fw1[(g + 8) * LDW + kk * 8 + t4];
-      a[2] = fw1[g * LDW + kk * 8 + 4 + t4];
-      a[3] = fw1[(g + 8) * LDW + kk * 8 + 4 + t4];
-      c[0] = fw2[g * LDW + kk * 8 + t4];
-      c[1] = fw2[(g + 8) * LDW + kk * 8 + t4];
-      c[2] = fw2[g * LDW + kk * 8 + 4 + t4];
-      c[3] = fw2[(g + 8) * LDW + kk * 8 + 4 + t4];
+      const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+      mma_ss(sc, desc(f1 + off), desc(t1 + off), kk);
+    }
+    wg_commit();
 #pragma unroll
-      for (int nt = 0; nt < BC / 8; ++nt) {
-        const uint32_t* r1 = sw1 + (nt * 8 + g) * LDW + kk * 8 + t4;
-        mma_bf16(sc[nt], a, r1[0], r1[4]);
-        const uint32_t* r2 = sw2 + (nt * 8 + g) * LDW + kk * 8 + t4;
-        mma_bf16(dp[nt], c, r2[0], r2[4]);
-      }
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+      mma_ss(dp, desc(f2 + off), desc(t2 + off), kk);
+    }
+    wg_commit();
+    wg_wait<1>();  // S is done (and dQ: tile j - 1's product)
+    hold(sc);
+    __syncthreads();  // 1 / l is written; no warp reads tile j - 1 any more
+    // thread 0 refills tile j - 1's stage: dQ here, dK/dV while its
+    // gradient products run (below), where the warpgroup waits anyway
+    if constexpr (!DKV) {
+      if (tid == 0 && j >= 1 && j - 1 + ST < tiles) load(j - 1 + ST);
+      __syncwarp();
     }
 
-    // P and dS, element for element; as A fragments, rounded to bf16.
-    // Accumulator element e sits at fixed row g + 8 (e >> 1) and streamed
-    // column nt * 8 + 2 t4 + (e & 1).
-    const float* tm = st + s * 3 * BC;
-    uint32_t pa[BC / 16][4], da[BC / 16][4];
+    // P, in fp32; as A fragments rounded to bf16
+    float pv[32];
 #pragma unroll
-    for (int nt = 0; nt < BC / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float mm, inv, dd;
-        if constexpr (DKV) {
-          const int col = nt * 8 + 2 * t4 + (e & 1);
-          mm = tm[col];
-          inv = 1.f / tm[BC + col];
-          dd = tm[2 * BC + col];
-        } else {
-          mm = rm[e >> 1];
-          inv = rinv[e >> 1];
-          dd = rdi[e >> 1];
-        }
-        const float pv = __expf(__fmul_rn(sc[nt][e], p.scale) - mm) * inv;
-        sc[nt][e] = pv;
-        dp[nt][e] = (dp[nt][e] - dd) * pv * p.scale;
-      }
-      pa[nt / 2][(nt & 1) * 2] = pack_bf16(sc[nt][0], sc[nt][1]);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(sc[nt][2], sc[nt][3]);
-      da[nt / 2][(nt & 1) * 2] = pack_bf16(dp[nt][0], dp[nt][1]);
-      da[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(dp[nt][2], dp[nt][3]);
-    }
-
-    // acc1 += dS S1[:, c0:c0+64] and (dK/dV) acc2 += P S2[:, c0:c0+64]:
-    // a B fragment pairs streamed rows 2 t4 and 2 t4 + 1 of a column
-    const uint16_t* h1 = reinterpret_cast<const uint16_t*>(t1);
-    const uint16_t* h2 = reinterpret_cast<const uint16_t*>(t2);
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-      const uint16_t* r1 = h1 + (kk * 16 + 2 * t4) * LD + c0 + g;
-#pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const uint32_t b0 = r1[t * 8] | (uint32_t(r1[LD + t * 8]) << 16);
-        const uint32_t b1 =
-            r1[8 * LD + t * 8] | (uint32_t(r1[9 * LD + t * 8]) << 16);
-        mma_bf16(acc1[t], da[kk], b0, b1);
-      }
+    for (int i = 0; i < 32; ++i) {
+      float mm, iv;
       if constexpr (DKV) {
-        const uint16_t* r2 = h2 + (kk * 16 + 2 * t4) * LD + c0 + g;
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const uint32_t b0 = r2[t * 8] | (uint32_t(r2[LD + t * 8]) << 16);
-          const uint32_t b1 =
-              r2[8 * LD + t * 8] | (uint32_t(r2[9 * LD + t * 8]) << 16);
-          mma_bf16(acc2[t], pa[kk], b0, b1);
-        }
+        const int col = 8 * (i >> 2) + 2 * c + (i & 1);
+        mm = tm[col];
+        iv = ti[col];
+      } else {
+        mm = rm[(i >> 1) & 1];
+        iv = rinv[(i >> 1) & 1];
       }
+      pv[i] = exp_ftz(__fmul_rn(sc[i], p.scale) - mm) * iv;
     }
-    __syncthreads();  // the ring buffer is refilled by the next tile
-  }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(pv[8 * kk + 2 * r], pv[8 * kk + 2 * r + 1]);
+    wg_wait<0>();
+    hold(dp);
 
-  // rows g and g + 8 of the warp's 16, columns c0 + t * 8 + 2 t4 (+1)
-  const int row = r0 + rg * 16 + g;
+    // dS = (dP - di) P scale; acc1 += dS S1[:, sub]
+    float dsv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float dd = DKV ? tm[2 * ROWS + 8 * (i >> 2) + 2 * c + (i & 1)]
+                           : rdi[(i >> 1) & 1];
+      dsv[i] = (dp[i] - dd) * pv[i] * p.scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = pack_bf16(dsv[8 * kk + 2 * r], dsv[8 * kk + 2 * r + 1]);
+    hold(acc1);
+    if constexpr (DKV) hold(acc2);
+    wg_fence();
+    if constexpr (DKV) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(acc2, pa[kk], desc(t2 + sub * BOX + kk * 16 * 128));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs(acc1, da[kk], desc(t1 + sub * BOX + kk * 16 * 128));
+    wg_commit();
+    // dK/dV retires its two products within the tile: left in flight over
+    // the next tile's S and dP, ptxas serialises every wgmma of the kernel
+    if constexpr (DKV) {
+      if (tid == 0 && j >= 1 && j - 1 + ST < tiles) load(j - 1 + ST);
+      __syncwarp();
+      wg_wait<0>();
+    }
+  }
+  wg_wait<0>();
+  hold(acc1);
+  if constexpr (DKV) hold(acc2);
+
+  // rows g and g + 8 of the warp's 16, columns 8 t + 2 c (+1) of the 64
+  const int row = r0 + warp * 16 + g, col = sub * 64 + 2 * c;
   __nv_bfloat16* o1 = static_cast<__nv_bfloat16*>(p.g1) + b * p.g1_b +
-                      h * p.g1_h + row * p.g1_n + c0 + 2 * t4;
+                      h * p.g1_h + row * p.g1_n + col;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     *reinterpret_cast<__nv_bfloat162*>(o1 + t * 8) =
-        __floats2bfloat162_rn(acc1[t][0], acc1[t][1]);
+        __floats2bfloat162_rn(acc1[4 * t], acc1[4 * t + 1]);
     *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * p.g1_n + t * 8) =
-        __floats2bfloat162_rn(acc1[t][2], acc1[t][3]);
+        __floats2bfloat162_rn(acc1[4 * t + 2], acc1[4 * t + 3]);
   }
   if constexpr (DKV) {
     __nv_bfloat16* o2 = static_cast<__nv_bfloat16*>(p.g2) + b * p.g2_b +
-                        h * p.g2_h + row * p.g2_n + c0 + 2 * t4;
+                        h * p.g2_h + row * p.g2_n + col;
 #pragma unroll
     for (int t = 0; t < 8; ++t) {
       *reinterpret_cast<__nv_bfloat162*>(o2 + t * 8) =
-          __floats2bfloat162_rn(acc2[t][0], acc2[t][1]);
+          __floats2bfloat162_rn(acc2[4 * t], acc2[4 * t + 1]);
       *reinterpret_cast<__nv_bfloat162*>(o2 + 8 * p.g2_n + t * 8) =
-          __floats2bfloat162_rn(acc2[t][2], acc2[t][3]);
+          __floats2bfloat162_rn(acc2[4 * t + 2], acc2[4 * t + 3]);
     }
   }
 }
@@ -518,20 +662,92 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_f32(const Params p) {
   }
 }
 
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
+// point query, so that the library needs no link against libcuda.
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The TMA map of one bf16 tensor in the JAX layout, as a 4-d (Dh, N, H, B)
+// tensor with the given strides (elements), boxes of 64 x 64 and 128-byte
+// swizzle. A dimension of size 1 is never stepped: it takes the row stride.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int D, int N,
+                       int H, int B, long long s_n, long long s_h,
+                       long long s_b) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(s_n) * 2,
+      static_cast<cuuint64_t>(H > 1 ? s_h : s_n) * 2,
+      static_cast<cuuint64_t>(B > 1 ? s_b : s_n) * 2};
+  const cuuint32_t box[4] = {64, ROWS, 1, 1}, step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Blocks of a bf16 kernel that fit on one SM, as the occupancy API counts
+// them from its registers, threads and shared memory; -1 if refused.
+template <int D, bool DKV>
+int blocks_per_sm() {
+  int n = -1;
+  if (cudaFuncSetAttribute(flash_bwd_bf16<D, DKV>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bf16<D, DKV>()) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, flash_bwd_bf16<D, DKV>, WG, smem_bf16<D, DKV>()) !=
+          cudaSuccess)
+    return -1;
+  return n;
+}
+
 template <int D, bool DKV>
 int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
   const int fixed = DKV ? p.n_kv : p.n_q, streamed = DKV ? p.n_q : p.n_kv;
   cudaError_t e;
   if (dtype == 0) {
-    using S = Shape<D>;
-    if (fixed % S::BR != 0 || streamed % BC != 0)
+    if (fixed % ROWS != 0 || streamed % ROWS != 0)
       return static_cast<int>(cudaErrorInvalidValue);
+    TmaParams tp;
+    tp.p = p;
+    CUtensorMap q, k, v, d;
+    if (!tensor_map(&q, p.q, D, p.n_q, H, B, p.q_n, p.q_h, p.q_b) ||
+        !tensor_map(&k, p.k, D, p.n_kv, H, B, p.k_n, p.k_h, p.k_b) ||
+        !tensor_map(&v, p.v, D, p.n_kv, H, B, p.v_n, p.v_h, p.v_b) ||
+        !tensor_map(&d, p.dout, D, p.n_q, H, B, p.d_n, p.d_h, p.d_b))
+      return static_cast<int>(cudaErrorInvalidValue);
+    tp.f1 = DKV ? k : q;
+    tp.f2 = DKV ? v : d;
+    tp.s1 = DKV ? q : k;
+    tp.s2 = DKV ? d : v;
     e = cudaFuncSetAttribute(flash_bwd_bf16<D, DKV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bf16<D, DKV>());
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bwd_bf16<D, DKV><<<dim3(fixed / S::BR, H, B), S::THREADS,
-                             smem_bf16<D, DKV>(), st>>>(p);
+    flash_bwd_bf16<D, DKV><<<dim3(fixed / ROWS * Ring<D>::NSUB, H, B), WG,
+                             smem_bf16<D, DKV>(), st>>>(tp);
   } else if (dtype == 1) {
     if (fixed % F_BR != 0 || streamed % F_BC != 0)
       return static_cast<int>(cudaErrorInvalidValue);
@@ -545,6 +761,16 @@ int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+// How the bf16 dK/dV (dkv != 0) or dQ kernel runs at this shape: plan[0]
+// the blocks it launches, plan[1] its blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused).
+template <int D, bool DKV>
+int plan_for(int B, int H, int n_q, int n_kv, int* plan) {
+  plan[0] = (DKV ? n_kv : n_q) / ROWS * Ring<D>::NSUB * H * B;
+  plan[1] = blocks_per_sm<D, DKV>();
+  return 0;
 }
 
 template <bool DKV>
@@ -599,4 +825,20 @@ extern "C" int flash_attention_bwd_dq_launch(
                             dq_n, dq_h, 0,    0,    0,   scale};
   return flash_bwd::dispatch<false>(dtype, B, H, D, p,
                                     static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int flash_attention_bwd_plan(int dkv, int D, int B, int H,
+                                        int n_q, int n_kv, int* plan) {
+  using flash_bwd::plan_for;
+  switch (D) {
+    case 64: return dkv ? plan_for<64, true>(B, H, n_q, n_kv, plan)
+                        : plan_for<64, false>(B, H, n_q, n_kv, plan);
+    case 128: return dkv ? plan_for<128, true>(B, H, n_q, n_kv, plan)
+                         : plan_for<128, false>(B, H, n_q, n_kv, plan);
+    case 192: return dkv ? plan_for<192, true>(B, H, n_q, n_kv, plan)
+                         : plan_for<192, false>(B, H, n_q, n_kv, plan);
+    case 256: return dkv ? plan_for<256, true>(B, H, n_q, n_kv, plan)
+                         : plan_for<256, false>(B, H, n_q, n_kv, plan);
+    default: return -1;
+  }
 }

@@ -295,12 +295,21 @@ def test_registry_matches_the_c_entry_points(name):
     ("flash_attention_bwd_dkv", r"case (\d+): return launch<\d+, DKV>"),
     ("flash_attention_bwd_dq", r"case (\d+): return launch<\d+, DKV>")])
 def test_flash_source_is_hand_written(name, case):
-    """The forward and the two backward kernels are mma.sync written out,
-    with one template instance per head dim the wrapper admits, no library
-    on the route and (backward) no atomics."""
+    """The forward is mma.sync written out, fed by cp.async; the two
+    backward kernels are wgmma written out, fed by TMA into an mbarrier
+    ring; each with one template instance per head dim the wrapper admits,
+    no library on the route and (backward) no atomics."""
     code = cuda_build.KERNELS[name][0].read_text()
-    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in code
-    assert "cp.async.cg.shared.global" in code
+    uses = {
+        "flash_attention": (
+            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+            "cp.async.cg.shared.global"),
+    }.get(name, ("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+                 "wgmma.wait_group", "mbarrier.try_wait.parity",
+                 "mbarrier.arrive.expect_tx", "cp.async.bulk.tensor.4d",
+                 "CU_TENSOR_MAP_SWIZZLE_128B"))
+    for op in uses:
+        assert op in code, op
     for banned in ("cublas", "cudnn", "cutlass", "torch", "#include <mma"):
         assert banned not in code.lower(), banned
     ops = re.sub(r"//[^\n]*", "", code).lower()  # without the comments
