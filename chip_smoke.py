@@ -254,12 +254,18 @@ Phases, each printing one line of its own; any failure exits non-zero:
              and 1e-5 in fp32, at ViT-L's shapes (B2 N768 Dh64: encoder H16,
              decoder self and cross H12), on v strided as the fused qkv
              projection hands it over, at n_q 768 x n_kv 1024, in fp32 (B1
-             N768 H16) and at `auto`'s threshold (B1 N4096 H16), each timed
-             (`ms`, `call_ms`) beside the plain version, SDPA on the same
-             inputs (`library_ms`) and the bound; `auto` picks the kernel at
-             N4096 and SDPA at N768; the fixture CLI of 6 with
-             --flash-attention on and without the flag in turns (on, auto,
-             auto, on), with the checks of 6, every `attend` call of an
+             N768 H16), at `auto`'s threshold (B1 N4096 H16) and at the B1
+             shapes where the main paths call it (each view alone: B1 N768
+             H16 with v strided, the encoder; B1 N768 H12, the decoder),
+             each timed (`ms`, `call_ms`) beside the plain version, SDPA on
+             the same inputs (`library_ms`) and the bound, and for bf16 its
+             blocks, blocks an SM (the occupancy API), waves and ptxas
+             registers (`flash_attention_plan`); held, untimed, with its
+             residuals, at the scales 0.1 and -0.125 (`[flash-scale]`);
+             `auto` picks the kernel at N4096 and SDPA at N768; the
+             fixture CLI of 6 with --flash-attention on and without the
+             flag in turns (on, auto, auto, on), with the checks of 6,
+             every `attend` call of an
              `on` run a kernel launch and none in an `auto` run, the kernel
              held on the last call's own q, k and v; one tracked frame of a
              fresh ViT-L with the mode on under torch.profiler (the flash
@@ -271,11 +277,10 @@ Phases, each printing one line of its own; any failure exits non-zero:
 7d. flash-train — full-finetune training with the mode on (the backward
              kernels csrc/flash_attention_bwd.cu replace the TPU kernels
              `_flash_attention_dkv_kernel` and `_flash_attention_dq_kernel`
-             that the Pallas flash attention's VJP runs): at 7c's shapes,
-             at the full-finetune step's own (B1 N768 H16 with v strided,
-             the encoder; B1 N768 H12, the decoder) and at Dh 128, 192 and
-             256 in bf16 and fp32 (B1 n_q 256 n_kv 512 H4, Dh 128 with v
-             strided), the forward's output with its
+             that the Pallas flash attention's VJP runs): at 7c's shapes
+             (the full-finetune step's own B1 shapes among them) and at Dh
+             128, 192 and 256 in bf16 and fp32 (B1 n_q 256 n_kv 512 H4, Dh
+             128 with v strided), the forward's output with its
              residuals l and m the same as without, l and m within 1e-5 of
              the plain version's, and both backward kernels against the
              plain backward (`flash_attention_bwd_torch`), each gradient
@@ -316,8 +321,14 @@ wrote live rows only, so it is timed with the memset it needs. Where DIR
 holds a `flash_attention_bwd.cu`, it also builds that into a library of its
 own and, after phase 7d, times its dK/dV and dQ kernels in turns with this
 checkout's at every bf16 Dh-64 shape of 7d, median of 7 rounds
-(`[compare-flash-bwd]`); each set of sources is compared only where DIR
-holds it.
+(`[compare-flash-bwd]`); where it holds a `flash_attention.cu`, it builds
+that too and, after phase 7c, times its forward in turns with this
+checkout's at every bf16 Dh-64 shape of 7c, median of 7 rounds, with both
+`call_ms` and the count of output elements where the two differ
+(`[compare-flash]`). Each set of sources is compared only where DIR holds
+it. nvcc compiles DIR's sources in DIR: a header that they include
+(`composite_common.cuh`, or `flash_common.cuh` for the flash sources of
+this checkout and later) must be put there too.
 
 Times. A kernel's `ms` is its time on the device alone: 20 launches enqueued
 back to back behind a device-side delay, so that the host is ahead of the
@@ -2573,6 +2584,13 @@ FLASH_SHAPES = (
     ("fp32 B1 N768 H16", 1, 768, 768, 16, 64, "float32", False),
     ("auto B1 N4096 H16", 1, 4096, 4096, 16, 64, "bfloat16", False),
 )
+# where the main paths call it: each view alone (B=1), the encoder's self
+# attention (v strided) and the decoder's; 7c holds the forward and 7d the
+# backward pair there
+FLASH_STEP_SHAPES = (
+    ("train_enc B1 N768 H16", 1, 768, 768, 16, 64, "bfloat16", True),
+    ("train_dec B1 N768 H12", 1, 768, 768, 12, 64, "bfloat16", False),
+)
 # the kernel against its plain version: two bf16 steps of the output's peak
 # (both round p to bf16, against running maxima over 64 and 128 kv rows,
 # and round the output to bf16); fp32 absolute (sums in another order)
@@ -2644,6 +2662,28 @@ def _flash_held(torch, fl, q, k, v, scale, what, timed=True):
     return h
 
 
+def _flash_plans(torch, so, log):
+    """plan(B, n_q, H, D) → how the bf16 forward of the library `so` runs
+    at that shape: the blocks it launches, its blocks an SM (the occupancy
+    API), the waves over the card's SMs and its registers (from the
+    library's ptxas log `log`)."""
+    fn = ctypes.CDLL(str(so)).flash_attention_plan
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    regs = _ptxas_registers(log)
+
+    def plan(B, n_q, H, D):
+        out = (ctypes.c_int * 2)()
+        assert fn(D, B, H, n_q, out) == 0
+        (r,) = [v for k, v in regs.items()
+                if f"flash_fwd_bf16ILi{D}EE" in k]
+        return dict(blocks=out[0], blocks_per_sm=out[1], registers=r,
+                    waves=out[0] / (sms * out[1]), sms=sms)
+
+    return plan
+
+
 def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
     """7c. The flash-attention path at full width → (lines, results): the
     kernel against its plain version at the path's shapes (timed, beside
@@ -2653,7 +2693,7 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
     tracked frame under the profiler and `bench` with the mode on."""
     import numpy as np
 
-    from splatt3r_slam_tpu_torch import bench
+    from splatt3r_slam_tpu_torch import bench, cuda_build
     from splatt3r_slam_tpu_torch import config as cfgmod
     from splatt3r_slam_tpu_torch.models import TwoViewConfig, init_model
     from splatt3r_slam_tpu_torch.runtime.frame import create_frame
@@ -2671,8 +2711,11 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
             np.float32)).to(device, dtype)
 
     # the kernel against its plain version at the path's shapes
+    plan = _flash_plans(torch, *cuda_build.build(
+        ["flash_attention"])["flash_attention"])
     shapes = {}
-    for label, B, nq, nk, nh, D, dt, strided in FLASH_SHAPES:
+    for label, B, nq, nk, nh, D, dt, strided in (FLASH_SHAPES
+                                                 + FLASH_STEP_SHAPES):
         dt = getattr(torch, dt)
         if strided:  # v as Attention hands it over; rope gives new q, k
             qkv = rand(B, nq, 3 * nh * D, dtype=dt)
@@ -2682,8 +2725,14 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
         else:
             q, k, v = (rand(B, n, nh, D, dtype=dt) for n in (nq, nk, nk))
         shapes[label] = _flash_held(torch, fl, q, k, v, D ** -0.5, label)
+        if dt == torch.bfloat16:
+            shapes[label]["plan"] = plan(B, nq, nh, D)
         del q, k, v
     for label, h in shapes.items():
+        g = h.get("plan")
+        grid = "" if g is None else (
+            f" | {g['blocks']} blocks, {g['blocks_per_sm']} an SM, "
+            f"{g['waves']:.2f} waves, {g['registers']} registers")
         lines.append(
             f"[flash-kernel] {label} ({h['dtype']}, v "
             f"{'contiguous' if h['v_contiguous'] else 'strided'}): kernel "
@@ -2691,7 +2740,21 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
             f"{h['peak']:.3f}) | {h['ms']:.4f} ms on the device, call_ms "
             f"{h['call_ms']:.4f}, plain {h['plain_ms']:.3f} ms, SDPA "
             f"{h['library_ms']:.4f} ms | bound {h['bound_ms']:.4f} ms by "
-            f"{h['bound_by']} | {smi}")
+            f"{h['bound_by']}{grid} | {smi}")
+
+    # scales that are not 1/sqrt(64): not a power of two, and negative (the
+    # kernel takes the smallest score of a row there)
+    q, k, v = (rand(2, 768, 12, 64, dtype=torch.bfloat16) for _ in range(3))
+    for scale in (0.1, -0.125):
+        h = _flash_held(torch, fl, q, k, v, scale, f"scale {scale}",
+                        timed=False)
+        *_, l_err, m_err = _flash_residuals_held(torch, fl, q, k, v, scale,
+                                                 f"scale {scale}")
+        lines.append(f"[flash-scale] B2 N768 H12 bf16 at scale {scale}: "
+                     f"kernel vs plain {h['err']:.3e} (bar {h['bar']:.3e}, "
+                     f"peak {h['peak']:.3f}); residuals l {l_err:.1e}, m "
+                     f"{m_err:.1e} (bar {FLASH_RES_BAR:.0e})")
+    del q, k, v
 
     # auto: the kernel at the threshold, SDPA at the tracking shape
     picked = {}
@@ -2838,12 +2901,7 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
 # the backward kernels (and the forward's residuals) at the forward's shapes
 # and at every other head dim the kernels are built for, bf16 and fp32:
 # (label, B, n_q, n_kv, H, Dh, dtype, v strided as the fused qkv hands it)
-FLASH_BWD_SHAPES = FLASH_SHAPES + (
-    # the full-finetune step's own calls (B=1, each view alone): the
-    # encoder's self attention (v strided) and the decoder's
-    ("train_enc B1 N768 H16", 1, 768, 768, 16, 64, "bfloat16", True),
-    ("train_dec B1 N768 H12", 1, 768, 768, 12, 64, "bfloat16", False),
-) + tuple(
+FLASH_BWD_SHAPES = FLASH_SHAPES + FLASH_STEP_SHAPES + tuple(
     (f"{short}_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d, dt, d == 128)
     for dt, short in (("bfloat16", "bf16"), ("float32", "fp32"))
     for d in (128, 192, 256))
@@ -2971,15 +3029,10 @@ def _flash_bwd_errors(torch, fl, args, scale, what):
     return h
 
 
-def _flash_bwd_held(torch, fl, q, k, v, do, scale, what):
-    """The forward with and without its residuals (the same output), the
-    residuals against the plain version's, both backward kernels against
-    the plain backward, and their times: each kernel alone on the device
-    and one isolated call, the plain backward, SDPA's backward on the same
-    inputs (one `torch.autograd.grad` of one SDPA output, its forward
-    outside the window) and the bounds → dict."""
-    import torch.nn.functional as F
-
+def _flash_residuals_held(torch, fl, q, k, v, scale, what):
+    """The forward with and without its residuals (the same output), and
+    the residuals l and m against the plain version's → (o, l, m, l's
+    largest relative error, m's largest error over its peak)."""
     o0 = fl.flash_attention(q, k, v, scale)
     o, l, m = fl.flash_attention(q, k, v, scale, residuals=True)
     _, pl, pm = fl.flash_attention_torch(q, k, v, scale, residuals=True)
@@ -2989,6 +3042,20 @@ def _flash_bwd_held(torch, fl, q, k, v, do, scale, what):
     m_err = float((m - pm).abs().max() / pm.abs().max())
     assert l_err <= FLASH_RES_BAR and m_err <= FLASH_RES_BAR, \
         f"{what}: residuals vs plain l {l_err}, m {m_err}"
+    return o, l, m, l_err, m_err
+
+
+def _flash_bwd_held(torch, fl, q, k, v, do, scale, what):
+    """The forward with and without its residuals (the same output), the
+    residuals against the plain version's, both backward kernels against
+    the plain backward, and their times: each kernel alone on the device
+    and one isolated call, the plain backward, SDPA's backward on the same
+    inputs (one `torch.autograd.grad` of one SDPA output, its forward
+    outside the window) and the bounds → dict."""
+    import torch.nn.functional as F
+
+    o, l, m, l_err, m_err = _flash_residuals_held(torch, fl, q, k, v,
+                                                  scale, what)
     h = _flash_bwd_errors(torch, fl, (q, k, v, o, l, m, do), scale, what)
     B, n_q, H, D = q.shape
     n_kv = k.shape[1]
@@ -3366,6 +3433,93 @@ def _flash_train_phase(torch, cr, fl, layers, work):
     return lines, res
 
 
+def _parent_library(source, parent):
+    """Build the file of `source`'s name found in `parent` (an earlier
+    commit's, with the same C entry points) into a library of its own, in
+    that directory's include path → the library's path."""
+    from splatt3r_slam_tpu_torch import cuda_build
+
+    so = cuda_build.BUILD_DIR / f"libparent_{source.stem}.so"
+    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+                    str(so), os.path.join(parent, source.name)], check=True,
+                   capture_output=True, timeout=600)
+    return so
+
+
+def _swap_entries(entries, fn):
+    """fn with the wrappers' launches going to `entries` ({registry name:
+    C entry point}); the entry points in place when this is called are put
+    back after each run."""
+    from splatt3r_slam_tpu_torch import cuda_build
+
+    own = {n: cuda_build._fns[n] for n in entries}
+
+    def run():
+        cuda_build._fns.update(entries)
+        try:
+            return fn()
+        finally:
+            cuda_build._fns.update(own)
+    return run
+
+
+def _in_turns(torch, runs, rounds, **device_ms_kw):
+    """{key: (parent's fn, this checkout's fn)} → {key: (parent ms, this
+    checkout's ms)}: device_ms of each, in turns, the order flipped every
+    round, the median over `rounds`."""
+    samples = {key: ([], []) for key in runs}
+    for r in range(rounds):
+        for key, got in samples.items():
+            pair = list(zip(got, runs[key]))
+            for into, fn in (pair if r % 2 == 0 else pair[::-1]):
+                into.append(device_ms(fn, torch, groups=1, **device_ms_kw))
+    return {key: tuple(statistics.median(x) for x in got)
+            for key, got in samples.items()}
+
+
+def _compare_flash_with_parent(torch, fl, parent, rounds=7):
+    """Build the flash_attention.cu found in `parent` into a library of its
+    own and time its forward in turns with this checkout's at every bf16
+    Dh-64 shape of 7c → {shape: {ms: (parent ms, this checkout's ms),
+    call_ms: (...), differ: output elements where the two builds differ,
+    elements, diff: their largest difference}}, each ms the median over
+    `rounds` of a device-only time of 20 launches."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import cuda_build
+
+    name = "flash_attention"
+    old = {name: cuda_build._entry(_parent_library(
+        cuda_build.KERNELS[name][0], parent), name)}
+    new = {name: cuda_build._fns[name]}  # resolved by phase 7c
+    rng = np.random.default_rng(14)
+    runs, found = {}, {}
+    for label, B, nq, nk, nh, D, dt, strided in (FLASH_SHAPES
+                                                 + FLASH_STEP_SHAPES):
+        if dt != "bfloat16" or D != 64:
+            continue
+        q, k, v, _ = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D,
+                                       torch.bfloat16, strided)
+
+        def fwd(q=q, k=k, v=v, scale=D ** -0.5):
+            return fl.flash_attention(q, k, v, scale)
+
+        runs[label] = tuple(_swap_entries(e, fwd) for e in (old, new))
+        a, b = (fn() for fn in runs[label])
+        torch.cuda.synchronize()
+        d = (a.float() - b.float()).abs()
+        found[label] = dict(differ=int((d > 0).sum()), elements=d.numel(),
+                            diff=float(d.max()))
+        assert found[label]["diff"] <= FLASH_BF16_BAR * float(
+            b.float().abs().max()), (label, found[label])
+    for label, ms in _in_turns(torch, runs, rounds).items():
+        found[label]["ms"] = ms
+        found[label]["call_ms"] = tuple(call_ms(fn, torch)
+                                        for fn in runs[label])
+    return found
+
+
 def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
     """Build the flash_attention_bwd.cu found in `parent` (an earlier
     commit's, with the same C entry points) into a library of its own and
@@ -3379,25 +3533,9 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
     from splatt3r_slam_tpu_torch import cuda_build
 
     names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
-    source = cuda_build.KERNELS[names[0]][0]
-    so = cuda_build.BUILD_DIR / f"libparent_{source.stem}.so"
-    cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
-                    str(so), os.path.join(parent, source.name)], check=True,
-                   capture_output=True, timeout=600)
+    so = _parent_library(cuda_build.KERNELS[names[0]][0], parent)
     old = {n: cuda_build._entry(so, n) for n in names}
     new = {n: cuda_build._fns[n] for n in names}  # resolved by phase 7d
-
-    def using(entries, fn):
-        """fn with the wrapper's launches going to `entries`."""
-        def run():
-            cuda_build._fns.update(entries)
-            try:
-                return fn()
-            finally:
-                cuda_build._fns.update(new)
-        return run
-
     rng = np.random.default_rng(13)
     runs, found = {}, {}
     for label, B, nq, nk, nh, D, dt, strided in FLASH_BWD_SHAPES:
@@ -3415,25 +3553,20 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
         def dq(q=q, k=k, v=v, do=do, m=m, l=l, di=di, scale=scale):
             return fl._launch_dq(q, k, v, do, m, l, di, scale)
 
-        got = [(using(e, dq)(), *using(e, dkv)()) for e in (old, new)]
+        for kind, fn in (("dkv", dkv), ("dq", dq)):
+            runs[label, kind] = tuple(_swap_entries(e, fn)
+                                      for e in (old, new))
+        got = [(dq_fn(), *dkv_fn()) for dkv_fn, dq_fn in zip(
+            runs[label, "dkv"], runs[label, "dq"])]
         torch.cuda.synchronize()
         found[label] = {"diff": max(
             float((a.float() - b.float()).abs().max() / b.float().abs().max())
             for a, b in zip(*got))}
         assert found[label]["diff"] <= FLASH_BWD_BF16_BAR, (label, found)
-        runs[label] = {"dkv": (using(old, dkv), using(new, dkv)),
-                       "dq": (using(old, dq), using(new, dq))}
-    samples = {(label, kind): ([], []) for label in runs
-               for kind in ("dkv", "dq")}
     slow = 10 * SLEEP_CYCLES  # a ctypes launch with its checks, as in 7d
-    for r in range(rounds):
-        for (label, kind), got in samples.items():
-            pair = list(zip(got, runs[label][kind]))
-            for into, fn in (pair if r % 2 == 0 else pair[::-1]):
-                into.append(device_ms(fn, torch, groups=1,
-                                      sleep_cycles=slow))
-    for (label, kind), got in samples.items():
-        found[label][kind] = tuple(statistics.median(x) for x in got)
+    for (label, kind), ms in _in_turns(torch, runs, rounds,
+                                       sleep_cycles=slow).items():
+        found[label][kind] = ms
     return found
 
 
@@ -3443,8 +3576,9 @@ def main(argv=None) -> int:
                     help="also write the results as JSON to this path")
     ap.add_argument("--parent", default=None,
                     help="directory with an earlier composite.cu and "
-                         "composite_bwd.cu and/or flash_attention_bwd.cu to "
-                         "time beside this checkout's")
+                         "composite_bwd.cu, flash_attention.cu and/or "
+                         "flash_attention_bwd.cu to time beside this "
+                         "checkout's")
     args = ap.parse_args(argv)
 
     import numpy as np
@@ -4191,6 +4325,21 @@ def main(argv=None) -> int:
     flash_launches = sum(flash_res["launches"].values())
     assert layers.flash_attention_mode() == "auto"
     assert fl.bwd_launches == 0, "the serving path launched the backward"
+    if args.parent and os.path.exists(
+            os.path.join(args.parent, "flash_attention.cu")):
+        found = _compare_flash_with_parent(torch, fl, args.parent)
+        faster = all(f["ms"][1] < f["ms"][0] for f in found.values())
+        print("[compare-flash] device ms, the flash_attention.cu in --parent "
+              "→ this checkout's, in turns, median of 7 rounds of 20 "
+              "launches | " + " | ".join(
+                  f"{label}: {f['ms'][0]:.4f} → {f['ms'][1]:.4f} (call_ms "
+                  f"{f['call_ms'][0]:.4f} → {f['call_ms'][1]:.4f}); "
+                  f"{f['differ']} of {f['elements']} output elements "
+                  f"differ, by at most {f['diff']:.1e}"
+                  for label, f in found.items())
+              + f" | this checkout's faster at every shape: {faster} | "
+              f"{_smi()}")
+        results["compare_flash"] = found
 
     # -- 7d. full-finetune training with the mode on -------------------------
     gc.collect()
@@ -4326,6 +4475,9 @@ def main(argv=None) -> int:
         **{k: flash_res["shapes"][FLASH_SHAPES[0][0]][k]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                      "call_ms")},
+        # ptxas registers, blocks an SM (occupancy API) and waves there
+        **{k: flash_res["shapes"][FLASH_SHAPES[0][0]]["plan"][k]
+           for k in ("registers", "blocks_per_sm", "waves")},
         "launches_cli": flash_res["launches"]["cli"],
         "launches_profile": flash_res["launches"]["profile"],
         "launches_bench": flash_res["launches"]["bench"],

@@ -1,0 +1,221 @@
+// Device and host helpers shared by the flash-attention sources
+// (flash_attention.cu, flash_attention_bwd.cu), each included once per
+// library: 16-byte cp.async staging for the fp32 paths, bf16 packing, and
+// for the bf16 paths on Hopper (sm_90a) the mbarrier, TMA and wgmma
+// primitives and the host-side TMA tensor map of a tensor in the JAX layout.
+
+#pragma once
+
+#include <cuda.h>          // CUtensorMap and its enums (declarations only)
+#include <cudaTypedefs.h>  // PFN_cuTensorMapEncodeTiled, as declared here
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace flash_common {
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(s), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Start the copy of `rows` rows of D elements (row stride `stride` in
+// device memory, `ld` in shared memory) in 16-byte pieces.
+template <int D, int THREADS, typename T>
+__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
+                                           long long stride, int rows,
+                                           int tid) {
+  constexpr int PER = 16 / sizeof(T);
+  constexpr int PIECES = D / PER;
+  for (int i = tid; i < rows * PIECES; i += THREADS) {
+    const int r = i / PIECES, c = (i % PIECES) * PER;
+    cp_async_16(dst + r * ld + c, src + r * stride + c);
+  }
+}
+
+// __expf's steps (ex2.approx of x times log2 e) with denormals flushed
+__device__ __forceinline__ float exp_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n"
+      : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// Two floats rounded to bf16 and packed, the first in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void bar_init(uint32_t bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               :: "r"(bar) : "memory");
+}
+
+// The one arrival of the barrier's phase, with the bytes its copies bring.
+__device__ __forceinline__ void bar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred ready;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 ready, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, ready;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// One 64 x 64 box of a (Dh, N, H, B) tensor map, at column `col` and row
+// `row` of head h of batch b, into shared memory at `dst`.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map,
+                                        int col, int row, int h, int b,
+                                        uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row),
+         "r"(h), "r"(b), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// wgmma's descriptor of an operand in shared memory in the 128-byte
+// swizzled layout that TMA writes (rows of 128 bytes, 1024-byte aligned
+// groups of 8 rows): the start address, both byte offsets 1024 (the next
+// group of 8 rows; the other offset is not stepped by a 64-wide operand
+// in either major order) and layout 1 (128-byte swizzle).
+__device__ __forceinline__ uint64_t desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1024 >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// Keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it.
+__device__ __forceinline__ void hold(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define FLASH_ACC32(d)                                                   \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+
+#define FLASH_D32                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64 x 64, fp32) = a b^T (+ d if `accumulate`): a (64 x 16) and b
+// (64 x 16) both K-major in shared memory.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_D32
+      ", %32, %33, acc, 1, 1, 0, 0;\n}\n"
+      : FLASH_ACC32(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, fp32) += a b: a (64 x 16, bf16) from registers, b (16 x 64)
+// MN-major in shared memory (the streamed tile's rows as they lie).
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " FLASH_D32
+      ", {%32, %33, %34, %35}, %36, acc, 1, 1, 1;\n}\n"
+      : FLASH_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
+// point query, so that the library needs no link against libcuda.
+using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
+
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// The TMA map of one bf16 tensor in the JAX layout, as a 4-d (Dh, N, H, B)
+// tensor with the given strides (elements), boxes of 64 x 64 and 128-byte
+// swizzle. A dimension of size 1 is never stepped: it takes the row stride.
+inline bool tensor_map(CUtensorMap* map, const void* ptr, int D, int N,
+                       int H, int B, long long s_n, long long s_h,
+                       long long s_b) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(N),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {
+      static_cast<cuuint64_t>(s_n) * 2,
+      static_cast<cuuint64_t>(H > 1 ? s_h : s_n) * 2,
+      static_cast<cuuint64_t>(B > 1 ? s_b : s_n) * 2};
+  const cuuint32_t box[4] = {64, 64, 1, 1}, step[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+}  // namespace flash_common

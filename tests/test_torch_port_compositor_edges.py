@@ -225,10 +225,13 @@ def test_sources_keep_exact_arithmetic():
     and the gradient must have the same bits from run to run."""
     assert not any("fast_math" in f or "fmad" in f for f in cr.NVCC_FLAGS)
     assert "arch=compute_90a,code=sm_90a" in cr.NVCC_FLAGS
-    # the compositor's sources (csrc/ also holds the flash-attention
-    # kernel, whose bf16 products belong on the tensor cores)
-    sources = sorted(s for s, _, _ in cr.KERNELS.values()) + sorted(
-        CSRC.glob("*.cuh"))
+    # the compositor's sources and the headers they include (csrc/ also
+    # holds the flash-attention kernels and their header, whose bf16
+    # products belong on the tensor cores)
+    kernels = sorted(s for s, _, _ in cr.KERNELS.values())
+    sources = kernels + sorted({CSRC / h for p in kernels for h in
+                                re.findall(r'#include "([^"]+)"',
+                                           p.read_text())})
     assert {p.name for p in sources} == {
         "composite.cu", "composite_bwd.cu", "composite_common.cuh"}
     for p in sources:

@@ -295,19 +295,23 @@ def test_registry_matches_the_c_entry_points(name):
     ("flash_attention_bwd_dkv", r"case (\d+): return launch<\d+, DKV>"),
     ("flash_attention_bwd_dq", r"case (\d+): return launch<\d+, DKV>")])
 def test_flash_source_is_hand_written(name, case):
-    """The forward is mma.sync written out, fed by cp.async; the two
-    backward kernels are wgmma written out, fed by TMA into an mbarrier
-    ring; each with one template instance per head dim the wrapper admits,
-    no library on the route and (backward) no atomics."""
-    code = cuda_build.KERNELS[name][0].read_text()
-    uses = {
-        "flash_attention": (
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
-            "cp.async.cg.shared.global"),
-    }.get(name, ("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
-                 "wgmma.wait_group", "mbarrier.try_wait.parity",
-                 "mbarrier.arrive.expect_tx", "cp.async.bulk.tensor.4d",
-                 "CU_TENSOR_MAP_SWIZZLE_128B"))
+    """The forward and the two backward kernels are wgmma written out, fed
+    by TMA into an mbarrier ring (their fp32 paths by 16-byte cp.async);
+    each with one template instance per head dim the wrapper admits, no
+    library on the route and no atomics. A source is read together with
+    the local headers it includes, and its own text calls their wgmma, TMA
+    and mbarrier helpers."""
+    source = cuda_build.KERNELS[name][0]
+    code = source.read_text()
+    own = re.sub(r"//[^\n]*", "", code)
+    for helper in ("mma_ss(", "mma_rs(", "tma_box(", "bar_wait("):
+        assert helper in own, helper
+    for header in re.findall(r'#include "([^"]+)"', code):
+        code += (source.parent / header).read_text()
+    uses = ("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
+            "wgmma.wait_group", "mbarrier.try_wait.parity",
+            "mbarrier.arrive.expect_tx", "cp.async.bulk.tensor.4d",
+            "CU_TENSOR_MAP_SWIZZLE_128B", "cp.async.cg.shared.global")
     for op in uses:
         assert op in code, op
     for banned in ("cublas", "cudnn", "cutlass", "torch", "#include <mma"):

@@ -83,7 +83,10 @@ def calls(monkeypatch):
     """Completed calls of the JAX package's attention, its flash forward
     and its two backward kernels' launchers (calls while tracing: jit and
     scan trace a function once per distinct shape and body), and of the
-    port's plain forward and backward."""
+    port's plain forward and backward. The JAX package's fallback flag
+    starts False, so that a test reads only its own fallbacks (another
+    module in the same worker may have logged one)."""
+    monkeypatch.setattr(JL, "_FLASH_FALLBACK_LOGGED", False)
     n = {"jax_attend": 0, "jax_fwd": 0, "jax_dkv": 0, "jax_dq": 0,
          "fwd": 0, "bwd": 0}
 
