@@ -286,9 +286,12 @@ Phases, each printing one line of its own; any failure exits non-zero:
              plain backward (`flash_attention_bwd_torch`), each gradient
              within 2^-7 of its peak in bf16 and 1e-5 in fp32, each kernel
              timed (`ms`, `call_ms`) beside the plain backward, SDPA's
-             backward on the same inputs (`library_ms`) and its bound, and
-             for bf16 each kernel's blocks, blocks an SM (the occupancy
-             API), waves and ptxas registers; `train.main` in this process
+             backward on the same inputs (`library_ms`) and its bound (in
+             fp32 the faster of the fp32 pipes and split TF32 on the
+             tensor cores), and each kernel's blocks, blocks an SM (the
+             occupancy API), waves and ptxas registers, the fp32 pair also
+             at the fp32 comparison step's own B1 shapes (N768 H16 with v
+             strided, H12); `train.main` in this process
              with the mode on and
              train.train_gaussian_heads_only=false (every parameter
              training, remat on as the CLI's default), 3 steps at 384x512
@@ -320,8 +323,8 @@ the device alone, median of 7 rounds (`[compare]`). The earlier backward
 wrote live rows only, so it is timed with the memset it needs. Where DIR
 holds a `flash_attention_bwd.cu`, it also builds that into a library of its
 own and, after phase 7d, times its dK/dV and dQ kernels in turns with this
-checkout's at every bf16 Dh-64 shape of 7d, median of 7 rounds
-(`[compare-flash-bwd]`); where it holds a `flash_attention.cu`, it builds
+checkout's at every bf16 Dh-64 shape and every fp32 shape of 7d, median of
+7 rounds (`[compare-flash-bwd]`); where it holds a `flash_attention.cu`, it builds
 that too and, after phase 7c, times its forward in turns with this
 checkout's at every bf16 Dh-64 shape of 7c, median of 7 rounds, with both
 `call_ms` and the count of output elements where the two differ
@@ -2599,6 +2602,7 @@ FLASH_FP32_BAR = 1e-5
 # the fixture CLI with --flash-attention on and without the flag, in turns
 FLASH_CLI_RUNS = ("on", "auto", "auto", "on")
 PEAK_BF16 = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
+PEAK_TF32 = 495e12  # the same, dense TF32
 
 
 def _no_flash(fl, phase):
@@ -2662,13 +2666,25 @@ def _flash_held(torch, fl, q, k, v, scale, what, timed=True):
     return h
 
 
+# the ctypes argument types of the plan entry points: flash_attention_plan
+# (D, B, H, n_q, plan[2]) and flash_attention_bwd_plan (dkv, dtype, D, B, H,
+# n_q, n_kv, plan[2]); tests/test_torch_port_flash.py holds them against
+# the C signatures
+FLASH_PLAN_ARGTYPES = {
+    "flash_attention_plan": [ctypes.c_int] * 4
+    + [ctypes.POINTER(ctypes.c_int)],
+    "flash_attention_bwd_plan": [ctypes.c_int] * 7
+    + [ctypes.POINTER(ctypes.c_int)],
+}
+
+
 def _flash_plans(torch, so, log):
     """plan(B, n_q, H, D) → how the bf16 forward of the library `so` runs
     at that shape: the blocks it launches, its blocks an SM (the occupancy
     API), the waves over the card's SMs and its registers (from the
     library's ptxas log `log`)."""
     fn = ctypes.CDLL(str(so)).flash_attention_plan
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = FLASH_PLAN_ARGTYPES["flash_attention_plan"]
     fn.restype = ctypes.c_int
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     regs = _ptxas_registers(log)
@@ -2901,14 +2917,21 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
 # the backward kernels (and the forward's residuals) at the forward's shapes
 # and at every other head dim the kernels are built for, bf16 and fp32:
 # (label, B, n_q, n_kv, H, Dh, dtype, v strided as the fused qkv hands it)
-FLASH_BWD_SHAPES = FLASH_SHAPES + FLASH_STEP_SHAPES + tuple(
+FLASH_BWD_SHAPES = FLASH_SHAPES + FLASH_STEP_SHAPES + (
+    # the fp32 comparison step's own calls (7d's fp32 model): each view
+    # alone, the encoder's (v strided) and the decoder's
+    ("fp32_enc B1 N768 H16", 1, 768, 768, 16, 64, "float32", True),
+    ("fp32_dec B1 N768 H12", 1, 768, 768, 12, 64, "float32", False),
+) + tuple(
     (f"{short}_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d, dt, d == 128)
     for dt, short in (("bfloat16", "bf16"), ("float32", "fp32"))
     for d in (128, 192, 256))
 # the kernels against the plain backward, each gradient's largest error over
 # its peak: two bf16 steps in bf16 (both round p, ds and the gradients to
 # bf16, with fp32 sums in another order: at most 0.52 of it on an H100);
-# fp32 sums in another order (at most 1.23e-6 there)
+# in fp32 the kernels' split-TF32 products (three TF32 products summed in
+# fp32, each operand's split within 2^-22 of it) and sums in another order
+# (the FMA kernels before them: at most 1.23e-6 there)
 FLASH_BWD_BF16_BAR = 2 ** -7
 FLASH_BWD_FP32_BAR = 1e-5
 # the forward's residuals against the plain version's: l relative, m over
@@ -2936,9 +2959,13 @@ def _flash_bwd_bound_ms(B, n_q, n_kv, H, D, itemsize, dkv):
     operations (dK/dV: S, dV, dP, dK, 8·B·H·n_q·n_kv·Dh; dQ: S, dP, dQ,
     6·B·H·n_q·n_kv·Dh) over the card's peak for the inputs' type and the
     bytes of q, k, v, do, m, l and di read once and its gradients written
-    once over the memory rate → (ms, what bounds it)."""
-    t_ops = (8 if dkv else 6) * B * H * n_q * n_kv * D / (
-        PEAK_BF16 if itemsize == 2 else PEAK_FP32)
+    once over the memory rate → (ms, what bounds it). In fp32 the products
+    take the faster of two routes that keep fp32's accuracy: the fp32 pipes
+    (PEAK_FP32) or the tensor cores in split TF32, three TF32 products for
+    each (PEAK_TF32 / 3)."""
+    ops = (8 if dkv else 6) * B * H * n_q * n_kv * D
+    t_ops = ops / PEAK_BF16 if itemsize == 2 else min(
+        ops / PEAK_FP32, 3 * ops / PEAK_TF32)
     n_out = 2 * n_kv if dkv else n_q
     t_bytes = (itemsize * B * H * D * (2 * n_q + 2 * n_kv + n_out)
                + 3 * 4 * B * H * n_q) / PEAK_BYTES
@@ -2980,21 +3007,24 @@ def _ptxas_registers(log):
 
 
 def _flash_bwd_plans(torch, so, log):
-    """plan(dkv, B, n_q, n_kv, H, D) → how the bf16 dK/dV (dkv) or dQ
-    kernel of the library `so` runs at that shape: the blocks it launches,
-    its blocks an SM (the occupancy API), the waves over the card's SMs
-    and its registers (from the library's ptxas log `log`)."""
+    """plan(dkv, dtype, B, n_q, n_kv, H, D) → how the bf16 or fp32 (dtype
+    "bfloat16" or "float32") dK/dV (dkv) or dQ kernel of the library `so`
+    runs at that shape: the blocks it launches, its blocks an SM (the
+    occupancy API), the waves over the card's SMs and its registers (from
+    the library's ptxas log `log`)."""
     fn = ctypes.CDLL(str(so)).flash_attention_bwd_plan
-    fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+    fn.argtypes = FLASH_PLAN_ARGTYPES["flash_attention_bwd_plan"]
     fn.restype = ctypes.c_int
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     regs = _ptxas_registers(log)
 
-    def plan(dkv, B, n_q, n_kv, H, D):
+    def plan(dkv, dtype, B, n_q, n_kv, H, D):
         out = (ctypes.c_int * 2)()
-        assert fn(int(dkv), D, B, H, n_q, n_kv, out) == 0
+        fp32 = dtype == "float32"
+        assert fn(int(dkv), int(fp32), D, B, H, n_q, n_kv, out) == 0
+        stem = "flash_bwd_f32" if fp32 else "flash_bwd_bf16"
         (r,) = [v for k, v in regs.items()
-                if f"flash_bwd_bf16ILi{D}ELb{int(dkv)}E" in k]
+                if f"{stem}ILi{D}ELb{int(dkv)}E" in k]
         return dict(blocks=out[0], blocks_per_sm=out[1], registers=r,
                     waves=out[0] / (sms * out[1]), sms=sms)
 
@@ -3207,12 +3237,11 @@ def _flash_train_phase(torch, cr, fl, layers, work):
                                         getattr(torch, dt), strided)
         shapes[label] = _flash_bwd_held(torch, fl, q, k, v, do, D ** -0.5,
                                         label)
-        if dt == "bfloat16":
-            shapes[label].update(plan_dkv=plan(True, B, nq, nk, nh, D),
-                                 plan_dq=plan(False, B, nq, nk, nh, D))
+        shapes[label].update(plan_dkv=plan(True, dt, B, nq, nk, nh, D),
+                             plan_dq=plan(False, dt, B, nq, nk, nh, D))
         del q, k, v, do
     for label, h in shapes.items():
-        grid = "" if "plan_dkv" not in h else " | " + ", ".join(
+        grid = " | " + ", ".join(
             f"{name} {g['blocks']} blocks, {g['blocks_per_sm']} an SM, "
             f"{g['waves']:.2f} waves, {g['registers']} registers"
             for name, g in (("dK/dV", h["plan_dkv"]), ("dQ", h["plan_dq"])))
@@ -3524,10 +3553,12 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
     """Build the flash_attention_bwd.cu found in `parent` (an earlier
     commit's, with the same C entry points) into a library of its own and
     time its dK/dV and dQ kernels in turns with this checkout's at every
-    bf16 Dh-64 shape of FLASH_BWD_SHAPES → {shape: {dkv: (parent ms, this
-    checkout's ms), dq: (...), diff: the largest difference of the two
-    builds' gradients over each gradient's peak}}, each ms the median over
-    `rounds` of a device-only time of 20 launches."""
+    bf16 Dh-64 shape and every fp32 shape of FLASH_BWD_SHAPES → {shape:
+    {dkv: (parent ms, this checkout's ms), dq: (...), diff: the largest
+    difference of the two builds' gradients over each gradient's peak}},
+    each ms the median over `rounds` of a device-only time of 20 launches.
+    Two fp32 builds may differ by twice the fp32 bar (each is held within
+    it of the plain backward)."""
     import numpy as np
 
     from splatt3r_slam_tpu_torch import cuda_build
@@ -3539,10 +3570,10 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
     rng = np.random.default_rng(13)
     runs, found = {}, {}
     for label, B, nq, nk, nh, D, dt, strided in FLASH_BWD_SHAPES:
-        if dt != "bfloat16" or D != 64:
+        if dt == "bfloat16" and D != 64:
             continue
         q, k, v, do = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D,
-                                        torch.bfloat16, strided)
+                                        getattr(torch, dt), strided)
         scale = D ** -0.5
         o, l, m = fl.flash_attention(q, k, v, scale, residuals=True)
         di = fl._di(o, do)
@@ -3562,7 +3593,9 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
         found[label] = {"diff": max(
             float((a.float() - b.float()).abs().max() / b.float().abs().max())
             for a, b in zip(*got))}
-        assert found[label]["diff"] <= FLASH_BWD_BF16_BAR, (label, found)
+        bar = (FLASH_BWD_BF16_BAR if dt == "bfloat16"
+               else 2 * FLASH_BWD_FP32_BAR)
+        assert found[label]["diff"] <= bar, (label, found)
     slow = 10 * SLEEP_CYCLES  # a ctypes launch with its checks, as in 7d
     for (label, kind), ms in _in_turns(torch, runs, rounds,
                                        sleep_cycles=slow).items():

@@ -37,8 +37,9 @@
 // three (S, dP, dQ), 7.25 GFLOP, 7.3 us. Each also evaluates B·H·n_q·n_kv
 // exponentials (18.9 M) on the special function units, about 4.7 us, and
 // moves a few MB (under 3 us at 3.35 TB/s): both are bound by operations,
-// so the design is about keeping the tensor cores fed. In fp32 (no TF32)
-// the products run on the fp32 pipes (67 TFLOP/s).
+// so the design is about keeping the tensor cores fed. In fp32 each product
+// is three TF32 products (split TF32, below) on the tensor cores: 495 / 3
+// = 165 TFLOP/s of fp32-accurate products, against 67 on the fp32 pipes.
 //
 // Design, bf16. A block is one warpgroup (128 threads). It owns a tile of
 // 64 "fixed" rows and 64 columns of the gradients it writes, and walks the
@@ -82,13 +83,43 @@
 // columns a gradient, whatever Dh, and nothing spills).
 // The exponential is __expf's (ex2.approx of x log2 e) with denormal
 // results flushed to zero.
-// fp32: the fp32 FMA pipes (no tensor cores, so no TF32); 8 threads a
-// fixed row, 32 fixed rows a block, streamed tiles of 32 rows through a
-// two-stage 16-byte cp.async ring; a thread owns 4 of the tile's scores
-// and Dh/8 columns of each gradient; P and dS pass through shared memory
-// within the 8 lanes of their row.
+//
+// Design, fp32: split TF32 on the tensor cores, the same blocks, rows and
+// columns as bf16, the same steps and no rounding to a narrower type: every
+// operand x of every product, p and ds included, is hi + lo (hi = tf32(x),
+// lo = tf32(x - hi), rounded to nearest as cvt.rna.tf32.f32 rounds) and
+// x y = hi hi' + hi lo' + lo hi' in fp32 (flash_common.cuh). wgmma takes no transposed tf32 operand, so:
+//   S and dP are wgmma m64nRSk8 .tf32 with the streamed tile as B, K-major
+//   as TMA lays it (boxes of 32 fp32 columns, 128-byte swizzle; the same
+//   byte layout as bf16's boxes, a k-step is 32 bytes): after each tile
+//   lands, one pass of the warpgroup rounds it to hi in place and writes
+//   lo beside it (fence.proxy.async before the wgmmas read them). At Dh 64
+//   and 128 the fixed tiles are split once the same way and are A by
+//   descriptor; above 128 their hi and lo do not fit beside the ring, so
+//   they stay raw and each box's A fragments are split in registers (S's
+//   and dP's groups alternate, one's fragments loaded while the other's
+//   run).
+//   dV += P^T dO, dK += dS^T Q and dQ += dS K contract over the streamed
+//   rows, the B operand's strided index, so they are mma.sync m16n8k8
+//   .tf32: P and dS are already A fragments in the accumulator's
+//   registers once the contraction index of each 8 is permuted (k = c is
+//   column 2 c, k = c + 4 is 2 c + 1), and B's hi and lo come from the
+//   split tile by address, 16 bytes a load, with the n-tiles' columns
+//   interleaved so that a quarter warp's loads fall in distinct banks.
+// The tensor cores sum in fp32 but do not round to nearest, so a long
+// chain drifts (one chain over all 768 streamed rows of ViT-L's shapes
+// missed the 1e-5 bar on an H100): S and dP are summed from 0 in parts
+// (half of the boxes each at Dh 64 and 128, 12 or 24 products; one box,
+// 12, above) and each tile of a gradient (RS / 8 x 3 products) from 0,
+// and the parts added in fp32 by the FMA pipes. A wgmma's time grows less than its N, so the
+// streamed tiles (RS rows, the N of S and dP) are as tall as shared
+// memory allows: RS 32 with a 2-stage ring at Dh 64 (the fixed hi and lo,
+// the ring and the lo tiles take 113 KB, two blocks an SM) and 128 (225
+// KB), RS 32 with one stage at 192, RS 16 with two at 256. RS 64 at Dh 64
+// made S and dP cheaper a row but leaves one block an SM, slower at
+// ViT-L's B1 grids. The exponential is bf16's (ex2.approx, flushed).
 
-#include "flash_common.cuh"  // cp.async, mbarrier, TMA and wgmma helpers
+#include "flash_common.cuh"  // mbarrier, TMA, wgmma and split-TF32 helpers
 
 namespace flash_bwd {
 
@@ -109,20 +140,6 @@ struct Params {
   long long g1_b, g1_n, g1_h, g2_b, g2_n, g2_h;
   float scale;
 };
-
-// Start the copy of m, l and di for streamed q rows [q0, q0 + rows) into
-// dst[0, rows), dst[rows, 2 rows), dst[2 rows, 3 rows).
-template <int THREADS>
-__device__ __forceinline__ void stage_stats(float* dst, const Params& p,
-                                            long long base, int q0, int rows,
-                                            int tid) {
-  const int pieces = rows / 4;
-  for (int i = tid; i < 3 * pieces; i += THREADS) {
-    const int which = i / pieces, c = (i % pieces) * 4;
-    const float* src = which == 0 ? p.m : (which == 1 ? p.l : p.di);
-    cp_async_16(dst + which * rows + c, src + base + q0 + c);
-  }
-}
 
 // ---------------------------------------------------------------- bf16 ----
 
@@ -360,158 +377,447 @@ __global__ void __launch_bounds__(WG, DKV ? 2 : 3)
 
 // ---------------------------------------------------------------- fp32 ----
 
-constexpr int F_THREADS = 256;
-constexpr int F_R = 8;                     // threads a fixed row
-constexpr int F_BR = F_THREADS / F_R;      // fixed rows a block
-constexpr int F_BC = 32;                   // streamed rows a tile
-constexpr int F_PAD = 4;                   // floats of padding a row
-constexpr int F_LDP = F_BC + F_PAD;
+// Streamed rows a tile and ring stages of the fp32 kernels, by head dim.
+// A stage holds the two raw streamed tiles; one pair of lo tiles serves the
+// tile in work. At Dh 64 and 128 the fixed tiles are split once, hi in
+// place and lo beside (FIXED_LO), and S and dP read both operands by
+// descriptor; above, their hi and lo do not fit beside the ring, so the
+// fixed tiles stay raw and are split into A fragments in registers, box by
+// box. Boxes are 32 fp32 columns (128 bytes) wide, 128-byte swizzled.
+template <int D>
+struct F32 {
+  static constexpr int RS = D <= 192 ? 32 : 16;  // streamed rows a tile
+  static constexpr int STAGES = D == 192 ? 1 : 2;
+  static constexpr bool FIXED_LO = D <= 128;
+  static constexpr int NB = D / 32;              // boxes a row
+  static constexpr int FBOX = ROWS * 128;        // a 64-row box
+  static constexpr int SBOX = RS * 128;          // a streamed box
+  static constexpr int FTILE = NB * FBOX;
+  static constexpr int STILE = NB * SBOX;
+  // with the fixed tiles' lo (two blocks an SM at Dh 64, the whole SM at
+  // 128) there is no room for 1024 bytes of alignment slack: the kernel
+  // declares its shared memory 1024-byte aligned there (and traps if it is
+  // not)
+  static constexpr int SLACK = FIXED_LO ? 0 : 1024;
+};
 
+// the alignment slack, the two fixed tiles (and their lo), the ring (two
+// tiles a stage), the lo of the tile in work, for dK/dV m, l (then 1/l)
+// and di of each stage, and the barriers (one a stage, one for the fixed
+// tiles)
 template <int D, bool DKV>
 constexpr int smem_f32() {
-  return ((2 * F_BR + 4 * F_BC) * (D + F_PAD) + 2 * F_BR * F_LDP +
-          (DKV ? 2 * 3 * F_BC : 0)) * 4;
+  using R = F32<D>;
+  return R::SLACK + (R::FIXED_LO ? 4 : 2) * R::FTILE +
+         (2 * R::STAGES + 2) * R::STILE +
+         (DKV ? R::STAGES * 3 * R::RS * 4 : 0) + 8 * (R::STAGES + 1);
+}
+
+// hi in place and lo at `lo` (the same layout) of N bytes of fp32 values
+// in shared memory, N a multiple of 16 WG
+template <int N>
+__device__ __forceinline__ void split_pass(unsigned char* hi,
+                                           unsigned char* lo, int tid) {
+  float4* hv = reinterpret_cast<float4*>(hi);
+  float4* lv = reinterpret_cast<float4*>(lo);
+#pragma unroll
+  for (int r = 0; r < N / 16 / WG; ++r) {
+    const int i = tid + r * WG;
+    const float4 v = hv[i];
+    uint32_t hx, lx, hy, ly, hz, lz, hw, lw;
+    split_tf32(v.x, hx, lx);
+    split_tf32(v.y, hy, ly);
+    split_tf32(v.z, hz, lz);
+    split_tf32(v.w, hw, lw);
+    hv[i] = make_float4(__uint_as_float(hx), __uint_as_float(hy),
+                        __uint_as_float(hz), __uint_as_float(hw));
+    lv[i] = make_float4(__uint_as_float(lx), __uint_as_float(ly),
+                        __uint_as_float(lz), __uint_as_float(lw));
+  }
+}
+
+// The A fragments of k-steps 4 x to 4 x + 3 (the 32 columns of box x) of a
+// fixed 64-row tile, split into tf32 hi and lo: the warp's rows 16 warp + g
+// and + 8, columns c and c + 4 of each k-step. Row r's 16-byte piece q lies
+// at piece q ^ (r % 8) of its 128 bytes, and r % 8 = g for both rows.
+__device__ __forceinline__ void fixed_frags(const unsigned char* tile, int x,
+                                            int warp, int g, int c,
+                                            uint32_t (&hi)[4][4],
+                                            uint32_t (&lo)[4][4]) {
+  const unsigned char* row = tile + x * ROWS * 128 + (16 * warp + g) * 128 +
+                             4 * c;
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int off = ((2 * kk + half) ^ g) << 4;
+      split_tf32(*reinterpret_cast<const float*>(row + off),
+                 hi[kk][2 * half], lo[kk][2 * half]);
+      split_tf32(*reinterpret_cast<const float*>(row + 8 * 128 + off),
+                 hi[kk][2 * half + 1], lo[kk][2 * half + 1]);
+    }
+}
+
+__device__ __forceinline__ float lane(const float4& v, int i) {
+  return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+}
+
+// acc += v w: v the warp's 16 rows x RS columns of an m64nRS accumulator
+// (rows g and g + 8; columns 8 i + 2 c and + 1), w the RS x 64 block at
+// column 64 sub of a split streamed tile (hi, lo), by mma.sync m16n8k8 in
+// three tf32 products (hi lo', lo hi', hi hi'). The contraction index k of
+// each 8 is permuted (k = c is column 2 c, k = c + 4 is 2 c + 1), so that
+// v's accumulator elements are already the A fragment; n-tile t (of 8)
+// holds columns 4 n + t of the block (32 + 4 n + t - 4 for t >= 4), so
+// that a thread's B values for all eight n-tiles are one 16-byte piece a
+// box (piece g of rows 8 i + 2 c and + 1; the pieces of a quarter warp
+// fall in distinct banks). acc[4 t + e] is row g + 8 (e >> 1) at logical
+// column n = 2 c + (e & 1) of n-tile t.
+template <int D>
+__device__ __forceinline__ void grad_mma(float (&acc)[32],
+                                         const float (&v)[F32<D>::RS / 2],
+                                         const unsigned char* hi,
+                                         const unsigned char* lo, int sub,
+                                         int g, int c) {
+  constexpr int RS = F32<D>::RS, SBOX = F32<D>::SBOX;
+  float part[32];  // this tile's sum, added to acc in fp32 below
+#pragma unroll
+  for (int i = 0; i < 32; ++i) part[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < RS / 8; ++i) {
+    uint32_t ah[4], al[4];
+    split_tf32(v[4 * i], ah[0], al[0]);
+    split_tf32(v[4 * i + 2], ah[1], al[1]);
+    split_tf32(v[4 * i + 1], ah[2], al[2]);
+    split_tf32(v[4 * i + 3], ah[3], al[3]);
+    float4 bh[2][2], bl[2][2];  // [row 8 i + 2 c + r][box 2 sub + x]
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int row = 8 * i + 2 * c + r;
+        const int off =
+            (2 * sub + x) * SBOX + row * 128 + ((g ^ (row & 7)) << 4);
+        bh[r][x] = *reinterpret_cast<const float4*>(hi + off);
+        bl[r][x] = *reinterpret_cast<const float4*>(lo + off);
+      }
+    // pass by pass over the eight n-tiles, so that no product waits on
+    // the one before it
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      mma_tf32_m16n8(part + 4 * t, ah,
+                     __float_as_uint(lane(bl[0][t >> 2], t & 3)),
+                     __float_as_uint(lane(bl[1][t >> 2], t & 3)));
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      mma_tf32_m16n8(part + 4 * t, al,
+                     __float_as_uint(lane(bh[0][t >> 2], t & 3)),
+                     __float_as_uint(lane(bh[1][t >> 2], t & 3)));
+#pragma unroll
+    for (int t = 0; t < 8; ++t)
+      mma_tf32_m16n8(part + 4 * t, ah,
+                     __float_as_uint(lane(bh[0][t >> 2], t & 3)),
+                     __float_as_uint(lane(bh[1][t >> 2], t & 3)));
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += part[i];
+}
+
+// acc (grad_mma's layout) into the fp32 gradient at rows `row` and + 8,
+// columns col0 + 8 c + 4 (e & 1) + 32 x, four n-tiles a 16-byte store.
+__device__ __forceinline__ void store_f32(float* out, long long n_stride,
+                                          const float (&acc)[32], int c) {
+#pragma unroll
+  for (int x = 0; x < 2; ++x)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int t = 16 * x + e;
+      *reinterpret_cast<float4*>(out + (e >> 1) * 8 * n_stride + 32 * x +
+                                 8 * c + 4 * (e & 1)) =
+          make_float4(acc[t], acc[t + 4], acc[t + 8], acc[t + 12]);
+    }
 }
 
 template <int D, bool DKV>
-__global__ void __launch_bounds__(F_THREADS) flash_bwd_f32(const Params p) {
-  constexpr int LD = D + F_PAD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* f1 = reinterpret_cast<float*>(smem);  // [F_BR][LD] k | q
-  float* f2 = f1 + F_BR * LD;                  // v | do
-  float* s1 = f2 + F_BR * LD;                  // [2][F_BC][LD] q | k
-  float* s2 = s1 + 2 * F_BC * LD;              // do | v
-  float* ps = s2 + 2 * F_BC * LD;              // [F_BR][F_LDP] P
-  float* ds = ps + F_BR * F_LDP;               // [F_BR][F_LDP] dS
-  float* st = ds + F_BR * F_LDP;               // [2][3][F_BC] m, l, di
+__global__ void __launch_bounds__(WG, 1)
+    flash_bwd_f32(const __grid_constant__ TmaParams tp) {
+  static_assert(D % 64 == 0, "Dh must be a multiple of 64");
+  using R = F32<D>;
+  constexpr int RS = R::RS, ST = R::STAGES, NB = R::NB, NSUB = D / 64;
+  constexpr uint32_t STAGE_BYTES = 2 * R::STILE + (DKV ? 3 * RS * 4 : 0);
+  const Params& p = tp.p;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const uint32_t raw = smem_addr(f32_smem);
+  if constexpr (R::SLACK == 0) {
+    if (raw & 1023) __trap();
+  }
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = f32_smem + (base - raw);
+  // byte offsets: the fixed tiles (hi in place at Dh 64), their lo (Dh 64),
+  // the ring (stage s: s1, then s2; hi after the split pass) and the lo of
+  // the tile in work (s1, then s2)
+  constexpr int F1 = 0, F2 = R::FTILE,
+                FLO = 2 * R::FTILE,  // Dh 64: lo of F1, then of F2
+                RING = (R::FIXED_LO ? 4 : 2) * R::FTILE,
+                LO = RING + 2 * ST * R::STILE;
+  float* stats = reinterpret_cast<float*>(sm + LO + 2 * R::STILE);
+  const uint32_t bars = smem_addr(stats) + (DKV ? ST * 3 * RS * 4 : 0);
 
-  const int tid = threadIdx.x, row = tid / F_R, c8 = tid % F_R;
-  const int r0 = blockIdx.x * F_BR, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, c = tid & 3;
+  const int sub = blockIdx.x % NSUB;  // the block's 64 gradient columns
+  const int r0 = (blockIdx.x / NSUB) * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = (DKV ? p.n_q : p.n_kv) / RS;
   const long long sbase =
-      (static_cast<long long>(b) * gridDim.y + h) * p.n_q;
-  const float* q = static_cast<const float*>(p.q) + b * p.q_b + h * p.q_h;
-  const float* k = static_cast<const float*>(p.k) + b * p.k_b + h * p.k_h;
-  const float* v = static_cast<const float*>(p.v) + b * p.v_b + h * p.v_h;
-  const float* dout =
-      static_cast<const float*>(p.dout) + b * p.d_b + h * p.d_h;
-  const float* fg1 = DKV ? k + r0 * p.k_n : q + r0 * p.q_n;
-  const float* fg2 = DKV ? v + r0 * p.v_n : dout + r0 * p.d_n;
-  const long long fn1 = DKV ? p.k_n : p.q_n, fn2 = DKV ? p.v_n : p.d_n;
-  const float* sg1 = DKV ? q : k;
-  const float* sg2 = DKV ? dout : v;
-  const long long sn1 = DKV ? p.q_n : p.k_n, sn2 = DKV ? p.d_n : p.v_n;
-  const int tiles = (DKV ? p.n_q : p.n_kv) / F_BC;
+      (static_cast<long long>(b) * gridDim.y + h) * p.n_q;  // m, l, di
 
-  stage_rows<D, F_THREADS>(f1, LD, fg1, fn1, F_BR, tid);
-  stage_rows<D, F_THREADS>(f2, LD, fg2, fn2, F_BR, tid);
-  stage_rows<D, F_THREADS>(s1, LD, sg1, sn1, F_BC, tid);
-  stage_rows<D, F_THREADS>(s2, LD, sg2, sn2, F_BC, tid);
-  if constexpr (DKV) stage_stats<F_THREADS>(st, p, sbase, 0, F_BC, tid);
-  cp_async_commit();
+  // streamed tile j into its stage, by thread 0
+  auto load = [&](int j) {
+    const int s = j % ST;
+    const uint32_t bar = bars + 8 * s, dst = base + RING + 2 * s * R::STILE;
+    bar_expect(bar, STAGE_BYTES);
+#pragma unroll
+    for (int x = 0; x < NB; ++x) {
+      tma_box(dst + x * R::SBOX, &tp.s1, 32 * x, j * RS, h, b, bar);
+      tma_box(dst + R::STILE + x * R::SBOX, &tp.s2, 32 * x, j * RS, h, b,
+              bar);
+    }
+    if constexpr (DKV) {
+      const long long i = sbase + static_cast<long long>(j) * RS;
+      const uint32_t st = smem_addr(stats + s * 3 * RS);
+      bulk_copy(st, p.m + i, RS * 4, bar);
+      bulk_copy(st + RS * 4, p.l + i, RS * 4, bar);
+      bulk_copy(st + 2 * RS * 4, p.di + i, RS * 4, bar);
+    }
+  };
 
-  float rm = 0.f, rinv = 0.f, rdi = 0.f;  // dQ: the row's m, 1 / l, di
+  if (tid == 0) {
+    for (int s = 0; s <= ST; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const uint32_t bar = bars + 8 * ST;
+    bar_expect(bar, 2 * R::FTILE);
+#pragma unroll
+    for (int x = 0; x < NB; ++x) {
+      tma_box(base + F1 + x * R::FBOX, &tp.f1, 32 * x, r0, h, b, bar);
+      tma_box(base + F2 + x * R::FBOX, &tp.f2, 32 * x, r0, h, b, bar);
+    }
+    for (int j = 0; j < ST && j < tiles; ++j) load(j);
+  }
+  __syncwarp();
+
+  // dQ: m, 1 / l and di of the thread's rows g and g + 8 of its warp's 16
+  float rm[2] = {0.f, 0.f}, rinv[2] = {0.f, 0.f}, rdi[2] = {0.f, 0.f};
   if constexpr (!DKV) {
-    const long long i = sbase + r0 + row;
-    rm = p.m[i];
-    rinv = 1.f / p.l[i];
-    rdi = p.di[i];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long i = sbase + r0 + warp * 16 + g + 8 * r;
+      rm[r] = p.m[i];
+      rinv[r] = 1.f / p.l[i];
+      rdi[r] = p.di[i];
+    }
   }
-  float acc1[D / F_R], acc2[DKV ? D / F_R : 1];  // columns c8 + 8 i
-#pragma unroll
-  for (int i = 0; i < D / F_R; ++i) acc1[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < (DKV ? D / F_R : 1); ++i) acc2[i] = 0.f;
 
-  const float* fr1 = f1 + row * LD;
-  const float* fr2 = f2 + row * LD;
-  float* pr = ps + row * F_LDP;
-  float* dr = ds + row * F_LDP;
+  float acc1[32], acc2[32];      // dK | dQ, dV (grad_mma's layout)
+  float sc[RS / 2], dp[RS / 2];  // S, dP (m64nRS); then P, dS
+  float sp[RS / 2], dpp[RS / 2];  // partial sums of one box of S, dP
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc1[i] = acc2[i] = 0.f;
+  bar_wait(bars + 8 * ST, 0);
+  if constexpr (R::FIXED_LO) {  // the fixed tiles, split once
+    split_pass<2 * R::FTILE>(sm + F1, sm + FLO, tid);
+    fence_async_smem();
+  }
+
   for (int j = 0; j < tiles; ++j) {
-    const int s = j & 1;
-    if (j + 1 < tiles) {
-      const long long r = static_cast<long long>(j + 1) * F_BC;
-      stage_rows<D, F_THREADS>(s1 + (s ^ 1) * F_BC * LD, LD, sg1 + r * sn1,
-                               sn1, F_BC, tid);
-      stage_rows<D, F_THREADS>(s2 + (s ^ 1) * F_BC * LD, LD, sg2 + r * sn2,
-                               sn2, F_BC, tid);
-      if constexpr (DKV)
-        stage_stats<F_THREADS>(st + (s ^ 1) * 3 * F_BC, p, sbase,
-                               (j + 1) * F_BC, F_BC, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int s = j % ST;
+    unsigned char* t1 = sm + RING + 2 * s * R::STILE;
+    unsigned char* t2 = t1 + R::STILE;
+    float* tm = stats + s * 3 * RS;  // m, 1 / l, di of the stage's rows
+    // every warp is done with tile j - 1: its stage and the lo tiles are free
     __syncthreads();
-    const float* t1 = s1 + s * F_BC * LD;
-    const float* t2 = s2 + s * F_BC * LD;
-    const float* tm = st + s * 3 * F_BC;
+    if (tid == 0 && j >= 1 && j - 1 + ST < tiles) load(j - 1 + ST);
+    bar_wait(bars + 8 * s, (j / ST) & 1);
 
-    // the row's scores and dP at streamed columns c8 + 8 i
-    float sc[F_BC / F_R], dp[F_BC / F_R];
+    // the split pass: hi in place, lo beside, both streamed tiles
+    split_pass<2 * R::STILE>(t1, sm + LO, tid);
+    if constexpr (DKV) {
+      if (tid < RS) tm[RS + tid] = 1.f / tm[RS + tid];
+    }
+    fence_async_smem();
+    __syncthreads();
+
+    // S = F1 S1^T and dP = F2 S2^T, three tf32 products a k-step, each box
+    // of 32 columns summed by the tensor cores from 0 and added to S (dP)
+    // in fp32 by the FMA pipes
+    // descriptors of the tiles' starts; a k-step's adds its byte offset
+    // over 16 (the start address field, 14 bits, never carries)
+    const uint32_t b1a = smem_addr(t1);
+    const uint64_t b1 = desc(b1a), b2 = desc(b1a + R::STILE),
+                   l1 = desc(base + LO), l2 = desc(base + LO + R::STILE);
+    if constexpr (R::FIXED_LO) {
+      // both operands by descriptor, the first half of the boxes in sc and
+      // the second in sp (dp, dpp), all the products in one group
+      const uint64_t a1 = desc(base + F1), a2 = desc(base + F2),
+                     al1 = desc(base + FLO), al2 = desc(base + FLO + R::FTILE);
+      hold(sc);
+      hold(sp);
+      hold(dp);
+      hold(dpp);
+      wg_fence();
 #pragma unroll
-    for (int i = 0; i < F_BC / F_R; ++i) sc[i] = dp[i] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float x1 = fr1[d], x2 = fr2[d];
+      for (int x = 0; x < NB; ++x)
 #pragma unroll
-      for (int i = 0; i < F_BC / F_R; ++i) {
-        sc[i] = fmaf(x1, t1[(c8 + F_R * i) * LD + d], sc[i]);
-        dp[i] = fmaf(x2, t2[(c8 + F_R * i) * LD + d], dp[i]);
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t fo = x * R::FBOX + kk * 32,
+                         so = x * R::SBOX + kk * 32;
+          const int first = x % (NB / 2) == 0 && kk == 0;
+          float (&d)[RS / 2] = x < NB / 2 ? sc : sp;
+          mma_tf32_ss(d, a1 + fo / 16, l1 + so / 16, !first);
+          mma_tf32_ss(d, al1 + fo / 16, b1 + so / 16, 1);
+          mma_tf32_ss(d, a1 + fo / 16, b1 + so / 16, 1);
+        }
+#pragma unroll
+      for (int x = 0; x < NB; ++x)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t fo = x * R::FBOX + kk * 32,
+                         so = x * R::SBOX + kk * 32;
+          const int first = x % (NB / 2) == 0 && kk == 0;
+          float (&d)[RS / 2] = x < NB / 2 ? dp : dpp;
+          mma_tf32_ss(d, a2 + fo / 16, l2 + so / 16, !first);
+          mma_tf32_ss(d, al2 + fo / 16, b2 + so / 16, 1);
+          mma_tf32_ss(d, a2 + fo / 16, b2 + so / 16, 1);
+        }
+      wg_commit();
+      wg_wait<0>();
+      hold(sc);
+      hold(sp);
+      hold(dp);
+      hold(dpp);
+#pragma unroll
+      for (int i = 0; i < RS / 2; ++i) {
+        sc[i] += sp[i];
+        dp[i] += dpp[i];
       }
-    }
+    } else {
+      // the fixed rows' A fragments from registers, box by box; S's and
+      // dP's groups alternate, so that one's fragments are loaded while the
+      // other's products run
+      uint32_t fh[4][4], fl[4][4], gh[4][4], gl[4][4];
 #pragma unroll
-    for (int i = 0; i < F_BC / F_R; ++i) {
-      const int col = c8 + F_R * i;
-      const float mm = DKV ? tm[col] : rm;
-      const float inv = DKV ? 1.f / tm[F_BC + col] : rinv;
-      const float dd = DKV ? tm[2 * F_BC + col] : rdi;
-      const float pv = expf(__fmul_rn(sc[i], p.scale) - mm) * inv;
-      pr[col] = pv;
-      dr[col] = (dp[i] - dd) * pv * p.scale;
+      for (int x = 0; x < NB; ++x) {
+        if (x > 0) {  // S's box x - 1 has retired: add it, free fh and fl
+          wg_wait<1>();
+          hold(sp);
+          hold(fh);
+          hold(fl);
+#pragma unroll
+          for (int i = 0; i < RS / 2; ++i)
+            sc[i] = x == 1 ? sp[i] : sc[i] + sp[i];
+        }
+        fixed_frags(sm + F1, x, warp, g, c, fh, fl);
+        hold(fh);
+        hold(fl);
+        hold(sc);
+        hold(sp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t off = x * R::SBOX + kk * 32;
+          mma_tf32<RS>(sp, fh[kk], l1 + off / 16, kk > 0);
+          mma_tf32<RS>(sp, fl[kk], b1 + off / 16, 1);
+          mma_tf32<RS>(sp, fh[kk], b1 + off / 16, 1);
+        }
+        wg_commit();
+        if (x > 0) {  // dP's box x - 1 has retired
+          wg_wait<1>();
+          hold(dpp);
+          hold(gh);
+          hold(gl);
+#pragma unroll
+          for (int i = 0; i < RS / 2; ++i)
+            dp[i] = x == 1 ? dpp[i] : dp[i] + dpp[i];
+        }
+        fixed_frags(sm + F2, x, warp, g, c, gh, gl);
+        hold(gh);
+        hold(gl);
+        hold(dp);
+        hold(dpp);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t off = x * R::SBOX + kk * 32;
+          mma_tf32<RS>(dpp, gh[kk], l2 + off / 16, kk > 0);
+          mma_tf32<RS>(dpp, gl[kk], b2 + off / 16, 1);
+          mma_tf32<RS>(dpp, gh[kk], b2 + off / 16, 1);
+        }
+        wg_commit();
+      }
+      wg_wait<1>();
+      hold(sp);
+#pragma unroll
+      for (int i = 0; i < RS / 2; ++i) sc[i] += sp[i];
+      wg_wait<0>();
+      hold(dpp);
+      hold(fh);
+      hold(fl);
+      hold(gh);
+      hold(gl);
+#pragma unroll
+      for (int i = 0; i < RS / 2; ++i) dp[i] += dpp[i];
     }
-    __syncwarp();  // the row's P and dS, written by its 8 lanes
 
-#pragma unroll 4
-    for (int c = 0; c < F_BC; ++c) {
-      const float dc = dr[c];
-      const float* b1 = t1 + c * LD + c8;
+    // P = exp(S scale - m) / l and dS = (dP - di) P scale, in place, fp32
 #pragma unroll
-      for (int i = 0; i < D / F_R; ++i)
-        acc1[i] = fmaf(dc, b1[F_R * i], acc1[i]);
+    for (int i = 0; i < RS / 2; ++i) {
+      float mm, iv, dd;
       if constexpr (DKV) {
-        const float pc = pr[c];
-        const float* b2 = t2 + c * LD + c8;
-#pragma unroll
-        for (int i = 0; i < D / F_R; ++i)
-          acc2[i] = fmaf(pc, b2[F_R * i], acc2[i]);
+        const int col = 8 * (i >> 2) + 2 * c + (i & 1);
+        mm = tm[col];
+        iv = tm[RS + col];
+        dd = tm[2 * RS + col];
+      } else {
+        mm = rm[(i >> 1) & 1];
+        iv = rinv[(i >> 1) & 1];
+        dd = rdi[(i >> 1) & 1];
       }
+      sc[i] = exp_ftz(__fmul_rn(sc[i], p.scale) - mm) * iv;
+      dp[i] = (dp[i] - dd) * sc[i] * p.scale;
     }
-    __syncthreads();  // the ring buffer, P and dS are refilled next tile
+
+    // acc1 += dS S1[:, sub]; dK/dV: acc2 += P S2[:, sub]; each tile's
+    // products are summed by the tensor cores from 0 and added to the
+    // gradient in fp32 by the FMA pipes
+    grad_mma<D>(acc1, dp, t1, sm + LO, sub, g, c);
+    if constexpr (DKV)
+      grad_mma<D>(acc2, sc, t2, sm + LO + R::STILE, sub, g, c);
   }
 
-  float* o1 = static_cast<float*>(p.g1) + b * p.g1_b + h * p.g1_h +
-              (r0 + row) * p.g1_n + c8;
-#pragma unroll
-  for (int i = 0; i < D / F_R; ++i) o1[F_R * i] = acc1[i];
-  if constexpr (DKV) {
-    float* o2 = static_cast<float*>(p.g2) + b * p.g2_b + h * p.g2_h +
-                (r0 + row) * p.g2_n + c8;
-#pragma unroll
-    for (int i = 0; i < D / F_R; ++i) o2[F_R * i] = acc2[i];
-  }
+  const int row = r0 + warp * 16 + g, col = sub * 64;
+  store_f32(static_cast<float*>(p.g1) + b * p.g1_b + h * p.g1_h +
+                row * p.g1_n + col,
+            p.g1_n, acc1, c);
+  if constexpr (DKV)
+    store_f32(static_cast<float*>(p.g2) + b * p.g2_b + h * p.g2_h +
+                  row * p.g2_n + col,
+              p.g2_n, acc2, c);
 }
 
-// Blocks of a bf16 kernel that fit on one SM, as the occupancy API counts
-// them from its registers, threads and shared memory; -1 if refused.
+// Blocks of the bf16 (dtype 0) or fp32 kernel that fit on one SM, as the
+// occupancy API counts them from its registers, threads and shared memory;
+// -1 if refused.
 template <int D, bool DKV>
-int blocks_per_sm() {
+int blocks_per_sm(int dtype) {
+  void (*fn)(TmaParams) =
+      dtype == 0 ? flash_bwd_bf16<D, DKV> : flash_bwd_f32<D, DKV>;
+  const int smem = dtype == 0 ? smem_bf16<D, DKV>() : smem_f32<D, DKV>();
   int n = -1;
-  if (cudaFuncSetAttribute(flash_bwd_bf16<D, DKV>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_bf16<D, DKV>()) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, flash_bwd_bf16<D, DKV>, WG, smem_bf16<D, DKV>()) !=
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, WG, smem) !=
           cudaSuccess)
     return -1;
   return n;
@@ -519,51 +825,58 @@ int blocks_per_sm() {
 
 template <int D, bool DKV>
 int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
+  if (dtype != 0 && dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int fixed = DKV ? p.n_kv : p.n_q, streamed = DKV ? p.n_q : p.n_kv;
+  // bf16: 64-row tiles of 64 columns; fp32: fixed tiles of 64 rows and
+  // streamed tiles of F32<D>::RS rows, 32 columns a box
+  const int esize = dtype == 0 ? 2 : 4,
+            rs = dtype == 0 ? ROWS : F32<D>::RS;
+  if (fixed % ROWS != 0 || streamed % rs != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int q_rows = DKV ? rs : ROWS, kv_rows = DKV ? ROWS : rs;
+  TmaParams tp;
+  tp.p = p;
+  CUtensorMap q, k, v, d;
+  if (!tensor_map(&q, p.q, D, p.n_q, H, B, p.q_n, p.q_h, p.q_b, esize,
+                  q_rows) ||
+      !tensor_map(&k, p.k, D, p.n_kv, H, B, p.k_n, p.k_h, p.k_b, esize,
+                  kv_rows) ||
+      !tensor_map(&v, p.v, D, p.n_kv, H, B, p.v_n, p.v_h, p.v_b, esize,
+                  kv_rows) ||
+      !tensor_map(&d, p.dout, D, p.n_q, H, B, p.d_n, p.d_h, p.d_b, esize,
+                  q_rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  tp.f1 = DKV ? k : q;
+  tp.f2 = DKV ? v : d;
+  tp.s1 = DKV ? q : k;
+  tp.s2 = DKV ? d : v;
+  const dim3 grid(fixed / ROWS * (D / 64), H, B);
   cudaError_t e;
   if (dtype == 0) {
-    if (fixed % ROWS != 0 || streamed % ROWS != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
-    TmaParams tp;
-    tp.p = p;
-    CUtensorMap q, k, v, d;
-    if (!tensor_map(&q, p.q, D, p.n_q, H, B, p.q_n, p.q_h, p.q_b) ||
-        !tensor_map(&k, p.k, D, p.n_kv, H, B, p.k_n, p.k_h, p.k_b) ||
-        !tensor_map(&v, p.v, D, p.n_kv, H, B, p.v_n, p.v_h, p.v_b) ||
-        !tensor_map(&d, p.dout, D, p.n_q, H, B, p.d_n, p.d_h, p.d_b))
-      return static_cast<int>(cudaErrorInvalidValue);
-    tp.f1 = DKV ? k : q;
-    tp.f2 = DKV ? v : d;
-    tp.s1 = DKV ? q : k;
-    tp.s2 = DKV ? d : v;
     e = cudaFuncSetAttribute(flash_bwd_bf16<D, DKV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bf16<D, DKV>());
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bwd_bf16<D, DKV><<<dim3(fixed / ROWS * Ring<D>::NSUB, H, B), WG,
-                             smem_bf16<D, DKV>(), st>>>(tp);
-  } else if (dtype == 1) {
-    if (fixed % F_BR != 0 || streamed % F_BC != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
+    flash_bwd_bf16<D, DKV><<<grid, WG, smem_bf16<D, DKV>(), st>>>(tp);
+  } else {
     e = cudaFuncSetAttribute(flash_bwd_f32<D, DKV>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_f32<D, DKV>());
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bwd_f32<D, DKV><<<dim3(fixed / F_BR, H, B), F_THREADS,
-                            smem_f32<D, DKV>(), st>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    flash_bwd_f32<D, DKV><<<grid, WG, smem_f32<D, DKV>(), st>>>(tp);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// How the bf16 dK/dV (dkv != 0) or dQ kernel runs at this shape: plan[0]
-// the blocks it launches, plan[1] its blocks an SM
+// How the bf16 (dtype 0) or fp32 dK/dV (dkv != 0) or dQ kernel runs at
+// this shape: plan[0] the blocks it launches, plan[1] its blocks an SM
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused).
 template <int D, bool DKV>
-int plan_for(int B, int H, int n_q, int n_kv, int* plan) {
-  plan[0] = (DKV ? n_kv : n_q) / ROWS * Ring<D>::NSUB * H * B;
-  plan[1] = blocks_per_sm<D, DKV>();
+int plan_for(int dtype, int B, int H, int n_q, int n_kv, int* plan) {
+  if (dtype != 0 && dtype != 1) return -1;
+  plan[0] = (DKV ? n_kv : n_q) / ROWS * (D / 64) * H * B;
+  plan[1] = blocks_per_sm<D, DKV>(dtype);
   return 0;
 }
 
@@ -621,18 +934,22 @@ extern "C" int flash_attention_bwd_dq_launch(
                                     static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int flash_attention_bwd_plan(int dkv, int D, int B, int H,
-                                        int n_q, int n_kv, int* plan) {
+extern "C" int flash_attention_bwd_plan(int dkv, int dtype, int D, int B,
+                                        int H, int n_q, int n_kv,
+                                        int* plan) {
   using flash_bwd::plan_for;
   switch (D) {
-    case 64: return dkv ? plan_for<64, true>(B, H, n_q, n_kv, plan)
-                        : plan_for<64, false>(B, H, n_q, n_kv, plan);
-    case 128: return dkv ? plan_for<128, true>(B, H, n_q, n_kv, plan)
-                         : plan_for<128, false>(B, H, n_q, n_kv, plan);
-    case 192: return dkv ? plan_for<192, true>(B, H, n_q, n_kv, plan)
-                         : plan_for<192, false>(B, H, n_q, n_kv, plan);
-    case 256: return dkv ? plan_for<256, true>(B, H, n_q, n_kv, plan)
-                         : plan_for<256, false>(B, H, n_q, n_kv, plan);
+    case 64: return dkv ? plan_for<64, true>(dtype, B, H, n_q, n_kv, plan)
+                        : plan_for<64, false>(dtype, B, H, n_q, n_kv, plan);
+    case 128:
+      return dkv ? plan_for<128, true>(dtype, B, H, n_q, n_kv, plan)
+                 : plan_for<128, false>(dtype, B, H, n_q, n_kv, plan);
+    case 192:
+      return dkv ? plan_for<192, true>(dtype, B, H, n_q, n_kv, plan)
+                 : plan_for<192, false>(dtype, B, H, n_q, n_kv, plan);
+    case 256:
+      return dkv ? plan_for<256, true>(dtype, B, H, n_q, n_kv, plan)
+                 : plan_for<256, false>(dtype, B, H, n_q, n_kv, plan);
     default: return -1;
   }
 }

@@ -1,8 +1,9 @@
 // Device and host helpers shared by the flash-attention sources
 // (flash_attention.cu, flash_attention_bwd.cu), each included once per
-// library: 16-byte cp.async staging for the fp32 paths, bf16 packing, and
-// for the bf16 paths on Hopper (sm_90a) the mbarrier, TMA and wgmma
-// primitives and the host-side TMA tensor map of a tensor in the JAX layout.
+// library: 16-byte cp.async staging for the forward's fp32 path, bf16
+// packing, the mbarrier, TMA and wgmma primitives of Hopper (sm_90a), the
+// split-TF32 (3xTF32) pieces of the fp32 backward, and the host-side TMA
+// tensor map of a tensor in the JAX layout.
 
 #pragma once
 
@@ -129,9 +130,20 @@ __device__ __forceinline__ void wg_wait() {
 
 // Keep the compiler from moving reads or writes of an accumulator across
 // the asynchronous products that own it.
-__device__ __forceinline__ void hold(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void hold(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// The same for A fragments written by ordinary instructions: they are
+// complete before the wgmma.fence that follows.
+template <int N>
+__device__ __forceinline__ void hold(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(a[i][r]) :: "memory");
 }
 
 #define FLASH_ACC32(d)                                                   \
@@ -172,6 +184,100 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// ---- split TF32 (3xTF32) ----
+// An fp32 value x is hi + lo with hi = tf32(x) and lo = tf32(x - hi), both
+// rounded to nearest, ties away from zero (cvt.rna.tf32.f32's rounding), so
+// that their low 13 bits are 0 and no product depends on how the tensor
+// cores read the bits below TF32's; a b is then hi hi' + hi lo' + lo hi'
+// summed in fp32, each product exact, the dropped lo lo' and the roundings
+// within about 2^-20 of |a b|. The rounding is two integer operations on
+// the bits (half of TF32's last place added to the magnitude, the low 13
+// bits cleared): cvt.rna.tf32.f32 compiles to several more on sm_90a, and
+// the operands are finite.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// Order this thread's ordinary writes to shared memory before later reads
+// of it by the async proxy (wgmma's descriptors, TMA).
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+#define FLASH_ACC8(d)                                                    \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7])
+
+#define FLASH_ACC16(d)                                                   \
+  FLASH_ACC8(d), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),           \
+      "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d (64 x N, fp32) = a b^T (+ d if `accumulate`), tf32 in: a (64 x 8) from
+// registers (a warp's rows 16 warp + g and + 8, columns c and c + 4, in
+// that order: g = lane / 4, c = lane % 4), b (N x 8) K-major in shared
+// memory (wgmma takes no transposed tf32 operand). N is 16 or 32.
+template <int N>
+__device__ __forceinline__ void mma_tf32(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int accumulate);
+
+template <>
+__device__ __forceinline__ void mma_tf32<16>(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, acc, 1, "
+      "1;\n}\n"
+      : FLASH_ACC8(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void mma_tf32<32>(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, acc, 1, 1;\n}\n"
+      : FLASH_ACC16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 32, fp32) = a b^T (+ d if `accumulate`), tf32 in: a (64 x 8)
+// and b (32 x 8) both K-major in shared memory.
+__device__ __forceinline__ void mma_tf32_ss(float (&d)[16], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, %16, %17, acc, 1, 1;\n}\n"
+      : FLASH_ACC16(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (16 x 8, fp32) += a (16 x 8) b (8 x 8), tf32 in, one warp (mma.sync):
+// a (g, c), (g + 8, c), (g, c + 4), (g + 8, c + 4); b (c, g), (c + 4, g);
+// d (g, 2 c), (g, 2 c + 1), (g + 8, 2 c), (g + 8, 2 c + 1).
+__device__ __forceinline__ void mma_tf32_m16n8(float* d, const uint32_t (&a)[4],
+                                               uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // libcuda's cuTensorMapEncodeTiled, found through the runtime's entry
 // point query, so that the library needs no link against libcuda.
 using EncodeTiled = PFN_cuTensorMapEncodeTiled_v12000;
@@ -194,12 +300,13 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// The TMA map of one bf16 tensor in the JAX layout, as a 4-d (Dh, N, H, B)
-// tensor with the given strides (elements), boxes of 64 x 64 and 128-byte
-// swizzle. A dimension of size 1 is never stepped: it takes the row stride.
+// The TMA map of one tensor in the JAX layout, as a 4-d (Dh, N, H, B)
+// tensor with the given strides (elements), 128-byte swizzle and boxes of
+// 128 bytes of columns (64 bf16 or 32 fp32, by `esize`) x `rows` rows. A
+// dimension of size 1 is never stepped: it takes the row stride.
 inline bool tensor_map(CUtensorMap* map, const void* ptr, int D, int N,
                        int H, int B, long long s_n, long long s_h,
-                       long long s_b) {
+                       long long s_b, int esize = 2, int rows = 64) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
@@ -207,11 +314,14 @@ inline bool tensor_map(CUtensorMap* map, const void* ptr, int D, int N,
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {
-      static_cast<cuuint64_t>(s_n) * 2,
-      static_cast<cuuint64_t>(H > 1 ? s_h : s_n) * 2,
-      static_cast<cuuint64_t>(B > 1 ? s_b : s_n) * 2};
-  const cuuint32_t box[4] = {64, 64, 1, 1}, step[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      static_cast<cuuint64_t>(s_n) * esize,
+      static_cast<cuuint64_t>(H > 1 ? s_h : s_n) * esize,
+      static_cast<cuuint64_t>(B > 1 ? s_b : s_n) * esize};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / esize),
+                             static_cast<cuuint32_t>(rows), 1, 1},
+                   step[4] = {1, 1, 1, 1};
+  return encode(map, esize == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, box, step,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

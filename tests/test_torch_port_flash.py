@@ -290,13 +290,47 @@ def test_registry_matches_the_c_entry_points(name):
         assert want in p, (p, t)
 
 
+@pytest.mark.parametrize("entry, leading", [
+    ("flash_attention_plan", ["D", "B", "H", "n_q"]),
+    ("flash_attention_bwd_plan", ["dkv", "dtype", "D", "B", "H", "n_q",
+                                  "n_kv"])])
+def test_plan_entry_points_match_their_ctypes_binding(entry, leading):
+    """chip_smoke.py binds each plan entry point with ctypes (the registry
+    `FLASH_PLAN_ARGTYPES`): one c_int per int parameter of the C signature,
+    in order, then the int[2] it writes; the backward's plan takes the
+    dtype (0 bf16, 1 fp32) after dkv, as its launches do."""
+    import ctypes
+    import importlib.util
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke_bindings",
+                                                  root / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    argtypes = smoke.FLASH_PLAN_ARGTYPES[entry]
+    code = "".join(p.read_text() for p in sorted(
+        (root / "splatt3r_slam_tpu_torch" / "csrc").glob("*.cu")))
+    sig = re.search(rf'extern "C" int {entry}\(([^)]*)\)', code)
+    assert sig, entry
+    params = [p.strip() for p in sig.group(1).split(",")]
+    assert [p.split()[-1] for p in params[:-1]] == leading
+    assert all(p.startswith("int ") for p in params[:-1])
+    assert params[-1] == "int* plan"
+    assert argtypes[:-1] == [ctypes.c_int] * len(leading)
+    assert argtypes[-1] == ctypes.POINTER(ctypes.c_int)
+
+
 @pytest.mark.parametrize("name, case", [
     ("flash_attention", r"case (\d+): return flash::launch<\d+>"),
     ("flash_attention_bwd_dkv", r"case (\d+): return launch<\d+, DKV>"),
     ("flash_attention_bwd_dq", r"case (\d+): return launch<\d+, DKV>")])
 def test_flash_source_is_hand_written(name, case):
     """The forward and the two backward kernels are wgmma written out, fed
-    by TMA into an mbarrier ring (their fp32 paths by 16-byte cp.async);
+    by TMA into an mbarrier ring (the forward's fp32 path by 16-byte
+    cp.async; the backward's fp32 path by TMA too, its products split TF32
+    on the tensor cores: wgmma .tf32 for S and dP, mma.sync .tf32 for the
+    gradients, every operand split into TF32 hi and lo rounded to nearest,
+    and no FMA loop left);
     each with one template instance per head dim the wrapper admits, no
     library on the route and no atomics. A source is read together with
     the local headers it includes, and its own text calls their wgmma, TMA
@@ -316,6 +350,17 @@ def test_flash_source_is_hand_written(name, case):
         assert op in code, op
     for banned in ("cublas", "cudnn", "cutlass", "torch", "#include <mma"):
         assert banned not in code.lower(), banned
+    if name != "flash_attention":  # the backward's fp32 path
+        for helper in ("mma_tf32<RS>(", "mma_tf32_ss(", "mma_tf32_m16n8(",
+                       "split_tf32(", "fence_async_smem("):
+            assert helper in own, helper
+        for op in ("wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32",
+                   "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32",
+                   "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+                   "+ 0x1000u) & 0xFFFFE000u", "fence.proxy.async.shared::cta",
+                   "CU_TENSOR_MAP_DATA_TYPE_FLOAT32"):
+            assert op in code, op
+        assert "fmaf(" not in own and "cp_async" not in own
     ops = re.sub(r"//[^\n]*", "", code).lower()  # without the comments
     assert not re.search(r"\b(atomic|atom\.|red\.)", ops)
     assert tuple(int(d) for d in re.findall(case, code)) == fa.HEAD_DIMS

@@ -179,6 +179,84 @@ def test_plain_backward_matches_pallas_kernels(case, dtype, calls):
         assert _rel(g, w) <= bar, (name, _rel(g, w))
 
 
+# -- the fp32 kernels' arithmetic: split TF32 -----------------------------------
+
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest on the
+    10 mantissa bits kept, ties away from zero, the low 13 bits 0; the
+    kernels' `tf32_rna` (csrc/flash_common.cuh) is the same two integer
+    operations on the bits."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_split(a, b, passes=3):
+    """a @ b as the fp32 kernels form it on the tensor cores: a = hi + lo
+    with hi = tf32(a) and lo = tf32(a - hi) (b alike), and a b = hi hi' +
+    hi lo' + lo hi', each product exact in fp32 (11-bit significands) and
+    summed in fp32; `passes=1` is one TF32 product, hi hi' alone."""
+    ah, bh = _tf32(a), _tf32(b)
+    if passes == 1:
+        return torch.matmul(ah, bh)
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return (torch.matmul(ah, bl) + torch.matmul(al, bh)
+            + torch.matmul(ah, bh))
+
+
+def _split_tf32_backward(q, k, v, o, l, m, do, scale, passes=3):
+    """The plain backward's steps (fp32, one block) with every product in
+    split TF32: S, dP, dV, dK and dQ; p and ds enter their products as
+    fp32 values, split like every other operand."""
+    qf, kf, vf, dof = (t.transpose(1, 2) for t in (q, k, v, do))
+    di = fa._di(o, do)[..., None]
+    s = _mm_split(qf, kf.transpose(-1, -2), passes) * scale
+    p = torch.exp(s - m[..., None]) * (1 / l)[..., None]
+    dv = _mm_split(p.transpose(-1, -2), dof, passes)
+    dp = _mm_split(dof, vf.transpose(-1, -2), passes)
+    ds = (dp - di) * p * scale
+    dk = _mm_split(ds.transpose(-1, -2), qf, passes)
+    dq = _mm_split(ds, kf, passes)
+    return tuple(g.transpose(1, 2) for g in (dq, dk, dv))
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    """`_tf32` rounds to nearest on 10 mantissa bits, ties away from zero,
+    for either sign; hi + lo of the split is within 2^-22 of x."""
+    one = 1.0 + 2.0 ** -10  # exactly representable in TF32
+    x = torch.tensor([1.0, one, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
+                      -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12])
+    assert _tf32(x).tolist() == [1.0, one, one, one, -one, 1.0]
+    y = torch.from_numpy(np.random.default_rng(9).standard_normal(
+        4096).astype(np.float32))
+    hi = _tf32(y)
+    lo = _tf32(y - hi)
+    assert not (hi.view(torch.int32) & 0x1FFF).any()
+    assert not (lo.view(torch.int32) & 0x1FFF).any()
+    assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -22
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 2, 64), (1, 256, 256, 1, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_tf32_backward_matches_pallas_kernels(shape, calls):
+    """The fp32 kernels' arithmetic, emulated on the CPU: the plain
+    backward's steps with every product in split TF32 (three TF32 products
+    summed in fp32) hold the JAX package's Pallas backward at the fp32 bar
+    (1e-5 of each gradient's peak), where one TF32 product alone does not;
+    the forward's l and m are the plain forward's."""
+    arrays = _arrays(shape, seed=sum(shape) + 1)
+    scale = shape[-1] ** -0.5
+    want = _jax_vjp(arrays, jnp.float32, scale)
+    assert calls["jax_fwd"] == calls["jax_dkv"] == calls["jax_dq"] == 1
+    assert not JL._FLASH_FALLBACK_LOGGED
+    q, k, v, do = _port(arrays, torch.float32)
+    o, l, m = fa.flash_attention_torch(q, k, v, scale, residuals=True)
+    got = _split_tf32_backward(q, k, v, o, l, m, do, scale)
+    one = _split_tf32_backward(q, k, v, o, l, m, do, scale, passes=1)
+    for name, g, g1, w in zip("qkv", got, one, want[1:]):
+        assert _rel(g, w) <= FP32_BAR, (name, _rel(g, w))
+        assert _rel(g1, w) > FP32_BAR, (name, _rel(g1, w))
+
+
 def test_plain_backward_follows_the_kernel_steps():
     """In fp32 the plain backward is the gradient of softmax attention
     (against float64 autograd); in bf16, with one block, dv is p rounded to
