@@ -8,7 +8,8 @@ Phases, each printing one line of its own; any failure exits non-zero:
 1. build   — compile every kernel of the port from this checkout:
              splatt3r_slam_tpu_torch/csrc/composite.cu and composite_bwd.cu
              (both include composite_common.cuh), flash_attention.cu
-             (8 template instances: bf16 and fp32, Dh 64/128/192/256) and
+             (8 template instances: bf16 and fp32, Dh 64/128/192/256; both
+             on the tensor cores, fp32 in split TF32) and
              flash_attention_bwd.cu (the dK/dV and dQ kernels, 16
              instances), with nvcc (sm_90a), one nvcc a source, started
              together (`cuda_build.build`); print the build seconds and
@@ -254,20 +255,28 @@ Phases, each printing one line of its own; any failure exits non-zero:
              and 1e-5 in fp32, at ViT-L's shapes (B2 N768 Dh64: encoder H16,
              decoder self and cross H12), on v strided as the fused qkv
              projection hands it over, at n_q 768 x n_kv 1024, in fp32 (B1
-             N768 H16), at `auto`'s threshold (B1 N4096 H16) and at the B1
+             N768 H16), at `auto`'s threshold (B1 N4096 H16), at the B1
              shapes where the main paths call it (each view alone: B1 N768
              H16 with v strided, the encoder; B1 N768 H12, the decoder),
-             each timed (`ms`, `call_ms`) beside the plain version, SDPA on
-             the same inputs (`library_ms`) and the bound, and for bf16 its
-             blocks, blocks an SM (the occupancy API), waves and ptxas
-             registers (`flash_attention_plan`); held, untimed, with its
-             residuals, at the scales 0.1 and -0.125 (`[flash-scale]`);
-             `auto` picks the kernel at N4096 and SDPA at N768; the
-             fixture CLI of 6 with --flash-attention on and without the
-             flag in turns (on, auto, auto, on), with the checks of 6,
-             every `attend` call of an
-             `on` run a kernel launch and none in an `auto` run, the kernel
-             held on the last call's own q, k and v; one tracked frame of a
+             and in fp32 at the fp32 comparison step's own B1 shapes (the
+             same two) and at Dh 128, 192 and 256 (B1 n_q 256 n_kv 512 H4,
+             Dh 128 with v strided), every fp32 row with its residuals l
+             and m within 1e-5 of the plain version's; each timed (`ms`,
+             `call_ms`) beside the plain version, SDPA on the same inputs
+             (`library_ms`) and the bound (in fp32 the faster of the fp32
+             pipes and split TF32 on the tensor cores), with its blocks,
+             blocks an SM (the occupancy API), waves and ptxas registers
+             (`flash_attention_plan`); held, untimed, with its residuals,
+             at the scales 0.1 and -0.125 in bf16 and fp32
+             (`[flash-scale]`); `auto` picks the kernel at N4096 and SDPA
+             at N768; the fixture CLI of 6 with --flash-attention on and
+             without the flag in turns (on, auto, auto, on), with the
+             checks of 6, every `attend` call of an `on` run a kernel
+             launch and none in an `auto` run, the kernel held on the last
+             call's own q, k and v; the same CLI with the model in fp32 (a
+             config's `model:` dtype and head_dtype float32) with on and
+             auto in turns (`[flash-cli-fp32]`, the same checks, every
+             attend call in fp32); one tracked frame of a
              fresh ViT-L with the mode on under torch.profiler (the flash
              kernel's device time, the frame's idle share); `bench` with
              the mode on (tracking_fps_512x384, times only). Every other
@@ -324,10 +333,11 @@ wrote live rows only, so it is timed with the memset it needs. Where DIR
 holds a `flash_attention_bwd.cu`, it also builds that into a library of its
 own and, after phase 7d, times its dK/dV and dQ kernels in turns with this
 checkout's at every bf16 Dh-64 shape and every fp32 shape of 7d, median of
-7 rounds (`[compare-flash-bwd]`); where it holds a `flash_attention.cu`, it builds
-that too and, after phase 7c, times its forward in turns with this
-checkout's at every bf16 Dh-64 shape of 7c, median of 7 rounds, with both
-`call_ms` and the count of output elements where the two differ
+7 rounds (`[compare-flash-bwd]`); where it holds a `flash_attention.cu`,
+it builds that too and, after phase 7c, times its forward in turns with
+this checkout's at every bf16 Dh-64 shape and every fp32 shape of 7c,
+median of 7 rounds, with both `call_ms` and, in bf16, the count of output
+elements where the two differ, in fp32 their largest difference
 (`[compare-flash]`). Each set of sources is compared only where DIR holds
 it. nvcc compiles DIR's sources in DIR: a header that they include
 (`composite_common.cuh`, or `flash_common.cuh` for the flash sources of
@@ -2594,13 +2604,23 @@ FLASH_STEP_SHAPES = (
     ("train_enc B1 N768 H16", 1, 768, 768, 16, 64, "bfloat16", True),
     ("train_dec B1 N768 H12", 1, 768, 768, 12, 64, "bfloat16", False),
 )
+# fp32: the fp32 comparison step's own calls (7d's fp32 model: each view
+# alone, the encoder's with v strided, the decoder's) and the other head
+# dims the kernels are built for (Dh 128 with v strided)
+FLASH_FP32_SHAPES = (
+    ("fp32_enc B1 N768 H16", 1, 768, 768, 16, 64, "float32", True),
+    ("fp32_dec B1 N768 H12", 1, 768, 768, 12, 64, "float32", False),
+) + tuple((f"fp32_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d, "float32",
+           d == 128) for d in (128, 192, 256))
 # the kernel against its plain version: two bf16 steps of the output's peak
 # (both round p to bf16, against running maxima over 64 and 128 kv rows,
 # and round the output to bf16); fp32 absolute (sums in another order)
 FLASH_BF16_BAR = 2 ** -7
 FLASH_FP32_BAR = 1e-5
-# the fixture CLI with --flash-attention on and without the flag, in turns
+# the fixture CLI with --flash-attention on and without the flag, in turns;
+# with the model in fp32, on and auto once each
 FLASH_CLI_RUNS = ("on", "auto", "auto", "on")
+FLASH_CLI_FP32_RUNS = ("on", "auto")
 PEAK_BF16 = 989e12  # H100 SXM, dense bf16 tensor cores (NVIDIA data sheet)
 PEAK_TF32 = 495e12  # the same, dense TF32
 
@@ -2618,11 +2638,14 @@ def _no_flash(fl, phase):
 def _flash_bound_ms(B, n_q, n_kv, H, D, itemsize):
     """Least time for one attention: the larger of its two products'
     operations (4·B·H·n_q·n_kv·Dh) over the card's peak for the inputs'
-    type (bf16 tensor cores; fp32 outside them, no TF32) and the bytes of
-    q, k and v read once and the output written once over the memory rate
-    → (ms, what bounds it)."""
-    t_ops = 4 * B * H * n_q * n_kv * D / (PEAK_BF16 if itemsize == 2
-                                          else PEAK_FP32)
+    type and the bytes of q, k and v read once and the output written once
+    over the memory rate → (ms, what bounds it). In bf16 the products run
+    on the tensor cores; in fp32 they take the faster of two routes that
+    keep fp32's accuracy: the fp32 pipes (PEAK_FP32) or the tensor cores
+    in split TF32, three TF32 products for each (PEAK_TF32 / 3)."""
+    ops = 4 * B * H * n_q * n_kv * D
+    t_ops = ops / PEAK_BF16 if itemsize == 2 else min(
+        ops / PEAK_FP32, 3 * ops / PEAK_TF32)
     t_bytes = itemsize * B * H * D * (2 * n_q + 2 * n_kv) / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
                                        else "bytes")
@@ -2667,11 +2690,11 @@ def _flash_held(torch, fl, q, k, v, scale, what, timed=True):
 
 
 # the ctypes argument types of the plan entry points: flash_attention_plan
-# (D, B, H, n_q, plan[2]) and flash_attention_bwd_plan (dkv, dtype, D, B, H,
-# n_q, n_kv, plan[2]); tests/test_torch_port_flash.py holds them against
-# the C signatures
+# (dtype, D, B, H, n_q, plan[2]) and flash_attention_bwd_plan (dkv, dtype,
+# D, B, H, n_q, n_kv, plan[2]), dtype 0 bf16 and 1 fp32;
+# tests/test_torch_port_flash.py holds them against the C signatures
 FLASH_PLAN_ARGTYPES = {
-    "flash_attention_plan": [ctypes.c_int] * 4
+    "flash_attention_plan": [ctypes.c_int] * 5
     + [ctypes.POINTER(ctypes.c_int)],
     "flash_attention_bwd_plan": [ctypes.c_int] * 7
     + [ctypes.POINTER(ctypes.c_int)],
@@ -2679,21 +2702,23 @@ FLASH_PLAN_ARGTYPES = {
 
 
 def _flash_plans(torch, so, log):
-    """plan(B, n_q, H, D) → how the bf16 forward of the library `so` runs
-    at that shape: the blocks it launches, its blocks an SM (the occupancy
-    API), the waves over the card's SMs and its registers (from the
-    library's ptxas log `log`)."""
+    """plan(dtype, B, n_q, H, D) → how the bf16 or fp32 (dtype "bfloat16"
+    or "float32") forward of the library `so` runs at that shape: the
+    blocks it launches, its blocks an SM (the occupancy API), the waves
+    over the card's SMs and its registers (from the library's ptxas log
+    `log`)."""
     fn = ctypes.CDLL(str(so)).flash_attention_plan
     fn.argtypes = FLASH_PLAN_ARGTYPES["flash_attention_plan"]
     fn.restype = ctypes.c_int
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     regs = _ptxas_registers(log)
 
-    def plan(B, n_q, H, D):
+    def plan(dtype, B, n_q, H, D):
         out = (ctypes.c_int * 2)()
-        assert fn(D, B, H, n_q, out) == 0
-        (r,) = [v for k, v in regs.items()
-                if f"flash_fwd_bf16ILi{D}EE" in k]
+        fp32 = dtype == "float32"
+        assert fn(int(fp32), D, B, H, n_q, out) == 0
+        stem = "flash_fwd_f32" if fp32 else "flash_fwd_bf16"
+        (r,) = [v for k, v in regs.items() if f"{stem}ILi{D}EE" in k]
         return dict(blocks=out[0], blocks_per_sm=out[1], registers=r,
                     waves=out[0] / (sms * out[1]), sms=sms)
 
@@ -2730,47 +2755,51 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
     plan = _flash_plans(torch, *cuda_build.build(
         ["flash_attention"])["flash_attention"])
     shapes = {}
-    for label, B, nq, nk, nh, D, dt, strided in (FLASH_SHAPES
-                                                 + FLASH_STEP_SHAPES):
-        dt = getattr(torch, dt)
-        if strided:  # v as Attention hands it over; rope gives new q, k
-            qkv = rand(B, nq, 3 * nh * D, dtype=dt)
-            q, k, v = qkv.reshape(B, nq, 3, nh, D).unbind(2)
-            q, k = q.contiguous(), k.contiguous()
-            assert v.stride(1) == 3 * nh * D, v.stride()
-        else:
-            q, k, v = (rand(B, n, nh, D, dtype=dt) for n in (nq, nk, nk))
-        shapes[label] = _flash_held(torch, fl, q, k, v, D ** -0.5, label)
-        if dt == torch.bfloat16:
-            shapes[label]["plan"] = plan(B, nq, nh, D)
+    for label, B, nq, nk, nh, D, dt_name, strided in (
+            FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES):
+        dt = getattr(torch, dt_name)
+        # with `strided`, v as Attention hands it over (n_kv rows)
+        q, k, v, _ = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D, dt,
+                                       strided)
+        h = shapes[label] = _flash_held(torch, fl, q, k, v, D ** -0.5, label)
+        h["plan"] = plan(dt_name, B, nq, nh, D)
+        if dt == torch.float32:  # the residuals of the fp32 step's calls
+            *_, h["l_err"], h["m_err"] = _flash_residuals_held(
+                torch, fl, q, k, v, D ** -0.5, label)
         del q, k, v
     for label, h in shapes.items():
-        g = h.get("plan")
-        grid = "" if g is None else (
-            f" | {g['blocks']} blocks, {g['blocks_per_sm']} an SM, "
-            f"{g['waves']:.2f} waves, {g['registers']} registers")
+        g = h["plan"]
+        res_errs = "" if "l_err" not in h else (
+            f"; residuals l {h['l_err']:.1e}, m {h['m_err']:.1e} (bar "
+            f"{FLASH_RES_BAR:.0e})")
         lines.append(
             f"[flash-kernel] {label} ({h['dtype']}, v "
             f"{'contiguous' if h['v_contiguous'] else 'strided'}): kernel "
             f"vs plain {h['err']:.3e} (bar {h['bar']:.3e}, peak "
-            f"{h['peak']:.3f}) | {h['ms']:.4f} ms on the device, call_ms "
-            f"{h['call_ms']:.4f}, plain {h['plain_ms']:.3f} ms, SDPA "
+            f"{h['peak']:.3f}){res_errs} | {h['ms']:.4f} ms on the device, "
+            f"call_ms {h['call_ms']:.4f}, plain {h['plain_ms']:.3f} ms, SDPA "
             f"{h['library_ms']:.4f} ms | bound {h['bound_ms']:.4f} ms by "
-            f"{h['bound_by']}{grid} | {smi}")
+            f"{h['bound_by']} | {g['blocks']} blocks, {g['blocks_per_sm']} "
+            f"an SM, {g['waves']:.2f} waves, {g['registers']} registers | "
+            f"{smi}")
 
     # scales that are not 1/sqrt(64): not a power of two, and negative (the
-    # kernel takes the smallest score of a row there)
-    q, k, v = (rand(2, 768, 12, 64, dtype=torch.bfloat16) for _ in range(3))
-    for scale in (0.1, -0.125):
-        h = _flash_held(torch, fl, q, k, v, scale, f"scale {scale}",
-                        timed=False)
-        *_, l_err, m_err = _flash_residuals_held(torch, fl, q, k, v, scale,
-                                                 f"scale {scale}")
-        lines.append(f"[flash-scale] B2 N768 H12 bf16 at scale {scale}: "
-                     f"kernel vs plain {h['err']:.3e} (bar {h['bar']:.3e}, "
-                     f"peak {h['peak']:.3f}); residuals l {l_err:.1e}, m "
-                     f"{m_err:.1e} (bar {FLASH_RES_BAR:.0e})")
-    del q, k, v
+    # bf16 kernel takes the smallest score of a row there), in both dtypes
+    scales = {}
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = (rand(2, 768, 12, 64, dtype=dt) for _ in range(3))
+        for scale in (0.1, -0.125):
+            what = f"B2 N768 H12 {str(dt)[6:]} at scale {scale}"
+            h = _flash_held(torch, fl, q, k, v, scale, what, timed=False)
+            *_, h["l_err"], h["m_err"] = _flash_residuals_held(
+                torch, fl, q, k, v, scale, what)
+            scales[what] = h
+            lines.append(
+                f"[flash-scale] {what}: kernel vs plain {h['err']:.3e} (bar "
+                f"{h['bar']:.3e}, peak {h['peak']:.3f}); residuals l "
+                f"{h['l_err']:.1e}, m {h['m_err']:.1e} (bar "
+                f"{FLASH_RES_BAR:.0e})")
+        del q, k, v
 
     # auto: the kernel at the threshold, SDPA at the tracking shape
     picked = {}
@@ -2837,6 +2866,61 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
         f"{held['ms']:.4f} ms on the device, call_ms {held['call_ms']:.4f}, "
         f"SDPA {held['library_ms']:.4f}, bound {held['bound_ms']:.4f} | {smi}")
 
+    # the fixture CLI with the model in fp32 (the config's `model:` dtype
+    # and head_dtype, as main.py reads them), --flash-attention on and auto
+    # in turns: a serving run at full width through the fp32 kernel
+    cfg_dir = tempfile.mkdtemp(prefix="chip_smoke_fp32_")
+    config32 = os.path.join(cfg_dir, "eval_fixture_fp32.yaml")
+    with open(config32, "w") as f:
+        f.write(f'inherit: "{config}"\nmodel:\n  dtype: float32\n'
+                "  head_dtype: float32\n")
+    runs32, last32 = [], None
+    seen = {"calls": 0}
+    layers.attend = counted
+    try:
+        for mode in FLASH_CLI_FP32_RUNS:
+            seen["calls"] = 0
+            fl.launches = 0
+            _, r = _cli_phase(torch, root, cr, device, seq, config32,
+                              argv=["--flash-attention", mode],
+                              profile=False)
+            n_flash, n_attend = fl.launches, seen["calls"]
+            assert n_attend > 0, f"fp32 {mode}: no attention call"
+            assert seen["last"][0].dtype == torch.float32, \
+                f"fp32 {mode}: attention in {seen['last'][0].dtype}"
+            assert n_flash == (n_attend if mode == "on" else 0), \
+                f"fp32 {mode}: {n_flash} flash launches, {n_attend} attend " \
+                f"calls"
+            if mode == "on":
+                last32 = seen.pop("last")
+            runs32.append(dict(
+                mode=mode, run_s=r["run_s"], frames=r["frames"],
+                process_frame_ms=_median(r["ms"]["process_frame"]),
+                attend_calls=n_attend, launches=n_flash,
+                compositor_launches=r["launches"],
+                kernel_vs_plain=r["kernel_vs_plain"]))
+    finally:
+        layers.attend = real_attend
+        layers.set_flash_attention("auto")
+        shutil.rmtree(cfg_dir, ignore_errors=True)
+    held32 = _flash_held(torch, fl, *last32,
+                         "the fp32 CLI's last attention call")
+    del last32, seen
+    lines.append(
+        "[flash-cli-fp32] the fixture CLI with the model in fp32, in turns: "
+        + ", ".join(
+            f"{r['mode']} {r['run_s']:.1f} s (process_frame median "
+            f"{r['process_frame_ms']:.2f} ms, {r['frames']} frames, "
+            f"{r['attend_calls']} attend calls, {r['launches']} flash "
+            f"launches)" for r in runs32)
+        + f" | the kernel vs plain on the last call's own q, k, v "
+        f"{held32['shape']} (v "
+        f"{'contiguous' if held32['v_contiguous'] else 'strided'}): "
+        f"{held32['err']:.3e} (bar {held32['bar']:.3e}), "
+        f"{held32['ms']:.4f} ms on the device, call_ms "
+        f"{held32['call_ms']:.4f}, SDPA {held32['library_ms']:.4f}, bound "
+        f"{held32['bound_ms']:.4f} | {smi}")
+
     # one tracked frame with the mode on, under the profiler; then bench
     cfgmod.reset_config()
     cfgmod.config["tracking"]["max_iters"] = 0  # random weights
@@ -2894,21 +2978,26 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
     torch.cuda.empty_cache()
 
     res.update(
-        shapes=shapes, auto=picked, cli=runs, cli_held=held,
+        shapes=shapes, scales=scales, auto=picked, cli=runs, cli_held=held,
+        cli_fp32=runs32, cli_fp32_held=held32,
         profile=dict(wall_ms=wall, device_ms=busy, spans=spans,
                      flash_device_ms=flash_dev, launches=n_prof),
         bench=dict(b, seconds=b_s, launches=n_bench, compositor=b_cr),
-        launches=dict(cli=sum(r["launches"] for r in runs), profile=n_prof,
-                      bench=n_bench),
-        compositor_launches=sum(r["compositor_launches"] for r in runs),
-        kernel_vs_plain=max(r["kernel_vs_plain"] for r in runs),
+        launches=dict(cli=sum(r["launches"] for r in runs),
+                      cli_fp32=sum(r["launches"] for r in runs32),
+                      profile=n_prof, bench=n_bench),
+        compositor_launches=sum(r["compositor_launches"]
+                                for r in runs + runs32),
+        kernel_vs_plain=max(r["kernel_vs_plain"] for r in runs + runs32),
         max_abs_err=max([h["err"] for h in shapes.values()]
-                        + [held["err"]]),
+                        + [h["err"] for h in scales.values()]
+                        + [held["err"], held32["err"]]),
         seconds=time.perf_counter() - t_phase)
     lines.append(
         f"[flash] {res['seconds']:.1f} s | flash launches on the main paths "
         f"{sum(res['launches'].values())} ({res['launches']}), compositor "
-        f"launches {res['compositor_launches']} (CLI renders)")
+        f"launches {res['compositor_launches']} (CLI renders, bf16 and "
+        f"fp32)")
     return lines, res
 
 
@@ -2917,15 +3006,11 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
 # the backward kernels (and the forward's residuals) at the forward's shapes
 # and at every other head dim the kernels are built for, bf16 and fp32:
 # (label, B, n_q, n_kv, H, Dh, dtype, v strided as the fused qkv hands it)
-FLASH_BWD_SHAPES = FLASH_SHAPES + FLASH_STEP_SHAPES + (
-    # the fp32 comparison step's own calls (7d's fp32 model): each view
-    # alone, the encoder's (v strided) and the decoder's
-    ("fp32_enc B1 N768 H16", 1, 768, 768, 16, 64, "float32", True),
-    ("fp32_dec B1 N768 H12", 1, 768, 768, 12, 64, "float32", False),
-) + tuple(
-    (f"{short}_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d, dt, d == 128)
-    for dt, short in (("bfloat16", "bf16"), ("float32", "fp32"))
-    for d in (128, 192, 256))
+FLASH_BWD_SHAPES = (
+    FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES[:2]
+    + tuple((f"bf16_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d,
+             "bfloat16", d == 128) for d in (128, 192, 256))
+    + FLASH_FP32_SHAPES[2:])
 # the kernels against the plain backward, each gradient's largest error over
 # its peak: two bf16 steps in bf16 (both round p, ds and the gradients to
 # bf16, with fp32 sums in another order: at most 0.52 of it on an H100);
@@ -2974,7 +3059,7 @@ def _flash_bwd_bound_ms(B, n_q, n_kv, H, D, itemsize, dkv):
 
 
 def _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D, dtype, strided):
-    """Seeded unit-normal (q, k, v, do) of one backward shape on the card;
+    """Seeded unit-normal (q, k, v, do) of one attention shape on the card;
     with `strided`, v is the strided view Attention hands over (its fused
     qkv projection, row stride 3·H·Dh) and k a contiguous copy (rope gives
     new q and k)."""
@@ -3510,10 +3595,12 @@ def _in_turns(torch, runs, rounds, **device_ms_kw):
 def _compare_flash_with_parent(torch, fl, parent, rounds=7):
     """Build the flash_attention.cu found in `parent` into a library of its
     own and time its forward in turns with this checkout's at every bf16
-    Dh-64 shape of 7c → {shape: {ms: (parent ms, this checkout's ms),
-    call_ms: (...), differ: output elements where the two builds differ,
-    elements, diff: their largest difference}}, each ms the median over
-    `rounds` of a device-only time of 20 launches."""
+    Dh-64 shape and every fp32 shape of 7c → {shape: {dtype, ms: (parent
+    ms, this checkout's ms), call_ms: (...), differ: output elements where
+    the two builds differ, elements, diff: their largest difference}},
+    each ms the median over `rounds` of a device-only time of 20 launches.
+    Two fp32 builds may differ by twice the fp32 bar (each is held within
+    it of the plain version)."""
     import numpy as np
 
     from splatt3r_slam_tpu_torch import cuda_build
@@ -3524,12 +3611,12 @@ def _compare_flash_with_parent(torch, fl, parent, rounds=7):
     new = {name: cuda_build._fns[name]}  # resolved by phase 7c
     rng = np.random.default_rng(14)
     runs, found = {}, {}
-    for label, B, nq, nk, nh, D, dt, strided in (FLASH_SHAPES
-                                                 + FLASH_STEP_SHAPES):
-        if dt != "bfloat16" or D != 64:
+    for label, B, nq, nk, nh, D, dt, strided in (
+            FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES):
+        if dt == "bfloat16" and D != 64:
             continue
         q, k, v, _ = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D,
-                                       torch.bfloat16, strided)
+                                       getattr(torch, dt), strided)
 
         def fwd(q=q, k=k, v=v, scale=D ** -0.5):
             return fl.flash_attention(q, k, v, scale)
@@ -3538,10 +3625,11 @@ def _compare_flash_with_parent(torch, fl, parent, rounds=7):
         a, b = (fn() for fn in runs[label])
         torch.cuda.synchronize()
         d = (a.float() - b.float()).abs()
-        found[label] = dict(differ=int((d > 0).sum()), elements=d.numel(),
-                            diff=float(d.max()))
-        assert found[label]["diff"] <= FLASH_BF16_BAR * float(
-            b.float().abs().max()), (label, found[label])
+        found[label] = dict(dtype=dt, differ=int((d > 0).sum()),
+                            elements=d.numel(), diff=float(d.max()))
+        bar = (FLASH_BF16_BAR * float(b.float().abs().max())
+               if dt == "bfloat16" else 2 * FLASH_FP32_BAR)
+        assert found[label]["diff"] <= bar, (label, found[label])
     for label, ms in _in_turns(torch, runs, rounds).items():
         found[label]["ms"] = ms
         found[label]["call_ms"] = tuple(call_ms(fn, torch)
@@ -4367,8 +4455,10 @@ def main(argv=None) -> int:
               "launches | " + " | ".join(
                   f"{label}: {f['ms'][0]:.4f} → {f['ms'][1]:.4f} (call_ms "
                   f"{f['call_ms'][0]:.4f} → {f['call_ms'][1]:.4f}); "
-                  f"{f['differ']} of {f['elements']} output elements "
-                  f"differ, by at most {f['diff']:.1e}"
+                  + (f"{f['differ']} of {f['elements']} output elements "
+                     f"differ, by at most {f['diff']:.1e}"
+                     if f["dtype"] == "bfloat16" else
+                     f"the outputs differ by at most {f['diff']:.1e}")
                   for label, f in found.items())
               + f" | this checkout's faster at every shape: {faster} | "
               f"{_smi()}")
@@ -4512,6 +4602,7 @@ def main(argv=None) -> int:
         **{k: flash_res["shapes"][FLASH_SHAPES[0][0]]["plan"][k]
            for k in ("registers", "blocks_per_sm", "waves")},
         "launches_cli": flash_res["launches"]["cli"],
+        "launches_cli_fp32": flash_res["launches"]["cli_fp32"],
         "launches_profile": flash_res["launches"]["profile"],
         "launches_bench": flash_res["launches"]["bench"],
         "launches_scripts": scripts_res["flash_launches"],
@@ -4525,6 +4616,13 @@ def main(argv=None) -> int:
         **{f"{k}_cli_call": flash_res["cli_held"][k]
            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "err")},
+        **{f"{k}_cli_fp32_call": flash_res["cli_fp32_held"][k]
+           for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                     "err")},
+        # ptxas registers, blocks an SM and waves of the fp32 kernel at the
+        # fp32 step's encoder shape
+        **{f"{k}_fp32": flash_res["shapes"][FLASH_FP32_SHAPES[0][0]]["plan"][k]
+           for k in ("registers", "blocks_per_sm", "waves")},
     }] + [{
         "name": f"flash_attention_bwd_{kind}_kernel", "route": "cuda",
         "source": "splatt3r_slam_tpu_torch/csrc/flash_attention_bwd.cu",

@@ -12,10 +12,11 @@
 //   in fp32; the output rounded to v's dtype.
 // The TPU kernel walks kv in blocks of 128 and renormalises its fp32
 // accumulator by l_corr / l_next at every block. This kernel walks kv in
-// tiles of 64 (bf16) or 32 (fp32) rows, rescales the accumulator by
+// tiles of 64 rows (32 in fp32 above Dh 64), rescales the accumulator by
 // exp(m_old - m_new) at every tile and divides by l once, at the end. The
 // two differ only in rounding: where p is rounded to bf16 relative to
-// another running max, and the order of the fp32 sums.
+// another running max, and the order of the fp32 sums; in fp32 the
+// kernel's products are split TF32 (below), within about 2^-20 of fp32's.
 //
 // Layout. q, k, v and the output are in the JAX layout (B, N, H, Dh) with
 // Dh contiguous; the kernel takes each tensor's batch, row and head strides
@@ -92,14 +93,41 @@
 // summed product, in the shift; each thread's row sums in column order,
 // its 4 lanes added once at the end; the rescale before P V; one division
 // by l and one rounding.
-// fp32: the same blocking with 8 warps and kv tiles of 32 rows on
-// the fp32 FMA pipes (no tensor cores, so no TF32): 4 threads a query row,
-// each owning 8 of a tile's scores and Dh/4 of the row's output columns,
-// P passing through shared memory within the 4 lanes of its row.
+//
+// What bounds it in fp32, and the design. On the fp32 pipes (67 TFLOP/s) the
+// two products take 15 times the bf16 tensor cores' time; the tensor cores take
+// TF32 (10 mantissa bits), which alone misses fp32's accuracy. So the products
+// are split TF32 (3xTF32): every operand x is hi + lo, hi = tf32(x), lo =
+// tf32(x - hi), both rounded to nearest as cvt.rna.tf32.f32 rounds but by two
+// integer operations (flash_common.cuh), and x y = hi hi' + hi lo' + lo hi'
+// summed in fp32: three TF32 products, 495 / 3 = 165 TFLOP/s of fp32-accurate
+// products. ViT-L's fp32 step at B 1, N 768, H 16: 3 x 2.4 GFLOP, 14.6 us at
+// the TF32 peak; 12.6 MB, 3.8 us at 3.35 TB/s: bound by operations. On an H100
+// a tf32 wgmma (k = 8) costs a warpgroup about the same time at N 32 and 64,
+// and no less when its products go to independent accumulators (clock64
+// probes), so the design makes its wgmmas few and wide. The blocks are bf16's:
+// one warpgroup, 64 q rows, 64 output columns (Dh/64 blocks above Dh 64). q, k
+// and v arrive by TMA (boxes of 32 fp32 columns, 128-byte swizzle); q is split
+// once, hi in place and lo beside it; kv tiles are 64 rows at Dh 64 (one stage,
+// two blocks an SM) and 32 above (3, 2, 1 stages at Dh 128, 192, 256), each
+// split after it lands: k's hi in place and lo beside, v's 64 columns written
+// transposed (VT, hi and lo), the rows of each 8 in the order 0, 2, 4, 6, 1, 3,
+// 5, 7. S = Q K^T is wgmma m64nRSk8 .tf32 with both operands K-major by
+// descriptor. O += P V contracts over the kv rows, and wgmma takes no
+// transposed tf32 operand: on VT it is wgmma m64n64k8 with P from registers,
+// since S's accumulator elements (columns 2 c and 2 c + 1 of each 8) are P's A
+// fragment (k = c and c + 4) once VT's rows are in that order. (P V by mma.sync
+// m16n8k8 .tf32 on V split in place, the fp32 dQ kernel's route, measured
+// slower.) The tensor cores' fp32 sums do not round to nearest, so S is summed
+// in chains of 24 products, P V a tile at a time, and the FMA pipes add them: O
+// = O exp(m_old - m_new) + P V. The softmax is the fp32 backward's, s scale
+// rounded and then exp_ftz(s scale - m), so that the p the forward sums is the
+// p the backward recomputes; the largest scaled score is taken, so a negative
+// scale needs no sign flip.
 
 #include <type_traits>
 
-#include "flash_common.cuh"  // cp.async, mbarrier, TMA and wgmma helpers
+#include "flash_common.cuh"  // mbarrier, TMA, wgmma and split-TF32 helpers
 
 namespace flash {
 
@@ -374,167 +402,334 @@ __global__ void __launch_bounds__(WG, 3)
 
 // ---------------------------------------------------------------- fp32 ----
 
-constexpr int F_THREADS = 256;  // 4 threads a query row
-constexpr int F_BK = 32;        // kv rows a tile
-constexpr int F_PAD = 4;        // floats of padding a row
-constexpr int F_LDP = F_BK + F_PAD;
+// kv rows a tile, ring stages and byte sizes of the fp32 kernel, by head
+// dim. Boxes are 32 fp32 columns (128 bytes) wide, 128-byte swizzled. The
+// q tile is split once, hi in place and lo beside it; a stage holds a raw k
+// tile (all of Dh) and the block's 64 columns of v; the tile in work has
+// k's lo beside it, and v's hi and lo transposed (VT). A wgmma costs about
+// the same at N 32 and 64, so the kv tiles are as tall as shared memory
+// allows: 64 rows at Dh 64 (one stage; two blocks an SM only without the
+// 1024 bytes of alignment slack, so the kernel declares its shared memory
+// 1024-byte aligned there and traps if it is not), 32 above with 3, 2 and
+// 1 stages at Dh 128, 192 and 256.
+template <int D>
+struct F32 {
+  static constexpr int RS = D == 64 ? 64 : 32;  // kv rows a tile
+  static constexpr int NB = D / 32;             // boxes of a q or k row
+  static constexpr int STAGES = D == 128 ? 3 : (D == 192 ? 2 : 1);
+  static constexpr int SLACK = D == 64 ? 0 : 1024;
+  static constexpr int FBOX = BQ * 128;  // a box of the q tile
+  static constexpr int SBOX = RS * 128;  // a box of a k or v tile
+  static constexpr int QTILE = NB * FBOX;
+  static constexpr int KTILE = NB * SBOX;
+  static constexpr int STAGE = KTILE + 2 * SBOX;  // k, then v's 64 columns
+  static constexpr int VTBOX = 64 * 128;          // 32 rows of VT
+  static constexpr int VT = RS / 32 * VTBOX;      // v's 64 columns, transposed
+  // S's products go to SC accumulators in turn, each summed by the tensor
+  // cores from 0 (their fp32 sums do not round to nearest): 24 products a
+  // chain; P V's 3 RS / 8 are one chain
+  static constexpr int SC = NB / 2;
+};
 
+// the alignment slack, q's hi and lo, the ring, k's lo, VT's hi and lo,
+// and the barriers (one a stage, one for q)
 template <int D>
 constexpr int smem_f32() {
-  return ((BQ + 4 * F_BK) * (D + F_PAD) + BQ * F_LDP) * 4;
+  using R = F32<D>;
+  return R::SLACK + 2 * R::QTILE + R::STAGES * R::STAGE + R::KTILE +
+         2 * R::VT + 8 * (R::STAGES + 1);
 }
 
+// v's 64 columns of a tile (two boxes of RS rows, as TMA lays them), split
+// into tf32 hi and lo and written transposed: row n of VT is column n of
+// v, its positions the tile's rows, 32 a box of VTBOX bytes, each 8 in the
+// order 0, 2, 4, 6, 1, 3, 5, 7 (P's accumulator elements hold columns 2 c
+// and 2 c + 1 of each 8, the k = c and c + 4 of its A fragment), 128-byte
+// swizzled: the K-major B operand of wgmma. Each thread writes 16-byte
+// pieces of one row; a warp's reads fall in one 128-byte row of v.
 template <int D>
-__global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(const Params p) {
-  constexpr int LD = D + F_PAD;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* qs = reinterpret_cast<float*>(smem);
-  float* ks = qs + BQ * LD;        // [2][F_BK][LD]
-  float* vs = ks + 2 * F_BK * LD;  // [2][F_BK][LD]
-  float* ps = vs + 2 * F_BK * LD;  // [BQ][F_LDP]
-
-  const int tid = threadIdx.x, row = tid >> 2, c4 = tid & 3;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const float* qg =
-      static_cast<const float*>(p.q) + b * p.q_b + h * p.q_h + q0 * p.q_n;
-  const float* kg = static_cast<const float*>(p.k) + b * p.k_b + h * p.k_h;
-  const float* vg = static_cast<const float*>(p.v) + b * p.v_b + h * p.v_h;
-
-  stage_rows<D, F_THREADS>(qs, LD, qg, p.q_n, BQ, tid);
-  stage_rows<D, F_THREADS>(ks, LD, kg, p.k_n, F_BK, tid);
-  stage_rows<D, F_THREADS>(vs, LD, vg, p.v_n, F_BK, tid);
-  cp_async_commit();
-
-  float o[D / 4];  // columns c4 + 4 i of the row
+__device__ __forceinline__ void split_vt(const unsigned char* v,
+                                         unsigned char* hi,
+                                         unsigned char* lo, int tid) {
+  using R = F32<D>;
+  const int n = tid & 63, cc = n & 31;
+  const unsigned char* col = v + (n >> 5) * R::SBOX + ((cc & 3) << 2);
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) o[i] = 0.f;
-  float m = neg_inf(), l = 0.f;  // l: this lane's share of the sum
-  const float* qr = qs + row * LD;
-  float* pr = ps + row * F_LDP;
-  const int tiles = p.n_kv / F_BK;
+  for (int u = 0; u < R::RS / 8; ++u) {
+    const int piece = (tid >> 6) + 2 * u;  // positions 4 piece to + 3
+    const int pc = piece & 7;              // its place in a box of VT
+    const int r0 = 32 * (piece >> 3) + 8 * (pc >> 1) + (pc & 1);
+    uint32_t hv[4], lv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // rows r0 + 2 e
+      const int r = r0 + 2 * e;
+      split_tf32(*reinterpret_cast<const float*>(
+                     col + r * 128 + (((cc >> 2) ^ (r & 7)) << 4)),
+                 hv[e], lv[e]);
+    }
+    const int off =
+        (piece >> 3) * R::VTBOX + n * 128 + ((pc ^ (n & 7)) << 4);
+    *reinterpret_cast<uint4*>(hi + off) =
+        make_uint4(hv[0], hv[1], hv[2], hv[3]);
+    *reinterpret_cast<uint4*>(lo + off) =
+        make_uint4(lv[0], lv[1], lv[2], lv[3]);
+  }
+}
+
+// The accumulators are those of the bf16 kernel: element i of m64nN at row
+// 16 warp + g + 8 ((i >> 1) & 1) and column 8 (i >> 2) + 2 c + (i & 1).
+template <int D>
+__global__ void __launch_bounds__(WG, 1)
+    flash_fwd_f32(const __grid_constant__ TmaParams tp) {
+  static_assert(D % 64 == 0, "Dh must be a multiple of 64");
+  using R = F32<D>;
+  constexpr int RS = R::RS, ST = R::STAGES, NB = R::NB, NSUB = D / 64;
+  constexpr int SC = R::SC;
+  const Params& p = tp.p;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const uint32_t raw = smem_addr(f32_smem);
+  if constexpr (R::SLACK == 0) {
+    if (raw & 1023) __trap();
+  }
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = f32_smem + (base - raw);
+  // byte offsets: q (hi in place), its lo, the ring (stage s: k, then v),
+  // k's lo, VT's hi and lo, the barriers
+  constexpr int QLO = R::QTILE, RING = 2 * R::QTILE,
+                KLO = RING + ST * R::STAGE, VTH = KLO + R::KTILE,
+                VTL = VTH + R::VT, BARS = VTL + R::VT;
+  const uint32_t bars = base + BARS;
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, c = tid & 3;
+  const int sub = blockIdx.x % NSUB;  // the block's 64 output columns
+  const int q0 = (blockIdx.x / NSUB) * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = p.n_kv / RS;
+
+  // kv tile j into its stage, by thread 0
+  auto load = [&](int j) {
+    const int s = j % ST;
+    const uint32_t bar = bars + 8 * s, dst = base + RING + s * R::STAGE;
+    bar_expect(bar, R::STAGE);
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      tma_box(dst + x * R::SBOX, &tp.k, 32 * x, j * RS, h, b, bar);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      tma_box(dst + R::KTILE + x * R::SBOX, &tp.v, 64 * sub + 32 * x,
+              j * RS, h, b, bar);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s <= ST; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    const uint32_t bar = bars + 8 * ST;
+    bar_expect(bar, R::QTILE);
+#pragma unroll
+    for (int x = 0; x < NB; ++x)
+      tma_box(base + x * R::FBOX, &tp.q, 32 * x, q0, h, b, bar);
+    for (int j = 0; j < ST && j < tiles; ++j) load(j);
+  }
+  __syncwarp();
+
+  float o[32], pv[32];      // O, and P V of one tile
+  float sp[SC][RS / 2];     // the chains of S; S, then P, in sp[0]
+  uint32_t ph[RS / 8][4], pl[RS / 8][4];  // P's A fragments, hi and lo
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  // rows g and g + 8 of the warp's 16: running max and this lane's share
+  // of the running sum
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  const uint64_t qh = desc(base), ql = desc(base + QLO),
+                 kl = desc(base + KLO), vth = desc(base + VTH),
+                 vtl = desc(base + VTL);
+  bar_wait(bars + 8 * ST, 0);
+  split_pass<R::QTILE>(sm, sm + QLO, tid);  // made visible in tile 0
+
   for (int j = 0; j < tiles; ++j) {
-    const int s = j & 1;
-    if (j + 1 < tiles) {
-      const long long r = static_cast<long long>(j + 1) * F_BK;
-      stage_rows<D, F_THREADS>(ks + (s ^ 1) * F_BK * LD, LD, kg + r * p.k_n,
-                               p.k_n, F_BK, tid);
-      stage_rows<D, F_THREADS>(vs + (s ^ 1) * F_BK * LD, LD, vg + r * p.v_n,
-                               p.v_n, F_BK, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
+    const int s = j % ST;
+    unsigned char* kt = sm + RING + s * R::STAGE;
+    // every warp is done with tile j - 1: k's lo and VT are free
     __syncthreads();
-    const float* kt = ks + s * F_BK * LD;
-    const float* vt = vs + s * F_BK * LD;
+    bar_wait(bars + 8 * s, (j / ST) & 1);
 
-    float sc[F_BK / 4];  // kv columns c4 + 4 i of the tile
+    // the split pass: k's hi in place and lo beside, v's transposed
+    split_pass<R::KTILE>(kt, sm + KLO, tid);
+    split_vt<D>(kt + R::KTILE, sm + VTH, sm + VTL, tid);
+    fence_async_smem();
+    __syncthreads();
+
+    // S = Q K^T, three tf32 products a k-step (hi lo', lo hi', hi hi'),
+    // product n to chain n % SC, the chains added in fp32 by the FMA pipes
+    const uint64_t kh = desc(smem_addr(kt));
 #pragma unroll
-    for (int i = 0; i < F_BK / 4; ++i) sc[i] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float qd = qr[d];
+    for (int ch = 0; ch < SC; ++ch) hold(sp[ch]);
+    wg_fence();
 #pragma unroll
-      for (int i = 0; i < F_BK / 4; ++i)
-        sc[i] = fmaf(qd, kt[(c4 + 4 * i) * LD + d], sc[i]);
+    for (int x = 0; x < NB; ++x)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t fo = (x * R::FBOX + kk * 32) / 16,
+                       so = (x * R::SBOX + kk * 32) / 16;
+        const int n = 3 * (4 * x + kk);
+        mma_tf32_ss(sp[n % SC], qh + fo, kl + so, n >= SC);
+        mma_tf32_ss(sp[(n + 1) % SC], ql + fo, kh + so, n + 1 >= SC);
+        mma_tf32_ss(sp[(n + 2) % SC], qh + fo, kh + so, n + 2 >= SC);
+      }
+    wg_commit();
+    wg_wait<0>();
+#pragma unroll
+    for (int ch = 0; ch < SC; ++ch) hold(sp[ch]);
+    // k's hi and v are read: the stage goes to the copy of tile j + ST,
+    // which runs under this tile's softmax and P V
+    __syncthreads();
+    if (tid == 0 && j + ST < tiles) load(j + ST);
+    float (&sc)[RS / 2] = sp[0];
+#pragma unroll
+    for (int ch = 1; ch < SC; ++ch)
+#pragma unroll
+      for (int i = 0; i < RS / 2; ++i) sc[i] += sp[ch][i];
+
+    // online softmax: s scale as the backward recomputes it, then
+    // exp(s scale - m)
+    float tmax[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int i = 0; i < RS / 2; ++i) {
+      sc[i] = __fmul_rn(sc[i], p.scale);
+      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
     }
-    float tmax = neg_inf();
+    float alpha[2], rs[2] = {0.f, 0.f};
 #pragma unroll
-    for (int i = 0; i < F_BK / 4; ++i) {
-      sc[i] *= p.scale;
-      tmax = fmaxf(tmax, sc[i]);
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(tmax[r]));
+      alpha[r] = exp_ftz(m[r] - mn);  // 0 on the first tile
+      m[r] = mn;
     }
-    const float mn = fmaxf(m, quad_max(tmax));
-    const float alpha = expf(m - mn);
-    m = mn;
-    float rs = 0.f;
 #pragma unroll
-    for (int i = 0; i < F_BK / 4; ++i) {
-      const float e = expf(sc[i] - mn);
-      rs += e;
-      pr[c4 + 4 * i] = e;
+    for (int i = 0; i < RS / 2; ++i) {
+      sc[i] = exp_ftz(sc[i] - m[(i >> 1) & 1]);
+      rs[(i >> 1) & 1] += sc[i];
     }
-    l = l * alpha + rs;
-    __syncwarp();  // the row's p, written by its 4 lanes
 #pragma unroll
-    for (int i = 0; i < D / 4; ++i) o[i] *= alpha;
-#pragma unroll 4
-    for (int c = 0; c < F_BK; ++c) {
-      const float pc = pr[c];
-      const float* vrow = vt + c * LD + c4;
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+    // P as A fragments: k = c is column 2 c of each 8, k = c + 4 is 2 c + 1
 #pragma unroll
-      for (int i = 0; i < D / 4; ++i) o[i] = fmaf(pc, vrow[4 * i], o[i]);
+    for (int kk = 0; kk < RS / 8; ++kk) {
+      split_tf32(sc[4 * kk], ph[kk][0], pl[kk][0]);
+      split_tf32(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      split_tf32(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      split_tf32(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
     }
-    __syncthreads();  // the ring buffer and p are refilled by the next tile
+
+    // P V: wgmma m64n64k8 with P from registers and VT by descriptor,
+    // summed from 0 and added to the rescaled O in fp32
+    hold(pv);
+    hold(ph);
+    hold(pl);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < RS / 8; ++kk) {
+      const uint32_t vo = ((kk >> 2) * R::VTBOX + (kk & 3) * 32) / 16;
+      mma_tf32<64>(pv, ph[kk], vtl + vo, kk > 0);
+      mma_tf32<64>(pv, pl[kk], vth + vo, 1);
+      mma_tf32<64>(pv, ph[kk], vth + vo, 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(pv);
+    hold(ph);
+    hold(pl);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = o[i] * alpha[(i >> 1) & 1] + pv[i];
   }
 
-  const float sum = quad_sum(l);
-  const float inv = 1.f / sum;
-  if (p.l != nullptr && c4 == 0) {
+  float sum[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] = quad_sum(l[r]);
+    inv[r] = 1.f / sum[r];
+  }
+  const int row = q0 + warp * 16 + g;  // and row + 8
+  if (p.l != nullptr && sub == 0 && c == 0) {
     const long long i =
-        (static_cast<long long>(b) * gridDim.y + h) * p.n_q + q0 + row;
-    p.l[i] = sum;
-    p.m[i] = m;
+        (static_cast<long long>(b) * gridDim.y + h) * p.n_q + row;
+    p.l[i] = sum[0];
+    p.l[i + 8] = sum[1];
+    p.m[i] = m[0];
+    p.m[i + 8] = m[1];
   }
   float* og = static_cast<float*>(p.o) + b * p.o_b + h * p.o_h +
-              (q0 + row) * p.o_n + c4;
+              row * p.o_n + sub * 64 + 2 * c;
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) og[4 * i] = o[i] * inv;
+  for (int t = 0; t < 8; ++t) {
+    *reinterpret_cast<float2*>(og + t * 8) =
+        make_float2(o[4 * t] * inv[0], o[4 * t + 1] * inv[0]);
+    *reinterpret_cast<float2*>(og + 8 * p.o_n + t * 8) =
+        make_float2(o[4 * t + 2] * inv[1], o[4 * t + 3] * inv[1]);
+  }
 }
 
-// Blocks of the bf16 kernel that fit on one SM, as the occupancy API counts
-// them from its registers, threads and shared memory; -1 if refused.
+// Blocks of the bf16 (dtype 0) or fp32 kernel that fit on one SM, as the
+// occupancy API counts them from its registers, threads and shared memory;
+// -1 if refused.
 template <int D>
-int blocks_per_sm() {
+int blocks_per_sm(int dtype) {
+  void (*fn)(TmaParams) = dtype == 0 ? flash_fwd_bf16<D> : flash_fwd_f32<D>;
+  const int smem = dtype == 0 ? smem_bf16<D>() : smem_f32<D>();
   int n = -1;
-  if (cudaFuncSetAttribute(flash_fwd_bf16<D>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_bf16<D>()) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, flash_fwd_bf16<D>, WG, smem_bf16<D>()) != cudaSuccess)
+  if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, WG, smem) !=
+          cudaSuccess)
     return -1;
   return n;
 }
 
 template <int D>
 int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  // bf16: tiles of 64 rows, boxes of 64 columns; fp32: q tiles of 64 rows,
+  // kv tiles of F32<D>::RS, boxes of 32 columns
+  const int esize = dtype == 0 ? 2 : 4, rows = dtype == 0 ? BK : F32<D>::RS;
+  if (p.n_kv % rows != 0) return static_cast<int>(cudaErrorInvalidValue);
+  TmaParams tp;
+  tp.p = p;
+  if (!tensor_map(&tp.q, p.q, D, p.n_q, H, B, p.q_n, p.q_h, p.q_b, esize,
+                  BQ) ||
+      !tensor_map(&tp.k, p.k, D, p.n_kv, H, B, p.k_n, p.k_h, p.k_b, esize,
+                  rows) ||
+      !tensor_map(&tp.v, p.v, D, p.n_kv, H, B, p.v_n, p.v_h, p.v_b, esize,
+                  rows))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(p.n_q / BQ * (D / 64), H, B);
   cudaError_t e;
   if (dtype == 0) {
-    if (p.n_kv % BK != 0) return static_cast<int>(cudaErrorInvalidValue);
-    TmaParams tp;
-    tp.p = p;
-    if (!tensor_map(&tp.q, p.q, D, p.n_q, H, B, p.q_n, p.q_h, p.q_b) ||
-        !tensor_map(&tp.k, p.k, D, p.n_kv, H, B, p.k_n, p.k_h, p.k_b) ||
-        !tensor_map(&tp.v, p.v, D, p.n_kv, H, B, p.v_n, p.v_h, p.v_b))
-      return static_cast<int>(cudaErrorInvalidValue);
     e = cudaFuncSetAttribute(flash_fwd_bf16<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_bf16<D>());
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_fwd_bf16<D><<<dim3(p.n_q / BQ * Ring<D>::NSUB, H, B), WG,
-                        smem_bf16<D>(), st>>>(tp);
-  } else if (dtype == 1) {
-    if (p.n_kv % F_BK != 0) return static_cast<int>(cudaErrorInvalidValue);
+    flash_fwd_bf16<D><<<grid, WG, smem_bf16<D>(), st>>>(tp);
+  } else {
     e = cudaFuncSetAttribute(flash_fwd_f32<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              smem_f32<D>());
     if (e != cudaSuccess) return static_cast<int>(e);
-    flash_fwd_f32<D><<<dim3(p.n_q / BQ, H, B), F_THREADS, smem_f32<D>(),
-                       st>>>(p);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    flash_fwd_f32<D><<<grid, WG, smem_f32<D>(), st>>>(tp);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// How the bf16 kernel runs at this shape: plan[0] the blocks it launches,
-// plan[1] its blocks an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor,
-// -1 if refused).
+// How the bf16 (dtype 0) or fp32 kernel runs at this shape: plan[0] the
+// blocks it launches, plan[1] its blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused).
 template <int D>
-int plan_for(int B, int H, int n_q, int* plan) {
-  plan[0] = n_q / BQ * Ring<D>::NSUB * H * B;
-  plan[1] = blocks_per_sm<D>();
+int plan_for(int dtype, int B, int H, int n_q, int* plan) {
+  if (dtype != 0 && dtype != 1) return -1;
+  plan[0] = n_q / BQ * (D / 64) * H * B;
+  plan[1] = blocks_per_sm<D>(dtype);
   return 0;
 }
 
@@ -567,14 +762,14 @@ extern "C" int flash_attention_launch(
   }
 }
 
-extern "C" int flash_attention_plan(int D, int B, int H, int n_q,
+extern "C" int flash_attention_plan(int dtype, int D, int B, int H, int n_q,
                                     int* plan) {
   using flash::plan_for;
   switch (D) {
-    case 64: return plan_for<64>(B, H, n_q, plan);
-    case 128: return plan_for<128>(B, H, n_q, plan);
-    case 192: return plan_for<192>(B, H, n_q, plan);
-    case 256: return plan_for<256>(B, H, n_q, plan);
+    case 64: return plan_for<64>(dtype, B, H, n_q, plan);
+    case 128: return plan_for<128>(dtype, B, H, n_q, plan);
+    case 192: return plan_for<192>(dtype, B, H, n_q, plan);
+    case 256: return plan_for<256>(dtype, B, H, n_q, plan);
     default: return -1;
   }
 }

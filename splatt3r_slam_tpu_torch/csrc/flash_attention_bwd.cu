@@ -413,29 +413,6 @@ constexpr int smem_f32() {
          (DKV ? R::STAGES * 3 * R::RS * 4 : 0) + 8 * (R::STAGES + 1);
 }
 
-// hi in place and lo at `lo` (the same layout) of N bytes of fp32 values
-// in shared memory, N a multiple of 16 WG
-template <int N>
-__device__ __forceinline__ void split_pass(unsigned char* hi,
-                                           unsigned char* lo, int tid) {
-  float4* hv = reinterpret_cast<float4*>(hi);
-  float4* lv = reinterpret_cast<float4*>(lo);
-#pragma unroll
-  for (int r = 0; r < N / 16 / WG; ++r) {
-    const int i = tid + r * WG;
-    const float4 v = hv[i];
-    uint32_t hx, lx, hy, ly, hz, lz, hw, lw;
-    split_tf32(v.x, hx, lx);
-    split_tf32(v.y, hy, ly);
-    split_tf32(v.z, hz, lz);
-    split_tf32(v.w, hw, lw);
-    hv[i] = make_float4(__uint_as_float(hx), __uint_as_float(hy),
-                        __uint_as_float(hz), __uint_as_float(hw));
-    lv[i] = make_float4(__uint_as_float(lx), __uint_as_float(ly),
-                        __uint_as_float(lz), __uint_as_float(lw));
-  }
-}
-
 // The A fragments of k-steps 4 x to 4 x + 3 (the 32 columns of box x) of a
 // fixed 64-row tile, split into tf32 hi and lo: the warp's rows 16 warp + g
 // and + 8, columns c and c + 4 of each k-step. Row r's 16-byte piece q lies

@@ -1,9 +1,8 @@
 // Device and host helpers shared by the flash-attention sources
 // (flash_attention.cu, flash_attention_bwd.cu), each included once per
-// library: 16-byte cp.async staging for the forward's fp32 path, bf16
-// packing, the mbarrier, TMA and wgmma primitives of Hopper (sm_90a), the
-// split-TF32 (3xTF32) pieces of the fp32 backward, and the host-side TMA
-// tensor map of a tensor in the JAX layout.
+// library: bf16 packing, the mbarrier, TMA and wgmma primitives of Hopper
+// (sm_90a), the split-TF32 (3xTF32) pieces of the fp32 kernels, and the
+// host-side TMA tensor map of a tensor in the JAX layout.
 
 #pragma once
 
@@ -14,35 +13,6 @@
 #include <stdint.h>
 
 namespace flash_common {
-
-__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(s), "l"(src) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Start the copy of `rows` rows of D elements (row stride `stride` in
-// device memory, `ld` in shared memory) in 16-byte pieces.
-template <int D, int THREADS, typename T>
-__device__ __forceinline__ void stage_rows(T* dst, int ld, const T* src,
-                                           long long stride, int rows,
-                                           int tid) {
-  constexpr int PER = 16 / sizeof(T);
-  constexpr int PIECES = D / PER;
-  for (int i = tid; i < rows * PIECES; i += THREADS) {
-    const int r = i / PIECES, c = (i % PIECES) * PER;
-    cp_async_16(dst + r * ld + c, src + r * stride + c);
-  }
-}
 
 // __expf's steps (ex2.approx of x times log2 e) with denormals flushed
 __device__ __forceinline__ float exp_ftz(float x) {
@@ -210,6 +180,30 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// hi in place and lo at `lo` (the same layout) of N bytes of fp32 values
+// in shared memory, by the 128 threads of a warpgroup; N a multiple of
+// 16 x 128
+template <int N>
+__device__ __forceinline__ void split_pass(unsigned char* hi,
+                                           unsigned char* lo, int tid) {
+  float4* hv = reinterpret_cast<float4*>(hi);
+  float4* lv = reinterpret_cast<float4*>(lo);
+#pragma unroll
+  for (int r = 0; r < N / 16 / 128; ++r) {
+    const int i = tid + r * 128;
+    const float4 v = hv[i];
+    uint32_t hx, lx, hy, ly, hz, lz, hw, lw;
+    split_tf32(v.x, hx, lx);
+    split_tf32(v.y, hy, ly);
+    split_tf32(v.z, hz, lz);
+    split_tf32(v.w, hw, lw);
+    hv[i] = make_float4(__uint_as_float(hx), __uint_as_float(hy),
+                        __uint_as_float(hz), __uint_as_float(hw));
+    lv[i] = make_float4(__uint_as_float(lx), __uint_as_float(ly),
+                        __uint_as_float(lz), __uint_as_float(lw));
+  }
+}
+
 #define FLASH_ACC8(d)                                                    \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
       "+f"(d[6]), "+f"(d[7])
@@ -221,7 +215,7 @@ __device__ __forceinline__ void fence_async_smem() {
 // d (64 x N, fp32) = a b^T (+ d if `accumulate`), tf32 in: a (64 x 8) from
 // registers (a warp's rows 16 warp + g and + 8, columns c and c + 4, in
 // that order: g = lane / 4, c = lane % 4), b (N x 8) K-major in shared
-// memory (wgmma takes no transposed tf32 operand). N is 16 or 32.
+// memory (wgmma takes no transposed tf32 operand). N is 16, 32 or 64.
 template <int N>
 __device__ __forceinline__ void mma_tf32(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
@@ -253,17 +247,40 @@ __device__ __forceinline__ void mma_tf32<32>(float (&d)[16],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-// d (64 x 32, fp32) = a b^T (+ d if `accumulate`), tf32 in: a (64 x 8)
-// and b (32 x 8) both K-major in shared memory.
-__device__ __forceinline__ void mma_tf32_ss(float (&d)[16], uint64_t a,
-                                            uint64_t b, int accumulate) {
+template <>
+__device__ __forceinline__ void mma_tf32<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b, int accumulate) {
   asm volatile(
-      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15}, %16, %17, acc, 1, 1;\n}\n"
-      : FLASH_ACC16(d)
-      : "l"(a), "l"(b), "r"(accumulate));
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FLASH_D32
+      ", {%32, %33, %34, %35}, %36, acc, 1, 1;\n}\n"
+      : FLASH_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (64 x N, fp32) = a b^T (+ d if `accumulate`), tf32 in: a (64 x 8)
+// and b (N x 8) both K-major in shared memory; N = 2 R, 32 or 64.
+template <int R>
+__device__ __forceinline__ void mma_tf32_ss(float (&d)[R], uint64_t a,
+                                            uint64_t b, int accumulate) {
+  static_assert(R == 16 || R == 32, "N is 32 or 64");
+  if constexpr (R == 16) {
+    asm volatile(
+        "{\n.reg .pred acc;\nsetp.ne.b32 acc, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15}, %16, %17, acc, 1, 1;\n}\n"
+        : FLASH_ACC16(d)
+        : "l"(a), "l"(b), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n.reg .pred acc;\nsetp.ne.b32 acc, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FLASH_D32
+        ", %32, %33, acc, 1, 1;\n}\n"
+        : FLASH_ACC32(d)
+        : "l"(a), "l"(b), "r"(accumulate));
+  }
 }
 
 // d (16 x 8, fp32) += a (16 x 8) b (8 x 8), tf32 in, one warp (mma.sync):

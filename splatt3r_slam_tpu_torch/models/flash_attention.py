@@ -7,9 +7,11 @@ segment ids) and, under `jax.grad`, its custom VJP. The kernel
 `csrc/flash_attention.cu` replaces the TPU's forward kernel
 (`_flash_attention_kernel`); `csrc/flash_attention_bwd.cu` replaces its two
 backward kernels (`_flash_attention_dkv_kernel`, `_flash_attention_dq_kernel`).
-The notes at the top of the sources say what bounds each on the card and
-how the design answers. Built and launched through `cuda_build` (nvcc for
-sm_90a, ctypes).
+All three kernels run on the tensor cores in both dtypes: bf16 as it is,
+fp32 in split TF32 (each product three TF32 products summed in fp32, so
+that an fp32 model keeps fp32's accuracy). The notes at the top of the
+sources say what bounds each on the card and how the design answers.
+Built and launched through `cuda_build` (nvcc for sm_90a, ctypes).
 
 - `flash_attention_torch(q, k, v, scale)`: the plain forward, the TPU
   kernel's algorithm step by step: kv blocks of 128 rows (its default

@@ -15,6 +15,12 @@ Tolerances and what this CPU measured:
 - the same in bf16: 2^-7·max|want|, two bf16 ulps of the output's peak
   (both round the unnormalised p to bf16 against the same 128-row block
   maxima, and the output to bf16; measured at most 0.43 of the bar);
+- the fp32 kernel's arithmetic (split TF32 on 64- or 32-row kv tiles,
+  O rescaled and divided by l once) against the Pallas kernel: 1e-5
+  absolute on the output, l within 1e-5 relative and m within 1e-5 of its
+  peak (both exact fp32 up to split TF32's 2^-20 and sums in another
+  order; measured at most 6.4e-7, 2.4e-6 and 5.1e-7); one TF32 pass misses
+  the output's bar (measured 2.4e-4 at least);
 - plain version against the JAX einsum `_attend` in fp32: 5e-3, the bar
   of the JAX TPU test (tests/test_flash_attention.py; measured at most
   6.0e-7);
@@ -34,6 +40,7 @@ import pathlib
 import re
 
 import jax
+import jax.experimental.pallas.ops.tpu.flash_attention as jfa
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -65,6 +72,7 @@ from splatt3r_slam_tpu_torch.runtime.frame import create_frame
 from splatt3r_slam_tpu_torch.runtime.system import SLAMSystem
 from splatt3r_slam_tpu_torch.runtime.inference import InferenceEngine
 from splatt3r_slam_tpu_torch.scripts import bench_attention
+from flash_tf32 import mm_split
 from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -138,6 +146,59 @@ def test_plain_matches_pallas_kernel(shape, dtype):
     JL.set_flash_attention("off")
     einsum = np.asarray(JL._attend(jq, jk, jv, scale))
     assert np.abs(got.numpy() - einsum).max() <= 5e-3
+
+
+def _split_tf32_forward(q, k, v, scale, passes=3):
+    """The fp32 kernel's steps, emulated: kv tiles of 64 rows at Dh 64 and
+    32 above, S = Q·Kᵀ and P·V in split TF32 (`mm_split`), then s·scale,
+    the online softmax with O rescaled by exp(m_old - m_new) and one
+    division by l at the end → (out, l, m) as `flash_attention_torch`
+    gives them with `residuals`."""
+    qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, N, D)
+    B, H, n_q, D = qf.shape
+    rows = 64 if D == 64 else 32
+    m = torch.full((B, H, n_q, 1), float("-inf"))
+    l = torch.zeros((B, H, n_q, 1))
+    o = torch.zeros((B, H, n_q, D))
+    for k0 in range(0, kf.shape[2], rows):
+        s = mm_split(qf, kf[:, :, k0:k0 + rows].transpose(-1, -2),
+                     passes) * scale
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + mm_split(p, vf[:, :, k0:k0 + rows], passes)
+        m = m_new
+    return (o / l).transpose(1, 2), l[..., 0], m[..., 0]
+
+
+@pytest.mark.parametrize("shape", [(1, 256, 256, 2, 64),
+                                   (1, 256, 512, 1, 128)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_split_tf32_forward_matches_pallas_kernel(shape):
+    """The fp32 forward kernel's arithmetic, emulated on the CPU: its steps
+    with both products in split TF32 (three TF32 products summed in fp32)
+    hold the JAX package's Pallas forward at the fp32 bar, the output
+    within 1e-5 and the residuals l and m too, where one TF32 product
+    alone does not."""
+    B, nq, nk, H, D = shape
+    arrays = _qkv(shape, "float32", seed=sum(shape) + 2)
+    scale = D ** -0.5
+    jq, jk, jv = (jnp.asarray(a) for a in arrays)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(JL._attend_flash(jq, jk, jv, scale))
+        _, jl, jm = jfa._flash_attention_impl(
+            *(a.transpose(0, 2, 1, 3) for a in (jq, jk, jv)), None, None,
+            True, False, scale, 1, 128, 128, 128, False)
+    jl, jm = np.asarray(jl), np.asarray(jm)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    out, l, m = _split_tf32_forward(q, k, v, scale)
+    one, _, _ = _split_tf32_forward(q, k, v, scale, passes=1)
+    assert out.shape == (B, nq, H, D) and l.shape == m.shape == (B, H, nq)
+    assert np.abs(out.numpy() - want).max() <= 1e-5
+    assert float((np.abs(l.numpy() - jl) / jl).max()) <= 1e-5
+    assert float(np.abs(m.numpy() - jm).max()) <= 1e-5 * np.abs(jm).max()
+    assert np.abs(one.numpy() - want).max() > 1e-5
 
 
 def test_plain_follows_the_kernel_steps():
@@ -291,14 +352,14 @@ def test_registry_matches_the_c_entry_points(name):
 
 
 @pytest.mark.parametrize("entry, leading", [
-    ("flash_attention_plan", ["D", "B", "H", "n_q"]),
+    ("flash_attention_plan", ["dtype", "D", "B", "H", "n_q"]),
     ("flash_attention_bwd_plan", ["dkv", "dtype", "D", "B", "H", "n_q",
                                   "n_kv"])])
 def test_plan_entry_points_match_their_ctypes_binding(entry, leading):
     """chip_smoke.py binds each plan entry point with ctypes (the registry
     `FLASH_PLAN_ARGTYPES`): one c_int per int parameter of the C signature,
-    in order, then the int[2] it writes; the backward's plan takes the
-    dtype (0 bf16, 1 fp32) after dkv, as its launches do."""
+    in order, then the int[2] it writes; both plans take the dtype (0
+    bf16, 1 fp32), the backward's after dkv, as their launches do."""
     import ctypes
     import importlib.util
 
@@ -326,15 +387,15 @@ def test_plan_entry_points_match_their_ctypes_binding(entry, leading):
     ("flash_attention_bwd_dq", r"case (\d+): return launch<\d+, DKV>")])
 def test_flash_source_is_hand_written(name, case):
     """The forward and the two backward kernels are wgmma written out, fed
-    by TMA into an mbarrier ring (the forward's fp32 path by 16-byte
-    cp.async; the backward's fp32 path by TMA too, its products split TF32
-    on the tensor cores: wgmma .tf32 for S and dP, mma.sync .tf32 for the
-    gradients, every operand split into TF32 hi and lo rounded to nearest,
-    and no FMA loop left);
-    each with one template instance per head dim the wrapper admits, no
-    library on the route and no atomics. A source is read together with
-    the local headers it includes, and its own text calls their wgmma, TMA
-    and mbarrier helpers."""
+    by TMA into an mbarrier ring; in fp32 too, with every product split
+    TF32 on the tensor cores (every operand split into TF32 hi and lo
+    rounded to nearest, wgmma .tf32 for S and dP and for the forward's P·V
+    on a transposed V, mma.sync .tf32 for the backward's gradients), no
+    FMA loop in the fp32 kernel and no cp.async left; each with one
+    template instance per head dim the wrapper admits, no library on the
+    route and no atomics. A source is read together with the local headers
+    it includes, and its own text calls their wgmma, TMA and mbarrier
+    helpers."""
     source = cuda_build.KERNELS[name][0]
     code = source.read_text()
     own = re.sub(r"//[^\n]*", "", code)
@@ -345,22 +406,35 @@ def test_flash_source_is_hand_written(name, case):
     uses = ("wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",
             "wgmma.wait_group", "mbarrier.try_wait.parity",
             "mbarrier.arrive.expect_tx", "cp.async.bulk.tensor.4d",
-            "CU_TENSOR_MAP_SWIZZLE_128B", "cp.async.cg.shared.global")
+            "CU_TENSOR_MAP_SWIZZLE_128B")
     for op in uses:
         assert op in code, op
     for banned in ("cublas", "cudnn", "cutlass", "torch", "#include <mma"):
         assert banned not in code.lower(), banned
-    if name != "flash_attention":  # the backward's fp32 path
-        for helper in ("mma_tf32<RS>(", "mma_tf32_ss(", "mma_tf32_m16n8(",
-                       "split_tf32(", "fence_async_smem("):
+    # the fp32 path: split TF32 on the tensor cores
+    for helper in ("mma_tf32_ss(", "split_tf32(", "split_pass<",
+                   "fence_async_smem("):
+        assert helper in own, helper
+    for op in ("wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32",
+               "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32",
+               "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
+               "+ 0x1000u) & 0xFFFFE000u", "fence.proxy.async.shared::cta",
+               "CU_TENSOR_MAP_DATA_TYPE_FLOAT32"):
+        assert op in code, op
+    if name == "flash_attention":  # P·V by wgmma on the transposed V
+        for helper in ("mma_tf32<64>(", "split_vt<D>("):
             assert helper in own, helper
-        for op in ("wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32",
-                   "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32",
-                   "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32",
-                   "+ 0x1000u) & 0xFFFFE000u", "fence.proxy.async.shared::cta",
-                   "CU_TENSOR_MAP_DATA_TYPE_FLOAT32"):
-            assert op in code, op
-        assert "fmaf(" not in own and "cp_async" not in own
+        fp32 = re.search(r"flash_fwd_f32\(const __grid_constant__ TmaParams "
+                         r"tp\) \{.*?\n\}\n", own, re.S)
+    else:  # the gradients by mma.sync; wgmma from registers above Dh 128
+        for helper in ("mma_tf32<RS>(", "mma_tf32_m16n8("):
+            assert helper in own, helper
+        assert "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32" in code
+        fp32 = re.search(r"flash_bwd_f32\(const __grid_constant__ TmaParams "
+                         r"tp\) \{.*?\n\}\n", own, re.S)
+        assert "fmaf(" not in own
+    assert fp32 and "fmaf(" not in fp32.group(0)
+    assert "cp_async" not in code and "cp.async.cg" not in code
     ops = re.sub(r"//[^\n]*", "", code).lower()  # without the comments
     assert not re.search(r"\b(atomic|atom\.|red\.)", ops)
     assert tuple(int(d) for d in re.findall(case, code)) == fa.HEAD_DIMS

@@ -62,6 +62,7 @@ from splatt3r_slam_tpu_torch.models.checkpoint import (
 from splatt3r_slam_tpu_torch.parallel import TrainConfig, Trainer
 from splatt3r_slam_tpu_torch.parallel import mesh as pmesh
 from splatt3r_slam_tpu_torch.train import synthetic_batches
+from flash_tf32 import mm_split, tf32
 from test_torch_port_bench import one_torch_thread  # noqa: F401
 
 FP32_BAR = 1e-5
@@ -181,55 +182,34 @@ def test_plain_backward_matches_pallas_kernels(case, dtype, calls):
 
 # -- the fp32 kernels' arithmetic: split TF32 -----------------------------------
 
-def _tf32(x):
-    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest on the
-    10 mantissa bits kept, ties away from zero, the low 13 bits 0; the
-    kernels' `tf32_rna` (csrc/flash_common.cuh) is the same two integer
-    operations on the bits."""
-    bits = x.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _mm_split(a, b, passes=3):
-    """a @ b as the fp32 kernels form it on the tensor cores: a = hi + lo
-    with hi = tf32(a) and lo = tf32(a - hi) (b alike), and a b = hi hi' +
-    hi lo' + lo hi', each product exact in fp32 (11-bit significands) and
-    summed in fp32; `passes=1` is one TF32 product, hi hi' alone."""
-    ah, bh = _tf32(a), _tf32(b)
-    if passes == 1:
-        return torch.matmul(ah, bh)
-    al, bl = _tf32(a - ah), _tf32(b - bh)
-    return (torch.matmul(ah, bl) + torch.matmul(al, bh)
-            + torch.matmul(ah, bh))
-
-
 def _split_tf32_backward(q, k, v, o, l, m, do, scale, passes=3):
     """The plain backward's steps (fp32, one block) with every product in
     split TF32: S, dP, dV, dK and dQ; p and ds enter their products as
     fp32 values, split like every other operand."""
     qf, kf, vf, dof = (t.transpose(1, 2) for t in (q, k, v, do))
     di = fa._di(o, do)[..., None]
-    s = _mm_split(qf, kf.transpose(-1, -2), passes) * scale
+    s = mm_split(qf, kf.transpose(-1, -2), passes) * scale
     p = torch.exp(s - m[..., None]) * (1 / l)[..., None]
-    dv = _mm_split(p.transpose(-1, -2), dof, passes)
-    dp = _mm_split(dof, vf.transpose(-1, -2), passes)
+    dv = mm_split(p.transpose(-1, -2), dof, passes)
+    dp = mm_split(dof, vf.transpose(-1, -2), passes)
     ds = (dp - di) * p * scale
-    dk = _mm_split(ds.transpose(-1, -2), qf, passes)
-    dq = _mm_split(ds, kf, passes)
+    dk = mm_split(ds.transpose(-1, -2), qf, passes)
+    dq = mm_split(ds, kf, passes)
     return tuple(g.transpose(1, 2) for g in (dq, dk, dv))
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():
-    """`_tf32` rounds to nearest on 10 mantissa bits, ties away from zero,
-    for either sign; hi + lo of the split is within 2^-22 of x."""
+    """`tf32` (flash_tf32.py) rounds to nearest on 10 mantissa bits, ties
+    away from zero, for either sign; hi + lo of the split is within 2^-22
+    of x."""
     one = 1.0 + 2.0 ** -10  # exactly representable in TF32
     x = torch.tensor([1.0, one, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12,
                       -(1.0 + 2.0 ** -11), 1.0 + 2.0 ** -12])
-    assert _tf32(x).tolist() == [1.0, one, one, one, -one, 1.0]
+    assert tf32(x).tolist() == [1.0, one, one, one, -one, 1.0]
     y = torch.from_numpy(np.random.default_rng(9).standard_normal(
         4096).astype(np.float32))
-    hi = _tf32(y)
-    lo = _tf32(y - hi)
+    hi = tf32(y)
+    lo = tf32(y - hi)
     assert not (hi.view(torch.int32) & 0x1FFF).any()
     assert not (lo.view(torch.int32) & 0x1FFF).any()
     assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -22
