@@ -8,14 +8,17 @@ Phases, each printing one line of its own; any failure exits non-zero:
 1. build   — compile every kernel of the port from this checkout:
              splatt3r_slam_tpu_torch/csrc/composite.cu and composite_bwd.cu
              (both include composite_common.cuh), flash_attention.cu
-             (8 template instances: bf16 and fp32, Dh 64/128/192/256; both
-             on the tensor cores, fp32 in split TF32) and
-             flash_attention_bwd.cu (the dK/dV and dQ kernels, 16
-             instances), with nvcc (sm_90a), one nvcc a source, started
-             together (`cuda_build.build`); print the build seconds and
-             what ptxas says of each kernel's registers, shared memory and
-             spills (no kernel may spill); then the host JPEG entropy walk
-             csrc/jpeg_huffman.cpp with g++ (`[build-host]`);
+             (6 template instances: bf16 and fp32, Dh 64/128/256, and 2
+             wide kernels, bf16 and fp32, that take every multiple of 128
+             from Dh 384 up at run time; all on the tensor cores, fp32 in
+             split TF32) and flash_attention_bwd.cu (the dK/dV and dQ
+             kernels, 12 template instances and 4 wide kernels), with nvcc
+             (sm_90a), one nvcc a source, started together
+             (`cuda_build.build`); print the build seconds, each library's
+             kernels (template instances and wide kernels) and what ptxas
+             says of each kernel's registers and spills (no kernel may
+             spill); then the host JPEG entropy walk csrc/jpeg_huffman.cpp
+             with g++ (`[build-host]`);
 2. kernel  — hold the tile compositor against its plain PyTorch version
              (`composite_torch`) at the production shape (393,216 gaussians,
              384x512, tpg_side=4, k_max=512), on a tile list longer than one
@@ -259,9 +262,12 @@ Phases, each printing one line of its own; any failure exits non-zero:
              shapes where the main paths call it (each view alone: B1 N768
              H16 with v strided, the encoder; B1 N768 H12, the decoder),
              and in fp32 at the fp32 comparison step's own B1 shapes (the
-             same two) and at Dh 128, 192 and 256 (B1 n_q 256 n_kv 512 H4,
-             Dh 128 with v strided), every fp32 row with its residuals l
-             and m within 1e-5 of the plain version's; each timed (`ms`,
+             same two) and at Dh 128 and 256 (B1 n_q 256 n_kv 512 H4, Dh
+             128 with v strided), every fp32 row with its residuals l and
+             m within 1e-5 of the plain version's; the wide kernels in bf16
+             and fp32 with their residuals at Dh 384 and 512 (B1 n_q 256
+             n_kv 512 H4), B1 N768 H8 Dh 512 and B1 n_q 256 n_kv 512 H2
+             Dh 1024; each timed (`ms`,
              `call_ms`) beside the plain version, SDPA on the same inputs
              (`library_ms`) and the bound (in fp32 the faster of the fp32
              pipes and split TF32 on the tensor cores), with its blocks,
@@ -269,7 +275,13 @@ Phases, each printing one line of its own; any failure exits non-zero:
              (`flash_attention_plan`); held, untimed, with its residuals,
              at the scales 0.1 and -0.125 in bf16 and fp32
              (`[flash-scale]`); `auto` picks the kernel at N4096 and SDPA
-             at N768; the fixture CLI of 6 with --flash-attention on and
+             at N768; `attend` routed as the JAX package routes it
+             (`[flash-route]`): with "on" and with "auto" at B1 N4096 H2
+             Dh 192 and 320 (head dims the TPU kernel refuses) no launch
+             and SDPA's output bit for bit, at Dh 384 one launch of the
+             wide forward each, and under autograd with "on" one of the
+             wide backward pair, held against the plain versions; the
+             fixture CLI of 6 with --flash-attention on and
              without the flag in turns (on, auto, auto, on), with the
              checks of 6, every `attend` call of an `on` run a kernel
              launch and none in an `auto` run, the kernel held on the last
@@ -287,9 +299,10 @@ Phases, each printing one line of its own; any failure exits non-zero:
              kernels csrc/flash_attention_bwd.cu replace the TPU kernels
              `_flash_attention_dkv_kernel` and `_flash_attention_dq_kernel`
              that the Pallas flash attention's VJP runs): at 7c's shapes
-             (the full-finetune step's own B1 shapes among them) and at Dh
-             128, 192 and 256 in bf16 and fp32 (B1 n_q 256 n_kv 512 H4, Dh
-             128 with v strided), the forward's output with its
+             (the full-finetune step's own B1 shapes among them), at Dh
+             128 and 256 in bf16 and fp32 (B1 n_q 256 n_kv 512 H4, Dh 128
+             with v strided) and at 7c's rows of the wide kernels, the
+             forward's output with its
              residuals l and m the same as without, l and m within 1e-5 of
              the plain version's, and both backward kernels against the
              plain backward (`flash_attention_bwd_torch`), each gradient
@@ -308,7 +321,9 @@ Phases, each printing one line of its own; any failure exits non-zero:
              step's 96 attend calls (the encoder's 24 blocks once per view,
              the decoder's 12 blocks x 2 views x self and cross) launch
              the forward twice (the recompute) and each backward kernel
-             once, step ms and peak memory printed, its third step under
+             once (the wide kernels' share of them read apart: none, as
+             ViT-L's heads are 64 wide), step ms and peak memory printed,
+             its third step under
              torch.profiler (`[flash-train-profile]`: the backward pair's
              device ms and launches in the step, the step's device time and
              idle share); then a step's forward
@@ -321,6 +336,14 @@ Phases, each printing one line of its own; any failure exits non-zero:
              within 1e-4 (`[flash-train-kernel]`, `[flash-train-main]`,
              `[flash-train-profile]`, `[flash-train-compare]`,
              `[flash-train]` lines);
+7e. eval-tum — the port's TUM evaluation script
+             (`python -m splatt3r_slam_tpu_torch.scripts.eval_tum`, the
+             counterpart of scripts/eval_tum.sh) as its own process on the
+             committed fixture at full width (TwoViewConfig(), seeded
+             random weights, eval_fixture.yaml, EXTRA_ARGS without
+             --require-checkpoint): a finite ATE line, trajectory rows of 8
+             columns whose stamps lie within 0.02 s of the groundtruth's,
+             the PLY, the keyframe and the render PNGs, and its seconds;
 8. device  — the card's name and power limit (nvidia-smi);
 then one JSON line with the kernel table and, last, the ok/device line.
 
@@ -342,6 +365,14 @@ elements where the two differ, in fp32 their largest difference
 it. nvcc compiles DIR's sources in DIR: a header that they include
 (`composite_common.cuh`, or `flash_common.cuh` for the flash sources of
 this checkout and later) must be put there too.
+
+With `--wide-from-128` it also builds this checkout's two flash sources
+again with `-DFLASH_WIDE_FROM=128`, where the wide kernels take Dh 128 and
+256 in place of the template instances, holds the wide forward, its
+residuals and the backward pair there against the plain versions at 7c's
+and 7d's bars, and, after phase 7d, times the forward, dK/dV and dQ of the
+two builds in turns at 7c's and 7d's Dh 128 and 256 rows, both dtypes,
+median of 7 rounds (`[wide-vs-instances]`): why the instances stay.
 
 Times. A kernel's `ms` is its time on the device alone: 20 launches enqueued
 back to back behind a device-side delay, so that the host is ahead of the
@@ -379,6 +410,7 @@ import gc
 import io
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -2606,12 +2638,24 @@ FLASH_STEP_SHAPES = (
 )
 # fp32: the fp32 comparison step's own calls (7d's fp32 model: each view
 # alone, the encoder's with v strided, the decoder's) and the other head
-# dims the kernels are built for (Dh 128 with v strided)
+# dims of the template instances (Dh 128 with v strided)
 FLASH_FP32_SHAPES = (
     ("fp32_enc B1 N768 H16", 1, 768, 768, 16, 64, "float32", True),
     ("fp32_dec B1 N768 H12", 1, 768, 768, 12, 64, "float32", False),
 ) + tuple((f"fp32_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d, "float32",
-           d == 128) for d in (128, 192, 256))
+           d == 128) for d in (128, 256))
+# the wide kernels (Dh a multiple of 128 from 384 up, the head dim at run
+# time), both dtypes, every row with its residuals: Dh 384 and 512 at the
+# Dh 128-256 rows' shape, a B1 N768 H8 row at Dh 512 and a Dh 1024 row
+FLASH_WIDE_SHAPES = tuple(
+    (f"{tag}_{name}", 1, nq, nk, nh, d, dt, False)
+    for tag, dt in (("bf16", "bfloat16"), ("fp32", "float32"))
+    for name, nq, nk, nh, d in (
+        ("dh384 B1 Nq256 Nkv512 H4", 256, 512, 4, 384),
+        ("dh512 B1 Nq256 Nkv512 H4", 256, 512, 4, 512),
+        ("dh512n768 B1 N768 H8", 768, 768, 8, 512),
+        ("dh1024 B1 Nq256 Nkv512 H2", 256, 512, 2, 1024)))
+FLASH_WIDE_HEAD = "bf16_dh512n768 B1 N768 H8"  # their row in the JSON line
 # the kernel against its plain version: two bf16 steps of the output's peak
 # (both round p to bf16, against running maxima over 64 and 128 kv rows,
 # and round the output to bf16); fp32 absolute (sums in another order)
@@ -2710,16 +2754,19 @@ def _flash_plans(torch, so, log):
     fn = ctypes.CDLL(str(so)).flash_attention_plan
     fn.argtypes = FLASH_PLAN_ARGTYPES["flash_attention_plan"]
     fn.restype = ctypes.c_int
+    from splatt3r_slam_tpu_torch.models.flash_attention import wide_head_dim
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    regs = _ptxas_registers(log)
 
     def plan(dtype, B, n_q, H, D):
         out = (ctypes.c_int * 2)()
         fp32 = dtype == "float32"
         assert fn(int(fp32), D, B, H, n_q, out) == 0
-        stem = "flash_fwd_f32" if fp32 else "flash_fwd_bf16"
-        (r,) = [v for k, v in regs.items() if f"{stem}ILi{D}EE" in k]
-        return dict(blocks=out[0], blocks_per_sm=out[1], registers=r,
+        kind = "f32" if fp32 else "bf16"
+        key = (f"flash_fwd_wide_{kind}E" if wide_head_dim(D)
+               else f"flash_fwd_{kind}ILi{D}EE")
+        return dict(blocks=out[0], blocks_per_sm=out[1],
+                    registers=_registers(log, key),
                     waves=out[0] / (sms * out[1]), sms=sms)
 
     return plan
@@ -2756,14 +2803,16 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
         ["flash_attention"])["flash_attention"])
     shapes = {}
     for label, B, nq, nk, nh, D, dt_name, strided in (
-            FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES):
+            FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES
+            + FLASH_WIDE_SHAPES):
         dt = getattr(torch, dt_name)
         # with `strided`, v as Attention hands it over (n_kv rows)
         q, k, v, _ = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D, dt,
                                        strided)
         h = shapes[label] = _flash_held(torch, fl, q, k, v, D ** -0.5, label)
         h["plan"] = plan(dt_name, B, nq, nh, D)
-        if dt == torch.float32:  # the residuals of the fp32 step's calls
+        # the residuals of the fp32 step's calls and of the wide kernels
+        if dt == torch.float32 or fl.wide_head_dim(D):
             *_, h["l_err"], h["m_err"] = _flash_residuals_held(
                 torch, fl, q, k, v, D ** -0.5, label)
         del q, k, v
@@ -2989,9 +3038,12 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
         compositor_launches=sum(r["compositor_launches"]
                                 for r in runs + runs32),
         kernel_vs_plain=max(r["kernel_vs_plain"] for r in runs + runs32),
-        max_abs_err=max([h["err"] for h in shapes.values()]
+        max_abs_err=max([h["err"] for h in shapes.values()
+                         if not fl.wide_head_dim(h["shape"][4])]
                         + [h["err"] for h in scales.values()]
                         + [held["err"], held32["err"]]),
+        wide_max_abs_err=max(h["err"] for h in shapes.values()
+                             if fl.wide_head_dim(h["shape"][4])),
         seconds=time.perf_counter() - t_phase)
     lines.append(
         f"[flash] {res['seconds']:.1f} s | flash launches on the main paths "
@@ -2999,6 +3051,124 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
         f"launches {res['compositor_launches']} (CLI renders, bf16 and "
         f"fp32)")
     return lines, res
+
+
+# -- 7c. flash-route: attend routed as the JAX package routes it ------------
+
+# head dims the TPU kernel refuses (128 or more, no multiple of 128), at
+# auto's threshold (B1 N4096 H2) so that either mode would pick the kernel
+# by the shape alone; the wide kernels' head dim beside them
+FLASH_ROUTE_REFUSED = (192, 320)
+FLASH_ROUTE_WIDE = 384
+FLASH_ROUTE_N, FLASH_ROUTE_H = 4096, 2
+# under autograd with "on": B1 n_q 256 n_kv 512 H4 at the wide head dim
+FLASH_ROUTE_GRAD = (1, 256, 512, 4)
+
+
+def _flash_route_phase(torch, fl, layers):
+    """[flash-route]: `attend` on the card, routed as the JAX package's
+    `_attend` routes the same shapes → (line, results). With "on" and with
+    "auto" at B1 N4096 H2 and Dh 192 and 320, which the TPU kernel refuses:
+    no launch, and the output SDPA's bit for bit; at Dh 384 one launch of
+    the wide forward in each mode, held against the plain version; then
+    with "on" under autograd at Dh 384 one launch of the wide forward and
+    one of the wide backward pair, the output and gradients held against
+    the plain versions on the kernel forward's own residuals. The counts
+    are set to 0 just before each call and read just after it; the launches
+    that hold a kernel against its plain version come after and are not
+    counted."""
+    import numpy as np
+
+    assert layers.flash_attention_mode() == "auto"
+    rng = np.random.default_rng(15)
+    t0 = time.perf_counter()
+    n, nh = FLASH_ROUTE_N, FLASH_ROUTE_H
+    calls, fwd_errs, grad_abs = {}, [], {}
+
+    def counts():
+        return (fl.launches, fl.wide_launches, fl.bwd_launches,
+                fl.wide_bwd_launches)
+
+    def zero():
+        fl.launches = fl.wide_launches = 0
+        fl.bwd_launches = fl.wide_bwd_launches = 0
+
+    try:
+        for d in (*FLASH_ROUTE_REFUSED, FLASH_ROUTE_WIDE):
+            q, k, v, _ = _flash_bwd_inputs(torch, rng, 1, n, n, nh, d,
+                                           torch.bfloat16, False)
+            for mode in ("on", "auto"):
+                layers.set_flash_attention(mode)
+                zero()
+                got = layers.attend(q, k, v, d ** -0.5)
+                torch.cuda.synchronize()
+                c = counts()
+                layers.set_flash_attention("auto")
+                if d in FLASH_ROUTE_REFUSED:
+                    assert c == (0, 0, 0, 0), f"Dh {d} {mode}: launches {c}"
+                    same = torch.equal(got, layers.attend_sdpa(
+                        q, k, v, d ** -0.5))
+                    assert same, f"Dh {d} {mode}: not SDPA's output"
+                    calls[f"dh{d} {mode}"] = dict(launches=c[0], sdpa=same)
+                else:
+                    assert c == (1, 1, 0, 0), f"Dh {d} {mode}: launches {c}"
+                    want = fl.flash_attention_torch(q, k, v, d ** -0.5)
+                    err = float((got.float() - want.float()).abs().max())
+                    bar = FLASH_BF16_BAR * float(want.float().abs().max())
+                    assert err <= bar, f"Dh {d} {mode}: {err} > {bar}"
+                    fwd_errs.append(err)
+                    calls[f"dh{d} {mode}"] = dict(launches=c[0], err=err,
+                                                  bar=bar)
+            del q, k, v
+        # under autograd with "on": the wide forward, then the wide pair
+        B, nq, nk, nh_g = FLASH_ROUTE_GRAD
+        d, scale = FLASH_ROUTE_WIDE, FLASH_ROUTE_WIDE ** -0.5
+        q, k, v, do = _flash_bwd_inputs(torch, rng, B, nq, nk, nh_g, d,
+                                        torch.bfloat16, False)
+        lq, lk, lv = (t.detach().requires_grad_() for t in (q, k, v))
+        layers.set_flash_attention("on")
+        zero()
+        out = layers.attend(lq, lk, lv, scale)
+        grads = torch.autograd.grad(out, (lq, lk, lv), do)
+        torch.cuda.synchronize()
+        grad_counts = counts()
+        layers.set_flash_attention("auto")
+        assert grad_counts == (1, 1, 1, 1), \
+            f"Dh {d} under autograd: launches {grad_counts}"
+        o, l, m = fl.flash_attention(q, k, v, scale, residuals=True)
+        assert torch.equal(o, out.detach()), "the forward moved"
+        want = fl.flash_attention_bwd_torch(q, k, v, o, l, m, do, scale)
+        torch.cuda.synchronize()
+        rel = {}
+        for name, g, w in zip(("dq", "dk", "dv"), grads, want):
+            rel[name] = float((g.float() - w.float()).abs().max()
+                              / w.float().abs().max())
+            assert rel[name] <= FLASH_BWD_BF16_BAR, (name, rel[name])
+            grad_abs[name] = float((g.float() - w.float()).abs().max())
+        del q, k, v, do, lq, lk, lv, out, grads, o, l, m, want
+    finally:
+        layers.set_flash_attention("auto")
+        zero()
+    res = dict(calls=calls, grad=dict(launches=grad_counts, rel=rel),
+               fwd_launches=sum(x["launches"] for x in calls.values())
+               + grad_counts[1],
+               bwd_launches=grad_counts[3], fwd_max_abs_err=max(fwd_errs),
+               grad_abs=grad_abs,
+               seconds=time.perf_counter() - t0)
+    line = (
+        "[flash-route] attend as the JAX package routes it, bf16: "
+        + ", ".join(
+            f"{key} {x['launches']} launch"
+            + (" (SDPA's output bit for bit)" if "sdpa" in x else
+               f" (vs plain {x['err']:.2e}, bar {x['bar']:.2e})")
+            for key, x in calls.items())
+        + f" at B1 N{n} H{nh} | on under autograd at Dh "
+        f"{FLASH_ROUTE_WIDE} B{B} Nq{nq} Nkv{nk} H{nh_g}: forward "
+        f"{grad_counts[0]} launch (wide {grad_counts[1]}), backward pairs "
+        f"{grad_counts[2]} (wide {grad_counts[3]}); gradients vs plain dq "
+        f"{rel['dq']:.2e}, dk {rel['dk']:.2e}, dv {rel['dv']:.2e} of each "
+        f"peak (bar {FLASH_BWD_BF16_BAR:.2e}) | {res['seconds']:.1f} s")
+    return line, res
 
 
 # -- 7d. full-finetune training with the mode on ------------------------------
@@ -3009,8 +3179,8 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
 FLASH_BWD_SHAPES = (
     FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES[:2]
     + tuple((f"bf16_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d,
-             "bfloat16", d == 128) for d in (128, 192, 256))
-    + FLASH_FP32_SHAPES[2:])
+             "bfloat16", d == 128) for d in (128, 256))
+    + FLASH_FP32_SHAPES[2:] + FLASH_WIDE_SHAPES)
 # the kernels against the plain backward, each gradient's largest error over
 # its peak: two bf16 steps in bf16 (both round p, ds and the gradients to
 # bf16, with fp32 sums in another order: at most 0.52 of it on an H100);
@@ -3080,15 +3250,28 @@ def _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D, dtype, strided):
     return q, k, v, rand(B, nq, nh, D)
 
 
-def _ptxas_registers(log):
-    """{entry function: registers} from a `ptxas -v` log."""
-    regs, name = {}, None
+def _ptxas_kernels(log):
+    """[(mangled kernel name, registers, spill store bytes, spill load
+    bytes)] of every entry function of a `ptxas -v` log."""
+    out, name, spill = [], None, (0, 0)
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
+        elif name and "spill stores" in ln:
+            spill = tuple(int(x) for x in re.findall(
+                r"(\d+) bytes spill (?:stores|loads)", ln))
         elif name and "Used" in ln and "registers" in ln:
-            regs[name] = int(ln.split("Used")[1].split("registers")[0])
-    return regs
+            out.append((name, int(ln.split("Used")[1].split("registers")[0]),
+                        *spill))
+            name = None
+    return out
+
+
+def _registers(log, key):
+    """ptxas registers of the one kernel of `log` whose mangled name holds
+    `key` (e.g. `flash_fwd_bf16ILi64EE`, `flash_bwd_wide_f32ILb1EE`)."""
+    (r,) = [r for k, r, *_ in _ptxas_kernels(log) if key in k]
+    return r
 
 
 def _flash_bwd_plans(torch, so, log):
@@ -3100,17 +3283,19 @@ def _flash_bwd_plans(torch, so, log):
     fn = ctypes.CDLL(str(so)).flash_attention_bwd_plan
     fn.argtypes = FLASH_PLAN_ARGTYPES["flash_attention_bwd_plan"]
     fn.restype = ctypes.c_int
+    from splatt3r_slam_tpu_torch.models.flash_attention import wide_head_dim
+
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    regs = _ptxas_registers(log)
 
     def plan(dkv, dtype, B, n_q, n_kv, H, D):
         out = (ctypes.c_int * 2)()
         fp32 = dtype == "float32"
         assert fn(int(dkv), int(fp32), D, B, H, n_q, n_kv, out) == 0
-        stem = "flash_bwd_f32" if fp32 else "flash_bwd_bf16"
-        (r,) = [v for k, v in regs.items()
-                if f"{stem}ILi{D}ELb{int(dkv)}E" in k]
-        return dict(blocks=out[0], blocks_per_sm=out[1], registers=r,
+        kind = "f32" if fp32 else "bf16"
+        key = (f"flash_bwd_wide_{kind}ILb{int(dkv)}EE" if wide_head_dim(D)
+               else f"flash_bwd_{kind}ILi{D}ELb{int(dkv)}EE")
+        return dict(blocks=out[0], blocks_per_sm=out[1],
+                    registers=_registers(log, key),
                     waves=out[0] / (sms * out[1]), sms=sms)
 
     return plan
@@ -3125,23 +3310,44 @@ def _is_dkv_kernel(name):
 def _flash_bwd_errors(torch, fl, args, scale, what):
     """The backward kernels (`flash_attention_bwd`) against the plain
     backward on args = (q, k, v, o, l, m, do), in their working dtype →
-    {dq, dk, dv: largest error over the gradient's peak, abs: the largest
-    absolute error, bar}."""
+    {dq, dk, dv: largest error over the gradient's peak, abs_dq, abs_dk,
+    abs_dv: the largest absolute errors, bar}."""
     got = fl.flash_attention_bwd(*args, scale)
     want = fl.flash_attention_bwd_torch(*args, scale)
     torch.cuda.synchronize()
     bar = (FLASH_BWD_BF16_BAR if args[0].dtype == torch.bfloat16
            else FLASH_BWD_FP32_BAR)
-    h = {"bar": bar, "abs": 0.0}
+    h = {"bar": bar}
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, (what, name)
         assert torch.isfinite(g).all(), f"{what}: {name} not finite"
         err = float((g.float() - w.float()).abs().max())
         h[name] = err / float(w.float().abs().max())
-        h["abs"] = max(h["abs"], err)
+        h[f"abs_{name}"] = err
         assert h[name] <= bar, \
             f"{what}: {name} kernel vs plain {h[name]} of its peak > {bar}"
     return h
+
+
+FLASH_GRADS = {"dkv": ("dk", "dv"), "dq": ("dq",)}  # each kernel's own
+
+
+def _flash_bwd_kernel_errs(fl, shapes, held):
+    """Each backward kernel's errors from 7d's rows ({label: the
+    `_flash_bwd_errors` of a row}) → {"dkv", "dq", "dkv_wide", "dq_wide":
+    {abs: its largest absolute error on the seeded rows, over_peak: its
+    largest error over a gradient's peak there and, for the template
+    kernels, on a training call's tensors (`held`)}}."""
+    errs = {}
+    for kind, grads in FLASH_GRADS.items():
+        for wide in (False, True):
+            rows = [h for h in shapes.values()
+                    if fl.wide_head_dim(h["shape"][4]) == wide]
+            errs[kind + "_wide" * wide] = dict(
+                abs=max(h[f"abs_{g}"] for h in rows for g in grads),
+                over_peak=max(h[g] for h in rows + [held] * (not wide)
+                              for g in grads))
+    return errs
 
 
 def _flash_residuals_held(torch, fl, q, k, v, scale, what):
@@ -3393,6 +3599,7 @@ def _flash_train_phase(torch, cr, fl, layers, work):
     layers.set_flash_attention("on")
     torch.cuda.reset_peak_memory_stats()
     fl.launches = fl.bwd_launches = 0
+    fl.wide_launches = fl.wide_bwd_launches = 0
     cr.launches = cr.bwd_launches = 0
     t_main = time.perf_counter()
     try:
@@ -3407,6 +3614,7 @@ def _flash_train_phase(torch, cr, fl, layers, work):
         layers.set_flash_attention("auto")
     main_s = time.perf_counter() - t_main
     main_launches = (fl.launches, fl.bwd_launches)
+    main_wide = (fl.wide_launches, fl.wide_bwd_launches)  # of main_launches
     main_comp = (cr.launches, cr.bwd_launches)
     main_peak = torch.cuda.max_memory_allocated() / 2**30
     calls = FLASH_TRAIN_STEPS * per_forward
@@ -3448,7 +3656,9 @@ def _flash_train_phase(torch, cr, fl, layers, work):
         + f" | peak memory {main_peak:.2f} GiB | flash launches: forward "
         f"{main_launches[0]} = 2 x {calls} attend calls (remat), backward "
         f"pairs {main_launches[1]} = {calls} (dK/dV and dQ each "
-        f"{main_launches[1]}) | compositor {main_comp[0]} / {main_comp[1]} "
+        f"{main_launches[1]}), of them on the wide kernels: forward "
+        f"{main_wide[0]}, backward pairs {main_wide[1]} | compositor "
+        f"{main_comp[0]} / {main_comp[1]} "
         f"| {main_s:.1f} s in all | {smi}")
     lines.append(
         f"[flash-train-profile] train.main's step {FLASH_TRAIN_STEPS} with "
@@ -3464,8 +3674,9 @@ def _flash_train_phase(torch, cr, fl, layers, work):
                             if k != "kernels"}
     res["train_main"] = dict(step_ms=seen["step_ms"], losses=seen["losses"],
                              peak_gib=main_peak, launches=main_launches,
-                             compositor=main_comp, s=main_s,
-                             params=seen["params"], attend_calls=calls)
+                             wide_launches=main_wide, compositor=main_comp,
+                             s=main_s, params=seen["params"],
+                             attend_calls=calls)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3534,9 +3745,7 @@ def _flash_train_phase(torch, cr, fl, layers, work):
                         for d, c in compare.items()},
                compare_launches=tuple(sum(t["launches"][i] for t in turns)
                                       for i in (0, 1)),
-               max_abs_err=max(h["abs"] for h in shapes.values()),
-               max_rel_err=max(max(h[g] for g in ("dq", "dk", "dv"))
-                               for h in (*shapes.values(), held)),
+               errs=_flash_bwd_kernel_errs(fl, shapes, held),
                seconds=time.perf_counter() - t_phase)
     lines.append(
         f"[flash-train] {res['seconds']:.1f} s | flash launches on the main "
@@ -3547,15 +3756,83 @@ def _flash_train_phase(torch, cr, fl, layers, work):
     return lines, res
 
 
-def _parent_library(source, parent):
+# -- 7e. the TUM evaluation script --------------------------------------------
+
+EVAL_TUM_TIMEOUT = 600  # seconds of the evaluation's process
+
+
+def _eval_tum_phase(root, work):
+    """7e. The port's TUM evaluation (`scripts/eval_tum.py`, the counterpart of
+    scripts/eval_tum.sh) as users call it, in a process of its own from
+    `work`, on the committed fixture at full width: TwoViewConfig() with
+    seeded random weights (the CLI's `--seed 0`; EXTRA_ARGS without
+    --require-checkpoint), eval_fixture.yaml → (line, results). Its CLI run
+    and its ATE are processes of their own; checked: exit 0, one finite
+    ATE line, trajectory rows of 8 columns whose stamps lie within 0.02 s
+    of the groundtruth's, the PLY, the keyframe and the render PNGs."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch.runtime.evaluate import load_ply
+
+    fixture = os.path.join(root, "tests", "fixtures", "tum")
+    seq = "rgbd_dataset_freiburg1_fixture"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("GT_ROOT", "SEQS_OVERRIDE", "EXTRA_ARGS")}
+    env.update(DATASET_ROOT=fixture, SEQS_OVERRIDE=seq, SAVE_AS="eval_tum",
+               CONFIG=os.path.join(fixture, "eval_fixture.yaml"),
+               EXTRA_ARGS="--seed 0", PYTHONPATH=os.pathsep.join(
+                   p for p in (root, env.get("PYTHONPATH")) if p))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "splatt3r_slam_tpu_torch.scripts.eval_tum",
+         "--device", "cuda"], cwd=work, env=env, capture_output=True,
+        text=True, timeout=EVAL_TUM_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    assert r.returncode == 0, \
+        f"eval_tum exit {r.returncode}:\n{r.stdout[-3000:]}\n" \
+        f"{r.stderr[-3000:]}"
+    ates = [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{") and "ate_rmse" in ln]
+    assert len(ates) == 1 and np.isfinite(ates[0]["ate_rmse"]), \
+        r.stdout[-2000:]
+    out = os.path.join(work, "logs", "eval_tum")
+    rows = np.atleast_2d(np.loadtxt(os.path.join(out, f"{seq}.txt"),
+                                    comments="#"))
+    assert rows.shape[1] == 8 and rows.shape[0] >= 3, rows.shape
+    gt_ts = np.loadtxt(os.path.join(fixture, seq, "groundtruth.txt"),
+                       comments="#")[:, 0]
+    gap = max(float(np.min(np.abs(gt_ts - t))) for t in rows[:, 0])
+    assert gap < 0.02, f"a stamp {gap} s from the groundtruth's"
+    pts, _ = load_ply(os.path.join(out, f"{seq}.ply"))
+    kf = len(os.listdir(os.path.join(out, f"{seq}_keyframes")))
+    renders = len(os.listdir(os.path.join(out, f"{seq}_renders")))
+    assert len(pts) > 0 and kf == rows.shape[0] and renders > 0, \
+        (len(pts), kf, renders)
+    done = [ln for ln in r.stdout.splitlines() if ln.startswith("done:")]
+    res = dict(seconds=seconds, ate_rmse=ates[0]["ate_rmse"],
+               rows=int(rows.shape[0]), stamp_gap=gap, ply=len(pts),
+               keyframe_pngs=kf, render_pngs=renders, done=done)
+    line = (f"[eval-tum] python -m splatt3r_slam_tpu_torch.scripts.eval_tum "
+            f"--device cuda on the fixture at full width (TwoViewConfig(), "
+            f"seeded random weights): exit 0 in {seconds:.1f} s | "
+            f"{' '.join(done)} | ATE {ates[0]['ate_rmse']:.4f} m (random "
+            f"weights, not held) | trajectory {rows.shape[0]} rows of 8 "
+            f"columns, stamps within {gap:.4f} s of the groundtruth's | PLY "
+            f"{len(pts)} vertices, {kf} keyframe PNGs, {renders} render "
+            f"PNGs")
+    return line, res
+
+
+def _parent_library(source, parent, tag="parent", flags=()):
     """Build the file of `source`'s name found in `parent` (an earlier
-    commit's, with the same C entry points) into a library of its own, in
-    that directory's include path → the library's path."""
+    commit's, with the same C entry points; or this checkout's, with other
+    nvcc `flags`) into a library of its own, `lib{tag}_{stem}.so`, in that
+    directory's include path → the library's path."""
     from splatt3r_slam_tpu_torch import cuda_build
 
-    so = cuda_build.BUILD_DIR / f"libparent_{source.stem}.so"
+    so = cuda_build.BUILD_DIR / f"lib{tag}_{source.stem}.so"
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o",
+    subprocess.run([cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, *flags, "-o",
                     str(so), os.path.join(parent, source.name)], check=True,
                    capture_output=True, timeout=600)
     return so
@@ -3658,7 +3935,8 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
     rng = np.random.default_rng(13)
     runs, found = {}, {}
     for label, B, nq, nk, nh, D, dt, strided in FLASH_BWD_SHAPES:
-        if dt == "bfloat16" and D != 64:
+        # the wide kernels' rows only where the parent's source has them
+        if (dt == "bfloat16" and D != 64) or fl.wide_head_dim(D):
             continue
         q, k, v, do = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D,
                                         getattr(torch, dt), strided)
@@ -3691,6 +3969,81 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
     return found
 
 
+# the template instances' rows of 7c and 7d (Dh 128 with v strided, and
+# 256, at B1 256x512 H4, both dtypes), where --wide-from-128 times the wide
+# kernels beside them
+FLASH_INSTANCE_ROWS = tuple(r for r in FLASH_BWD_SHAPES if r[5] in (128, 256))
+
+
+def _compare_wide_with_instances(torch, fl, rounds=7):
+    """--wide-from-128: build both flash sources of this checkout again
+    with -DFLASH_WIDE_FROM=128, where the wide kernels take Dh 128 and 256
+    in place of the template instances, hold the wide forward (with its
+    residuals) and backward pair there against the plain versions at 7c's
+    and 7d's bars, and time the forward, dK/dV and dQ in turns with the
+    instances at every FLASH_INSTANCE_ROWS row → {row: {fwd, dkv, dq:
+    (instance ms, wide ms), err: the forward's error (bf16: over the
+    output's peak), grads: the largest gradient error over its peak}},
+    each ms the median over `rounds` of a device-only time of 20
+    launches."""
+    import numpy as np
+
+    from splatt3r_slam_tpu_torch import cuda_build
+
+    names = ("flash_attention", "flash_attention_bwd_dkv",
+             "flash_attention_bwd_dq")
+    own = {n: cuda_build._fns[n] for n in names}  # resolved by 7c and 7d
+    sos = {src: _parent_library(src, src.parent, "wide128",
+                                ("-DFLASH_WIDE_FROM=128",))
+           for src in {cuda_build.KERNELS[n][0] for n in names}}
+    wide = {n: cuda_build._entry(sos[cuda_build.KERNELS[n][0]], n)
+            for n in names}
+    rng = np.random.default_rng(17)
+    runs, found = {}, {}
+    for label, B, nq, nk, nh, D, dt, strided in FLASH_INSTANCE_ROWS:
+        q, k, v, do = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D,
+                                        getattr(torch, dt), strided)
+        scale = D ** -0.5
+        o, l, m = fl.flash_attention(q, k, v, scale, residuals=True)
+        di = fl._di(o, do)
+
+        def fwd(q=q, k=k, v=v, scale=scale):
+            return fl.flash_attention(q, k, v, scale, residuals=True)
+
+        def dkv(q=q, k=k, v=v, do=do, m=m, l=l, di=di, scale=scale):
+            return fl._launch_dkv(q, k, v, do, m, l, di, scale)
+
+        def dq(q=q, k=k, v=v, do=do, m=m, l=l, di=di, scale=scale):
+            return fl._launch_dq(q, k, v, do, m, l, di, scale)
+
+        for kind, fn in (("fwd", fwd), ("dkv", dkv), ("dq", dq)):
+            runs[label, kind] = tuple(_swap_entries(e, fn)
+                                      for e in (own, wide))
+        wo, wl, wm = runs[label, "fwd"][1]()
+        wdq, (wdk, wdv) = runs[label, "dq"][1](), runs[label, "dkv"][1]()
+        po, pl, pm = fl.flash_attention_torch(q, k, v, scale, residuals=True)
+        want = fl.flash_attention_bwd_torch(q, k, v, o, l, m, do, scale)
+        torch.cuda.synchronize()
+        err = float((wo.float() - po.float()).abs().max())
+        if dt == "bfloat16":
+            err /= float(po.float().abs().max())
+        res_err = max(float(((wl - pl).abs() / pl).max()),
+                      float((wm - pm).abs().max() / pm.abs().max()))
+        grads = max(float((g.float() - w.float()).abs().max()
+                          / w.float().abs().max())
+                    for g, w in zip((wdq, wdk, wdv), want))
+        bars = ((FLASH_BF16_BAR, FLASH_BWD_BF16_BAR) if dt == "bfloat16"
+                else (FLASH_FP32_BAR, FLASH_BWD_FP32_BAR))
+        assert err <= bars[0] and res_err <= FLASH_RES_BAR and \
+            grads <= bars[1], (label, err, res_err, grads)
+        found[label] = dict(err=err, res_err=res_err, grads=grads)
+    slow = 10 * SLEEP_CYCLES  # a ctypes launch with its checks, as in 7d
+    for (label, kind), ms in _in_turns(torch, runs, rounds,
+                                       sleep_cycles=slow).items():
+        found[label][kind] = ms
+    return found
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -3700,7 +4053,12 @@ def main(argv=None) -> int:
                          "composite_bwd.cu, flash_attention.cu and/or "
                          "flash_attention_bwd.cu to time beside this "
                          "checkout's")
+    ap.add_argument("--wide-from-128", action="store_true",
+                    help="after 7d, also time the wide flash kernels built "
+                         "to take Dh 128 and 256 against the template "
+                         "instances there")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
 
     import numpy as np
     import torch
@@ -3747,11 +4105,14 @@ def main(argv=None) -> int:
         assert '#include "composite_common.cuh"' in source.read_text(), source
     fl.launches = fl.bwd_launches = 0  # read after every phase (`_no_flash`)
     libraries = dict(built.values())  # the two backward kernels share one
+    kernel_list = {so: _ptxas_kernels(log) for so, log in libraries.items()}
     print(f"[build] {build_s:.2f} s | " + " | ".join(
-        f"{os.path.relpath(so, root)}: " + " ".join(
-            ln.strip() for ln in log.splitlines()
-            if "registers" in ln or "spill" in ln)
-        for so, log in libraries.items()))
+        f"{os.path.relpath(so, root)}: {len(ks)} kernels ("
+        f"{sum('IL' in k[0] and '_wide_' not in k[0] for k in ks)} template "
+        f"instances, {sum('_wide_' in k[0] for k in ks)} wide): "
+        + ", ".join(
+            f"{k} {r} registers, spill {st}/{ld} B" for k, r, st, ld in ks)
+        for so, ks in kernel_list.items()))
     for so, log in libraries.items():  # every kernel of every library
         spills = [ln for ln in log.splitlines() if "spill stores" in ln]
         assert spills and all("0 bytes spill stores, 0 bytes spill loads"
@@ -4446,6 +4807,9 @@ def main(argv=None) -> int:
     flash_launches = sum(flash_res["launches"].values())
     assert layers.flash_attention_mode() == "auto"
     assert fl.bwd_launches == 0, "the serving path launched the backward"
+    route_line, route_res = _flash_route_phase(torch, fl, layers)
+    print(route_line)
+    results["flash_route"] = route_res
     if args.parent and os.path.exists(
             os.path.join(args.parent, "flash_attention.cu")):
         found = _compare_flash_with_parent(torch, fl, args.parent)
@@ -4475,7 +4839,10 @@ def main(argv=None) -> int:
     for ln in ft_lines:
         print(ln)
     results["flash_train"] = ft_res
-    ft_fwd, ft_bwd = ft_res["train_main"]["launches"]
+    # train.main's launches of the template kernels and of the wide ones
+    ft_wide_fwd, ft_wide_bwd = ft_res["train_main"]["wide_launches"]
+    ft_fwd, ft_bwd = (n - w for n, w in zip(
+        ft_res["train_main"]["launches"], (ft_wide_fwd, ft_wide_bwd)))
     if args.parent and os.path.exists(
             os.path.join(args.parent, "flash_attention_bwd.cu")):
         found = _compare_flash_bwd_with_parent(torch, fl, args.parent)
@@ -4491,12 +4858,38 @@ def main(argv=None) -> int:
               + f" | this checkout's faster at every shape: {faster} | "
               f"{_smi()}")
         results["compare_flash_bwd"] = found
+    if args.wide_from_128:
+        found = _compare_wide_with_instances(torch, fl)
+        print("[wide-vs-instances] device ms, the template instances → the "
+              "wide kernels built with -DFLASH_WIDE_FROM=128, in turns, "
+              "median of 7 rounds of 20 launches | " + " | ".join(
+                  f"{label}: " + ", ".join(
+                      f"{kind} {f[kind][0]:.4f} → {f[kind][1]:.4f} "
+                      f"({f[kind][1] / f[kind][0]:.2f}x)"
+                      for kind in ("fwd", "dkv", "dq"))
+                  + f" (wide vs plain: output {f['err']:.1e}, residuals "
+                  f"{f['res_err']:.1e}, gradients {f['grads']:.1e} of their "
+                  f"peak)" for label, f in found.items())
+              + f" | {_smi()}")
+        results["wide_vs_instances"] = found
     gc.collect()
     torch.cuda.empty_cache()
+
+    # -- 7e. the TUM evaluation script, in processes of its own --------------
+    eval_work = tempfile.mkdtemp(prefix="chip_smoke_eval_tum_")
+    try:
+        eval_line, eval_res = _eval_tum_phase(root, eval_work)
+    finally:
+        shutil.rmtree(eval_work, ignore_errors=True)
+    print(eval_line)
+    results["eval_tum"] = eval_res
 
     # -- 8. device ------------------------------------------------------------
     smi = _smi()
     kind = torch.cuda.get_device_name(0)
+    results["seconds"] = time.perf_counter() - t_start
+    print(f"[time] {results['seconds']:.1f} s from the start of main, the "
+          f"kernels' build included")
     print(f"[device] {kind} | nvidia-smi: {smi}")
     results["device"] = dict(kind=kind, smi=smi)
 
@@ -4611,6 +5004,7 @@ def main(argv=None) -> int:
         "launches_other_phases": 0,
         **{f"{k}_{label.split()[0]}": h[k]
            for label, h in flash_res["shapes"].items()
+           if not fl.wide_head_dim(h["shape"][4])
            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "err")},
         **{f"{k}_cli_call": flash_res["cli_held"][k]
@@ -4632,7 +5026,7 @@ def main(argv=None) -> int:
         "launches": ft_bwd,
         # on the seeded unit-normal inputs; a training call's gradients
         # (up to 1e9 on the random model) are held relative to their peak
-        "max_abs_err": ft_res["max_abs_err"],
+        "max_abs_err": ft_res["errs"][kind]["abs"],
         "ms": ft_res["shapes"][FLASH_SHAPES[0][0]][f"ms_{kind}"],
         # the plain backward computes dq, dk and dv together; SDPA's
         # backward too (one autograd.grad)
@@ -4641,7 +5035,7 @@ def main(argv=None) -> int:
         "bound_by": ft_res["shapes"][FLASH_SHAPES[0][0]][f"bound_by_{kind}"],
         "library_ms": ft_res["shapes"][FLASH_SHAPES[0][0]]["library_ms"],
         "call_ms": ft_res["shapes"][FLASH_SHAPES[0][0]][f"call_ms_{kind}"],
-        "max_err_over_peak": ft_res["max_rel_err"],
+        "max_err_over_peak": ft_res["errs"][kind]["over_peak"],
         # ptxas registers, blocks an SM (occupancy API) and waves there
         **{k: ft_res["shapes"][FLASH_SHAPES[0][0]][f"plan_{kind}"][k]
            for k in ("registers", "blocks_per_sm", "waves")},
@@ -4650,7 +5044,60 @@ def main(argv=None) -> int:
         **{f"{k}_{label.split()[0]}": h[k if k in ("plain_ms", "library_ms")
                                         else f"{k}_{kind}"]
            for label, h in ft_res["shapes"].items()
+           if not fl.wide_head_dim(h["shape"][4])
            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")},
+    } for kind, line in (("dkv", 796), ("dq", 1146))] + [{
+        # the wide kernels: Dh a multiple of 128 from 384 up; their
+        # launches are [flash-route]'s (attend at Dh 384) and train.main's
+        # (none: ViT-L's heads are 64 wide), their headline numbers the
+        # bf16 row at B1 N768 H8 Dh 512
+        "name": "flash_attention_fwd_wide_kernel", "route": "cuda",
+        "source": "splatt3r_slam_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "splatt3r_slam_tpu/models/layers.py:126",
+        "launches": route_res["fwd_launches"] + ft_wide_fwd,
+        "max_abs_err": max(flash_res["wide_max_abs_err"],
+                           route_res["fwd_max_abs_err"]),
+        **{k: flash_res["shapes"][FLASH_WIDE_HEAD][k]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                     "call_ms")},
+        **{k: flash_res["shapes"][FLASH_WIDE_HEAD]["plan"][k]
+           for k in ("registers", "blocks_per_sm", "waves")},
+        **{f"{k}_{label.split()[0]}": h[k]
+           for label, h in flash_res["shapes"].items()
+           if fl.wide_head_dim(h["shape"][4])
+           for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
+                     "err", "l_err", "m_err")},
+        "launches_flash_route": route_res["fwd_launches"],
+        "launches_flash_train": ft_wide_fwd,
+        "launches_other_phases": 0,
+    }] + [{
+        "name": f"flash_attention_bwd_{kind}_wide_kernel", "route": "cuda",
+        "source": "splatt3r_slam_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": f"jax/experimental/pallas/ops/tpu/flash_attention.py:"
+                    f"{line}",
+        "launches": route_res["bwd_launches"] + ft_wide_bwd,
+        "max_abs_err": max([ft_res["errs"][f"{kind}_wide"]["abs"]]
+                           + [route_res["grad_abs"][g]
+                              for g in FLASH_GRADS[kind]]),
+        "ms": ft_res["shapes"][FLASH_WIDE_HEAD][f"ms_{kind}"],
+        "plain_ms": ft_res["shapes"][FLASH_WIDE_HEAD]["plain_ms"],
+        "bound_ms": ft_res["shapes"][FLASH_WIDE_HEAD][f"bound_ms_{kind}"],
+        "bound_by": ft_res["shapes"][FLASH_WIDE_HEAD][f"bound_by_{kind}"],
+        "library_ms": ft_res["shapes"][FLASH_WIDE_HEAD]["library_ms"],
+        "call_ms": ft_res["shapes"][FLASH_WIDE_HEAD][f"call_ms_{kind}"],
+        "max_err_over_peak": max(
+            [ft_res["errs"][f"{kind}_wide"]["over_peak"]]
+            + [route_res["grad"]["rel"][g] for g in FLASH_GRADS[kind]]),
+        **{k: ft_res["shapes"][FLASH_WIDE_HEAD][f"plan_{kind}"][k]
+           for k in ("registers", "blocks_per_sm", "waves")},
+        **{f"{k}_{label.split()[0]}": h[k if k in ("plain_ms", "library_ms")
+                                        else f"{k}_{kind}"]
+           for label, h in ft_res["shapes"].items()
+           if fl.wide_head_dim(h["shape"][4])
+           for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")},
+        "launches_flash_route": route_res["bwd_launches"],
+        "launches_flash_train": ft_wide_bwd,
+        "launches_other_phases": 0,
     } for kind, line in (("dkv", 796), ("dq", 1146))]
     results["kernels"] = kernels
     if args.out:

@@ -109,7 +109,7 @@
 // one warpgroup, 64 q rows, 64 output columns (Dh/64 blocks above Dh 64). q, k
 // and v arrive by TMA (boxes of 32 fp32 columns, 128-byte swizzle); q is split
 // once, hi in place and lo beside it; kv tiles are 64 rows at Dh 64 (one stage,
-// two blocks an SM) and 32 above (3, 2, 1 stages at Dh 128, 192, 256), each
+// two blocks an SM) and 32 above (3 and 1 stages at Dh 128 and 256), each
 // split after it lands: k's hi in place and lo beside, v's 64 columns written
 // transposed (VT, hi and lo), the rows of each 8 in the order 0, 2, 4, 6, 1, 3,
 // 5, 7. S = Q K^T is wgmma m64nRSk8 .tf32 with both operands K-major by
@@ -124,6 +124,17 @@
 // rounded and then exp_ftz(s scale - m), so that the p the forward sums is the
 // p the backward recomputes; the largest scaled score is taken, so a negative
 // scale needs no sign flip.
+//
+// Head dims. The TPU kernel takes Dh below 128 or a multiple of 128 (the
+// wrapper refuses the others with its error, and `attend` routes them to
+// SDPA as the JAX package routes them to einsum). Dh 64, 128 and 256 are
+// template instances of the kernels above, whose tiles span Dh; every
+// multiple of 128 from 384 up runs on one wide kernel a dtype that takes
+// Dh at run time and streams S over it in 64-column chunks (the "wide head
+// dims" section below), so that shared memory does not grow with Dh. The
+// instances stay: on an H100 the wide kernels, built to take Dh 128 and 256
+// too, are slower there at every row timed (chip_smoke.py --wide-from-128;
+// the times in PERF.md).
 
 #include <type_traits>
 
@@ -410,20 +421,21 @@ __global__ void __launch_bounds__(WG, 3)
 // the same at N 32 and 64, so the kv tiles are as tall as shared memory
 // allows: 64 rows at Dh 64 (one stage; two blocks an SM only without the
 // 1024 bytes of alignment slack, so the kernel declares its shared memory
-// 1024-byte aligned there and traps if it is not), 32 above with 3, 2 and
-// 1 stages at Dh 128, 192 and 256.
+// 1024-byte aligned there and traps if it is not), 32 above with 3 and 1
+// stages at Dh 128 and 256.
+constexpr int VTBOX = 64 * 128;  // 32 kv rows of v's 64 columns, transposed
+
 template <int D>
 struct F32 {
   static constexpr int RS = D == 64 ? 64 : 32;  // kv rows a tile
   static constexpr int NB = D / 32;             // boxes of a q or k row
-  static constexpr int STAGES = D == 128 ? 3 : (D == 192 ? 2 : 1);
+  static constexpr int STAGES = D == 128 ? 3 : 1;
   static constexpr int SLACK = D == 64 ? 0 : 1024;
   static constexpr int FBOX = BQ * 128;  // a box of the q tile
   static constexpr int SBOX = RS * 128;  // a box of a k or v tile
   static constexpr int QTILE = NB * FBOX;
   static constexpr int KTILE = NB * SBOX;
   static constexpr int STAGE = KTILE + 2 * SBOX;  // k, then v's 64 columns
-  static constexpr int VTBOX = 64 * 128;          // 32 rows of VT
   static constexpr int VT = RS / 32 * VTBOX;      // v's 64 columns, transposed
   // S's products go to SC accumulators in turn, each summed by the tensor
   // cores from 0 (their fp32 sums do not round to nearest): 24 products a
@@ -440,22 +452,23 @@ constexpr int smem_f32() {
          2 * R::VT + 8 * (R::STAGES + 1);
 }
 
-// v's 64 columns of a tile (two boxes of RS rows, as TMA lays them), split
-// into tf32 hi and lo and written transposed: row n of VT is column n of
-// v, its positions the tile's rows, 32 a box of VTBOX bytes, each 8 in the
-// order 0, 2, 4, 6, 1, 3, 5, 7 (P's accumulator elements hold columns 2 c
-// and 2 c + 1 of each 8, the k = c and c + 4 of its A fragment), 128-byte
-// swizzled: the K-major B operand of wgmma. Each thread writes 16-byte
-// pieces of one row; a warp's reads fall in one 128-byte row of v.
-template <int D>
+// v's 64 columns of a tile of RS rows (two boxes of RS rows, as TMA lays
+// them), split into tf32 hi and lo and written transposed: row n of VT is
+// column n of v, its positions the tile's rows, 32 a box of VTBOX bytes,
+// each 8 in the order 0, 2, 4, 6, 1, 3, 5, 7 (P's accumulator elements
+// hold columns 2 c and 2 c + 1 of each 8, the k = c and c + 4 of its A
+// fragment), 128-byte swizzled: the K-major B operand of wgmma. Each
+// thread writes 16-byte pieces of one row; a warp's reads fall in one
+// 128-byte row of v.
+template <int RS>
 __device__ __forceinline__ void split_vt(const unsigned char* v,
                                          unsigned char* hi,
                                          unsigned char* lo, int tid) {
-  using R = F32<D>;
+  constexpr int SBOX = RS * 128;
   const int n = tid & 63, cc = n & 31;
-  const unsigned char* col = v + (n >> 5) * R::SBOX + ((cc & 3) << 2);
+  const unsigned char* col = v + (n >> 5) * SBOX + ((cc & 3) << 2);
 #pragma unroll
-  for (int u = 0; u < R::RS / 8; ++u) {
+  for (int u = 0; u < RS / 8; ++u) {
     const int piece = (tid >> 6) + 2 * u;  // positions 4 piece to + 3
     const int pc = piece & 7;              // its place in a box of VT
     const int r0 = 32 * (piece >> 3) + 8 * (pc >> 1) + (pc & 1);
@@ -467,8 +480,7 @@ __device__ __forceinline__ void split_vt(const unsigned char* v,
                      col + r * 128 + (((cc >> 2) ^ (r & 7)) << 4)),
                  hv[e], lv[e]);
     }
-    const int off =
-        (piece >> 3) * R::VTBOX + n * 128 + ((pc ^ (n & 7)) << 4);
+    const int off = (piece >> 3) * VTBOX + n * 128 + ((pc ^ (n & 7)) << 4);
     *reinterpret_cast<uint4*>(hi + off) =
         make_uint4(hv[0], hv[1], hv[2], hv[3]);
     *reinterpret_cast<uint4*>(lo + off) =
@@ -558,7 +570,7 @@ __global__ void __launch_bounds__(WG, 1)
 
     // the split pass: k's hi in place and lo beside, v's transposed
     split_pass<R::KTILE>(kt, sm + KLO, tid);
-    split_vt<D>(kt + R::KTILE, sm + VTH, sm + VTL, tid);
+    split_vt<RS>(kt + R::KTILE, sm + VTH, sm + VTL, tid);
     fence_async_smem();
     __syncthreads();
 
@@ -632,7 +644,362 @@ __global__ void __launch_bounds__(WG, 1)
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < RS / 8; ++kk) {
-      const uint32_t vo = ((kk >> 2) * R::VTBOX + (kk & 3) * 32) / 16;
+      const uint32_t vo = ((kk >> 2) * VTBOX + (kk & 3) * 32) / 16;
+      mma_tf32<64>(pv, ph[kk], vtl + vo, kk > 0);
+      mma_tf32<64>(pv, pl[kk], vth + vo, 1);
+      mma_tf32<64>(pv, ph[kk], vth + vo, 1);
+    }
+    wg_commit();
+    wg_wait<0>();
+    hold(pv);
+    hold(ph);
+    hold(pl);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = o[i] * alpha[(i >> 1) & 1] + pv[i];
+  }
+
+  float sum[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] = quad_sum(l[r]);
+    inv[r] = 1.f / sum[r];
+  }
+  const int row = q0 + warp * 16 + g;  // and row + 8
+  if (p.l != nullptr && sub == 0 && c == 0) {
+    const long long i =
+        (static_cast<long long>(b) * gridDim.y + h) * p.n_q + row;
+    p.l[i] = sum[0];
+    p.l[i + 8] = sum[1];
+    p.m[i] = m[0];
+    p.m[i + 8] = m[1];
+  }
+  float* og = static_cast<float*>(p.o) + b * p.o_b + h * p.o_h +
+              row * p.o_n + sub * 64 + 2 * c;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    *reinterpret_cast<float2*>(og + t * 8) =
+        make_float2(o[4 * t] * inv[0], o[4 * t + 1] * inv[0]);
+    *reinterpret_cast<float2*>(og + 8 * p.o_n + t * 8) =
+        make_float2(o[4 * t + 2] * inv[1], o[4 * t + 3] * inv[1]);
+  }
+}
+
+// ------------------------------------------------------ wide head dims ----
+
+// Dh a multiple of 128 from 384 up, the head dim at run time: one kernel a
+// dtype. A block owns 64 q rows and 64 output columns, as above (n_q/64 x
+// Dh/64 blocks a head), but no tile spans Dh: S = Q K^T is summed over Dh
+// in chunks of 64 columns, each a pair of 64-column boxes (q's rows, the kv
+// tile's rows) that TMA brings into a ring of its own, and every block of a
+// q tile computes S whole, (Dh/64) times the S work of one block. The
+// block's 64 columns of v come by TMA into a second ring. Each chunk is
+// waited for before the next starts and each stage is refilled once its
+// products have retired: simple, not fast.
+constexpr int WST = 4;   // chunk pairs a ring, bf16
+constexpr int WVST = 2;  // v tiles a ring
+
+// 1024 bytes of alignment slack, the pair ring (q box, then k box), the v
+// ring, the barriers (a pair stage each, then a v stage each)
+constexpr int smem_wide_bf16() {
+  return 1024 + WST * 2 * BOX + WVST * BOX + 8 * (WST + WVST);
+}
+
+// The softmax is the fp32 kernel's: s scale rounded, its row maximum, then
+// exp(s scale - m), as the plain version takes them (no sign flip of q).
+__global__ void __launch_bounds__(WG, 2)
+    flash_fwd_wide_bf16(const __grid_constant__ TmaParams tp, int D) {
+  const Params& p = tp.p;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t pairs = base, vring = base + WST * 2 * BOX;
+  const uint32_t bars = vring + WVST * BOX;
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, c = tid & 3;
+  const int nc = D / 64;  // chunks of the contraction
+  const int sub = blockIdx.x % nc;
+  const int q0 = (blockIdx.x / nc) * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = p.n_kv / BK, items = tiles * nc;
+
+  // item u (chunk u % nc of kv tile u / nc) into its pair stage, by thread 0
+  auto load_pair = [&](int u) {
+    const int s = u % WST, x = u % nc;
+    const uint32_t bar = bars + 8 * s, dst = pairs + s * 2 * BOX;
+    bar_expect(bar, 2 * BOX);
+    tma_box(dst, &tp.q, 64 * x, q0, h, b, bar);
+    tma_box(dst + BOX, &tp.k, 64 * x, (u / nc) * BK, h, b, bar);
+  };
+  auto load_v = [&](int j) {
+    const uint32_t bar = bars + 8 * (WST + j % WVST);
+    bar_expect(bar, BOX);
+    tma_box(vring + (j % WVST) * BOX, &tp.v, 64 * sub, j * BK, h, b, bar);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < WST + WVST; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int u = 0; u < WST && u < items; ++u) load_pair(u);
+    for (int j = 0; j < WVST && j < tiles; ++j) load_v(j);
+  }
+  __syncwarp();
+
+  float o[32], sc[32];
+  uint32_t pa[4][4];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.f;
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < tiles; ++j) {
+    // S = Q K_j^T, chunk by chunk
+    for (int x = 0; x < nc; ++x) {
+      const int u = j * nc + x, s = u % WST;
+      const uint32_t st = pairs + s * 2 * BOX;
+      bar_wait(bars + 8 * s, (u / WST) & 1);
+      hold(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_ss(sc, desc(st + kk * 32), desc(st + BOX + kk * 32),
+               x > 0 || kk > 0);
+      wg_commit();
+      wg_wait<0>();
+      hold(sc);
+      __syncthreads();  // no warp reads the stage any more
+      if (tid == 0 && u + WST < items) load_pair(u + WST);
+      __syncwarp();
+    }
+
+    // online softmax
+    float tmax[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = __fmul_rn(sc[i], p.scale);
+      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(tmax[r]));
+      alpha[r] = exp_ftz(m[r] - mn);  // 0 on the first tile
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int nt = 0; nt < BK / 8; ++nt) {
+      const float p0 = exp_ftz(sc[4 * nt] - m[0]);
+      const float p1 = exp_ftz(sc[4 * nt + 1] - m[0]);
+      const float p2 = exp_ftz(sc[4 * nt + 2] - m[1]);
+      const float p3 = exp_ftz(sc[4 * nt + 3] - m[1]);
+      rs[0] += p0 + p1;
+      rs[1] += p2 + p3;
+      pa[nt / 2][(nt & 1) * 2] = pack_bf16(p0, p1);
+      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // O += P V_j: v's 64 columns of the block, MN-major
+    bar_wait(bars + 8 * (WST + j % WVST), (j / WVST) & 1);
+    const uint32_t vt = vring + (j % WVST) * BOX;
+    hold(o);
+    hold_frag(pa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs(o, pa[kk], desc(vt + kk * 16 * 128));
+    wg_commit();
+    wg_wait<0>();
+    hold(o);
+    __syncthreads();
+    if (tid == 0 && j + WVST < tiles) load_v(j + WVST);
+    __syncwarp();
+  }
+
+  float sum[2], inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] = quad_sum(l[r]);
+    inv[r] = 1.f / sum[r];
+  }
+  const int row = q0 + warp * 16 + g;  // and row + 8
+  if (p.l != nullptr && sub == 0 && c == 0) {
+    const long long i =
+        (static_cast<long long>(b) * gridDim.y + h) * p.n_q + row;
+    p.l[i] = sum[0];
+    p.l[i + 8] = sum[1];
+    p.m[i] = m[0];
+    p.m[i + 8] = m[1];
+  }
+  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_b +
+                      h * p.o_h + row * p.o_n + sub * 64 + 2 * c;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    *reinterpret_cast<__nv_bfloat162*>(og + t * 8) =
+        __floats2bfloat162_rn(o[4 * t] * inv[0], o[4 * t + 1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(og + 8 * p.o_n + t * 8) =
+        __floats2bfloat162_rn(o[4 * t + 2] * inv[1], o[4 * t + 3] * inv[1]);
+  }
+}
+
+// fp32: split TF32 as above, kv tiles of 64 rows. A pair stage holds q's and
+// k's 64 columns of the chunk (two 32-column boxes each); once it lands one
+// pass rounds both to hi in place and writes lo beside them (one lo pair
+// for the chunk in work), and the chunk's 24 products (8 k-steps, each hi
+// lo', lo hi', hi hi') are one chain, summed by the tensor cores from 0 and
+// added to S by the FMA pipes. v's 64 columns are split transposed (VT) as
+// at Dh 64, and P V is one chain a tile, as there.
+constexpr int WST32 = 3;                // chunk pairs a ring, fp32
+constexpr int WBOX = 64 * 128;          // 64 rows of 32 fp32 columns
+constexpr int WPAIR = 4 * WBOX;         // q's and k's 64 columns
+constexpr int WVTILE = 2 * WBOX;        // v's 64 columns of a 64-row tile
+
+// the slack, the pair ring, the chunk's lo pair, the v ring, VT's hi and
+// lo, the barriers
+constexpr int smem_wide_f32() {
+  return 1024 + (WST32 + 1) * WPAIR + WVST * WVTILE + 2 * 2 * VTBOX +
+         8 * (WST32 + WVST);
+}
+
+__global__ void __launch_bounds__(WG, 1)
+    flash_fwd_wide_f32(const __grid_constant__ TmaParams tp, int D) {
+  const Params& p = tp.p;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const uint32_t raw = smem_addr(f32_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = f32_smem + (base - raw);
+  // byte offsets: the pair ring (stage s: q's two boxes, then k's), the
+  // lo pair, the v ring, VT's hi and lo, the barriers
+  constexpr int LO = WST32 * WPAIR, VRING = LO + WPAIR,
+                VTH = VRING + WVST * WVTILE, VTL = VTH + 2 * VTBOX,
+                BARS = VTL + 2 * VTBOX;
+  const uint32_t bars = base + BARS;
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, c = tid & 3;
+  const int nc = D / 64;
+  const int sub = blockIdx.x % nc;
+  const int q0 = (blockIdx.x / nc) * BQ, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = p.n_kv / 64, items = tiles * nc;
+
+  auto load_pair = [&](int u) {
+    const int s = u % WST32, x = u % nc;
+    const uint32_t bar = bars + 8 * s, dst = base + s * WPAIR;
+    bar_expect(bar, WPAIR);
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      tma_box(dst + y * WBOX, &tp.q, 64 * x + 32 * y, q0, h, b, bar);
+      tma_box(dst + (2 + y) * WBOX, &tp.k, 64 * x + 32 * y, (u / nc) * 64,
+              h, b, bar);
+    }
+  };
+  auto load_v = [&](int j) {
+    const uint32_t bar = bars + 8 * (WST32 + j % WVST),
+                   dst = base + VRING + (j % WVST) * WVTILE;
+    bar_expect(bar, WVTILE);
+#pragma unroll
+    for (int y = 0; y < 2; ++y)
+      tma_box(dst + y * WBOX, &tp.v, 64 * sub + 32 * y, j * 64, h, b, bar);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < WST32 + WVST; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int u = 0; u < WST32 && u < items; ++u) load_pair(u);
+    for (int j = 0; j < WVST && j < tiles; ++j) load_v(j);
+  }
+  __syncwarp();
+
+  float o[32], pv[32], sc[32], part[32];  // O, P V of a tile, S, a chunk of S
+  uint32_t ph[8][4], pl[8][4];            // P's A fragments, hi and lo
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = sc[i] = part[i] = 0.f;
+  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  const uint64_t ql = desc(base + LO), kl = desc(base + LO + 2 * WBOX),
+                 vth = desc(base + VTH), vtl = desc(base + VTL);
+
+  for (int j = 0; j < tiles; ++j) {
+    for (int x = 0; x < nc; ++x) {
+      const int u = j * nc + x, s = u % WST32;
+      unsigned char* st = sm + s * WPAIR;
+      bar_wait(bars + 8 * s, (u / WST32) & 1);
+      split_pass<WPAIR>(st, sm + LO, tid);  // hi in place, lo beside
+      fence_async_smem();
+      __syncthreads();
+      const uint64_t qh = desc(smem_addr(st)),
+                     kh = desc(smem_addr(st) + 2 * WBOX);
+      hold(part);
+      wg_fence();
+#pragma unroll
+      for (int y = 0; y < 2; ++y)
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint32_t off = (y * WBOX + kk * 32) / 16;
+          mma_tf32_ss(part, qh + off, kl + off, y > 0 || kk > 0);
+          mma_tf32_ss(part, ql + off, kh + off, 1);
+          mma_tf32_ss(part, qh + off, kh + off, 1);
+        }
+      wg_commit();
+      wg_wait<0>();
+      hold(part);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sc[i] = x == 0 ? part[i] : sc[i] + part[i];
+      __syncthreads();  // the stage and the lo pair are free
+      if (tid == 0 && u + WST32 < items) load_pair(u + WST32);
+      __syncwarp();
+    }
+
+    // v's 64 columns, split transposed; the raw stage goes back to TMA
+    bar_wait(bars + 8 * (WST32 + j % WVST), (j / WVST) & 1);
+    split_vt<64>(sm + VRING + (j % WVST) * WVTILE, sm + VTH, sm + VTL, tid);
+    fence_async_smem();
+    __syncthreads();
+    if (tid == 0 && j + WVST < tiles) load_v(j + WVST);
+    __syncwarp();
+
+    // online softmax: s scale, then exp(s scale - m)
+    float tmax[2] = {neg_inf(), neg_inf()};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = __fmul_rn(sc[i], p.scale);
+      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
+    }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float mn = fmaxf(m[r], quad_max(tmax[r]));
+      alpha[r] = exp_ftz(m[r] - mn);  // 0 on the first tile
+      m[r] = mn;
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      sc[i] = exp_ftz(sc[i] - m[(i >> 1) & 1]);
+      rs[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      split_tf32(sc[4 * kk], ph[kk][0], pl[kk][0]);
+      split_tf32(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      split_tf32(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      split_tf32(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
+    }
+
+    // P V from 0, added to the rescaled O in fp32
+    hold(pv);
+    hold(ph);
+    hold(pl);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint32_t vo = ((kk >> 2) * VTBOX + (kk & 3) * 32) / 16;
       mma_tf32<64>(pv, ph[kk], vtl + vo, kk > 0);
       mma_tf32<64>(pv, pl[kk], vth + vo, 1);
       mma_tf32<64>(pv, ph[kk], vth + vo, 1);
@@ -675,10 +1042,8 @@ __global__ void __launch_bounds__(WG, 1)
 // Blocks of the bf16 (dtype 0) or fp32 kernel that fit on one SM, as the
 // occupancy API counts them from its registers, threads and shared memory;
 // -1 if refused.
-template <int D>
-int blocks_per_sm(int dtype) {
-  void (*fn)(TmaParams) = dtype == 0 ? flash_fwd_bf16<D> : flash_fwd_f32<D>;
-  const int smem = dtype == 0 ? smem_bf16<D>() : smem_f32<D>();
+template <typename Fn>
+int occupancy(Fn fn, int smem) {
   int n = -1;
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess ||
@@ -689,20 +1054,37 @@ int blocks_per_sm(int dtype) {
 }
 
 template <int D>
+int blocks_per_sm(int dtype) {
+  return dtype == 0 ? occupancy(flash_fwd_bf16<D>, smem_bf16<D>())
+                    : occupancy(flash_fwd_f32<D>, smem_f32<D>());
+}
+
+int blocks_per_sm_wide(int dtype) {
+  return dtype == 0 ? occupancy(flash_fwd_wide_bf16, smem_wide_bf16())
+                    : occupancy(flash_fwd_wide_f32, smem_wide_f32());
+}
+
+// q, k, v's TMA maps: bf16 boxes of 64 columns, fp32 of 32; q tiles of 64
+// rows, kv tiles of `rows`
+bool maps(TmaParams& tp, int D, int B, int H, int esize, int rows) {
+  const Params& p = tp.p;
+  return tensor_map(&tp.q, p.q, D, p.n_q, H, B, p.q_n, p.q_h, p.q_b, esize,
+                    BQ) &&
+         tensor_map(&tp.k, p.k, D, p.n_kv, H, B, p.k_n, p.k_h, p.k_b, esize,
+                    rows) &&
+         tensor_map(&tp.v, p.v, D, p.n_kv, H, B, p.v_n, p.v_h, p.v_b, esize,
+                    rows);
+}
+
+template <int D>
 int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
   if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
   // bf16: tiles of 64 rows, boxes of 64 columns; fp32: q tiles of 64 rows,
   // kv tiles of F32<D>::RS, boxes of 32 columns
-  const int esize = dtype == 0 ? 2 : 4, rows = dtype == 0 ? BK : F32<D>::RS;
-  if (p.n_kv % rows != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = dtype == 0 ? BK : F32<D>::RS;
   TmaParams tp;
   tp.p = p;
-  if (!tensor_map(&tp.q, p.q, D, p.n_q, H, B, p.q_n, p.q_h, p.q_b, esize,
-                  BQ) ||
-      !tensor_map(&tp.k, p.k, D, p.n_kv, H, B, p.k_n, p.k_h, p.k_b, esize,
-                  rows) ||
-      !tensor_map(&tp.v, p.v, D, p.n_kv, H, B, p.v_n, p.v_h, p.v_b, esize,
-                  rows))
+  if (p.n_kv % rows != 0 || !maps(tp, D, B, H, dtype == 0 ? 2 : 4, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(p.n_q / BQ * (D / 64), H, B);
   cudaError_t e;
@@ -722,24 +1104,36 @@ int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// How the bf16 (dtype 0) or fp32 kernel runs at this shape: plan[0] the
-// blocks it launches, plan[1] its blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused).
-template <int D>
-int plan_for(int dtype, int B, int H, int n_q, int* plan) {
-  if (dtype != 0 && dtype != 1) return -1;
-  plan[0] = n_q / BQ * (D / 64) * H * B;
-  plan[1] = blocks_per_sm<D>(dtype);
-  return 0;
+// Dh a multiple of 128 from 384 up: kv tiles of 64 rows in both dtypes
+int launch_wide(int dtype, int B, int H, int D, const Params& p,
+                cudaStream_t st) {
+  if ((dtype != 0 && dtype != 1) || p.n_kv % 64 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TmaParams tp;
+  tp.p = p;
+  if (!maps(tp, D, B, H, dtype == 0 ? 2 : 4, 64))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(p.n_q / BQ * (D / 64), H, B);
+  const int smem = dtype == 0 ? smem_wide_bf16() : smem_wide_f32();
+  void (*fn)(TmaParams, int) =
+      dtype == 0 ? flash_fwd_wide_bf16 : flash_fwd_wide_f32;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fn<<<grid, WG, smem, st>>>(tp, D);
+  return static_cast<int>(cudaGetLastError());
 }
+
+bool wide(int D) { return D >= FLASH_WIDE_FROM && D % 128 == 0; }
 
 }  // namespace flash
 
-// dtype 0: bf16, 1: fp32 (q, k, v and the output alike). Strides in
-// elements: (batch, row, head) of q, k, v and the output; Dh is contiguous.
-// l and m: the residuals, (B, H, n_q) fp32, both or neither (null).
-// Returns a cudaError_t: not 0 if the shape is refused or the launch
-// failed.
+// dtype 0: bf16, 1: fp32 (q, k, v and the output alike). Dh 64, 128 and 256
+// take a template instance each, every multiple of 128 from 384 up the
+// wide kernel. Strides in elements: (batch, row, head) of q, k, v and the
+// output; Dh is contiguous. l and m: the residuals, (B, H, n_q) fp32, both
+// or neither (null). Returns a cudaError_t: not 0 if the shape is refused
+// or the launch failed.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, float* l, float* m,
     int dtype, int B, int H, int n_q, int n_kv, int D, long long q_b,
@@ -753,23 +1147,31 @@ extern "C" int flash_attention_launch(
                         q_h, k_b, k_n, k_h, v_b, v_n, v_h,  o_b,  o_n, o_h,
                         scale};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (flash::wide(D)) return flash::launch_wide(dtype, B, H, D, p, st);
   switch (D) {
     case 64: return flash::launch<64>(dtype, B, H, p, st);
     case 128: return flash::launch<128>(dtype, B, H, p, st);
-    case 192: return flash::launch<192>(dtype, B, H, p, st);
     case 256: return flash::launch<256>(dtype, B, H, p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// How the bf16 (dtype 0) or fp32 kernel runs at this shape: plan[0] the
+// blocks it launches, plan[1] its blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused).
 extern "C" int flash_attention_plan(int dtype, int D, int B, int H, int n_q,
                                     int* plan) {
-  using flash::plan_for;
-  switch (D) {
-    case 64: return plan_for<64>(dtype, B, H, n_q, plan);
-    case 128: return plan_for<128>(dtype, B, H, n_q, plan);
-    case 192: return plan_for<192>(dtype, B, H, n_q, plan);
-    case 256: return plan_for<256>(dtype, B, H, n_q, plan);
-    default: return -1;
+  if (dtype != 0 && dtype != 1) return -1;
+  if (flash::wide(D)) {
+    plan[1] = flash::blocks_per_sm_wide(dtype);
+  } else {
+    switch (D) {
+      case 64: plan[1] = flash::blocks_per_sm<64>(dtype); break;
+      case 128: plan[1] = flash::blocks_per_sm<128>(dtype); break;
+      case 256: plan[1] = flash::blocks_per_sm<256>(dtype); break;
+      default: return -1;
+    }
   }
+  plan[0] = n_q / flash::BQ * (D / 64) * H * B;
+  return 0;
 }

@@ -115,9 +115,14 @@
 // streamed tiles (RS rows, the N of S and dP) are as tall as shared
 // memory allows: RS 32 with a 2-stage ring at Dh 64 (the fixed hi and lo,
 // the ring and the lo tiles take 113 KB, two blocks an SM) and 128 (225
-// KB), RS 32 with one stage at 192, RS 16 with two at 256. RS 64 at Dh 64
+// KB), RS 16 with two stages at 256. RS 64 at Dh 64
 // made S and dP cheaper a row but leaves one block an SM, slower at
 // ViT-L's B1 grids. The exponential is bf16's (ex2.approx, flushed).
+//
+// Head dims: those of the forward (flash_attention.cu). Dh 64, 128 and 256
+// are template instances of the kernels above; every multiple of 128 from
+// 384 up runs on one wide kernel a dtype and gradient, Dh at run time, S
+// and dP streamed over Dh in 64-column chunks ("wide head dims" below).
 
 #include "flash_common.cuh"  // mbarrier, TMA, wgmma and split-TF32 helpers
 
@@ -386,8 +391,8 @@ __global__ void __launch_bounds__(WG, DKV ? 2 : 3)
 // box. Boxes are 32 fp32 columns (128 bytes) wide, 128-byte swizzled.
 template <int D>
 struct F32 {
-  static constexpr int RS = D <= 192 ? 32 : 16;  // streamed rows a tile
-  static constexpr int STAGES = D == 192 ? 1 : 2;
+  static constexpr int RS = D <= 128 ? 32 : 16;  // streamed rows a tile
+  static constexpr int STAGES = 2;
   static constexpr bool FIXED_LO = D <= 128;
   static constexpr int NB = D / 32;              // boxes a row
   static constexpr int FBOX = ROWS * 128;        // a 64-row box
@@ -450,13 +455,13 @@ __device__ __forceinline__ float lane(const float4& v, int i) {
 // box (piece g of rows 8 i + 2 c and + 1; the pieces of a quarter warp
 // fall in distinct banks). acc[4 t + e] is row g + 8 (e >> 1) at logical
 // column n = 2 c + (e & 1) of n-tile t.
-template <int D>
+template <int RS>
 __device__ __forceinline__ void grad_mma(float (&acc)[32],
-                                         const float (&v)[F32<D>::RS / 2],
+                                         const float (&v)[RS / 2],
                                          const unsigned char* hi,
                                          const unsigned char* lo, int sub,
                                          int g, int c) {
-  constexpr int RS = F32<D>::RS, SBOX = F32<D>::SBOX;
+  constexpr int SBOX = RS * 128;
   float part[32];  // this tile's sum, added to acc in fp32 below
 #pragma unroll
   for (int i = 0; i < 32; ++i) part[i] = 0.f;
@@ -768,9 +773,9 @@ __global__ void __launch_bounds__(WG, 1)
     // acc1 += dS S1[:, sub]; dK/dV: acc2 += P S2[:, sub]; each tile's
     // products are summed by the tensor cores from 0 and added to the
     // gradient in fp32 by the FMA pipes
-    grad_mma<D>(acc1, dp, t1, sm + LO, sub, g, c);
+    grad_mma<RS>(acc1, dp, t1, sm + LO, sub, g, c);
     if constexpr (DKV)
-      grad_mma<D>(acc2, sc, t2, sm + LO + R::STILE, sub, g, c);
+      grad_mma<RS>(acc2, sc, t2, sm + LO + R::STILE, sub, g, c);
   }
 
   const int row = r0 + warp * 16 + g, col = sub * 64;
@@ -783,14 +788,420 @@ __global__ void __launch_bounds__(WG, 1)
               p.g2_n, acc2, c);
 }
 
-// Blocks of the bf16 (dtype 0) or fp32 kernel that fit on one SM, as the
-// occupancy API counts them from its registers, threads and shared memory;
-// -1 if refused.
-template <int D, bool DKV>
-int blocks_per_sm(int dtype) {
-  void (*fn)(TmaParams) =
-      dtype == 0 ? flash_bwd_bf16<D, DKV> : flash_bwd_f32<D, DKV>;
-  const int smem = dtype == 0 ? smem_bf16<D, DKV>() : smem_f32<D, DKV>();
+// ------------------------------------------------------ wide head dims ----
+
+// Dh a multiple of 128 from 384 up, the head dim at run time: one kernel a
+// dtype and gradient. The blocks are those above (64 fixed rows and 64
+// gradient columns, fixed/64 x Dh/64 blocks a head), but no tile spans Dh:
+// S and dP are summed over Dh in chunks of 64 columns, each a pair of
+// 64-column boxes (the fixed rows' and the streamed tile's) that TMA brings
+// into a ring of its own, S's chunks then dP's for every streamed tile, so
+// every block of a fixed tile computes S and dP whole, (Dh/64) times the
+// work of one block. The streamed tile's boxes at the block's 64 columns
+// (S1's, and for dK/dV S2's with m, l and di) come into a second ring for
+// the gradient products, which run as above. Each chunk is waited for
+// before the next starts and each stage is refilled once its products
+// have retired: simple, not fast.
+constexpr int WST = 4;   // chunk pairs a ring, bf16
+constexpr int WTST = 2;  // streamed tiles' boxes a ring
+
+// 1024 bytes of alignment slack, the pair ring (fixed box, then streamed
+// box), the tile ring (S1's box, then S2's), for dK/dV m, l and di of each
+// tile stage and their 1/l, the barriers (a pair stage each, then a tile
+// stage each)
+template <bool DKV>
+constexpr int smem_wide_bf16() {
+  return 1024 + (WST + WTST) * 2 * BOX + (DKV ? WTST * 4 * ROWS * 4 : 0) +
+         8 * (WST + WTST);
+}
+
+template <bool DKV>
+__global__ void __launch_bounds__(WG, 2)
+    flash_bwd_wide_bf16(const __grid_constant__ TmaParams tp, int D) {
+  const Params& p = tp.p;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = smem_raw + (base - raw);
+  const uint32_t pairs = base, tring = base + WST * 2 * BOX;
+  float* stats = reinterpret_cast<float*>(sm + (WST + WTST) * 2 * BOX);
+  float* inv = stats + WTST * 3 * ROWS;  // [WTST][64] 1 / l (dK/dV)
+  const uint32_t bars = smem_addr(stats) + (DKV ? WTST * 4 * ROWS * 4 : 0);
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, c = tid & 3;
+  const int nc = D / 64;  // chunks of the contraction
+  const int sub = blockIdx.x % nc;
+  const int r0 = (blockIdx.x / nc) * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = (DKV ? p.n_q : p.n_kv) / ROWS, items = tiles * 2 * nc;
+  const long long sbase =
+      (static_cast<long long>(b) * gridDim.y + h) * p.n_q;  // m, l, di
+
+  // item u: chunk x of S (F1's box x, S1's box x of streamed tile
+  // u / (2 nc)) or, in the second half of the tile's items, of dP (F2, S2)
+  auto load_pair = [&](int u) {
+    const int s = u % WST, t = u % (2 * nc), x = t % nc;
+    const uint32_t bar = bars + 8 * s, dst = pairs + s * 2 * BOX;
+    bar_expect(bar, 2 * BOX);
+    tma_box(dst, t < nc ? &tp.f1 : &tp.f2, 64 * x, r0, h, b, bar);
+    tma_box(dst + BOX, t < nc ? &tp.s1 : &tp.s2, 64 * x,
+            (u / (2 * nc)) * ROWS, h, b, bar);
+  };
+  // streamed tile j at the block's 64 columns, for the gradient products
+  auto load_tile = [&](int j) {
+    const int s = j % WTST;
+    const uint32_t bar = bars + 8 * (WST + s), dst = tring + s * 2 * BOX;
+    bar_expect(bar, DKV ? 2 * BOX + 3 * ROWS * 4 : BOX);
+    tma_box(dst, &tp.s1, 64 * sub, j * ROWS, h, b, bar);
+    if constexpr (DKV) {
+      tma_box(dst + BOX, &tp.s2, 64 * sub, j * ROWS, h, b, bar);
+      const long long i = sbase + static_cast<long long>(j) * ROWS;
+      const uint32_t st = smem_addr(stats + s * 3 * ROWS);
+      bulk_copy(st, p.m + i, ROWS * 4, bar);
+      bulk_copy(st + ROWS * 4, p.l + i, ROWS * 4, bar);
+      bulk_copy(st + 2 * ROWS * 4, p.di + i, ROWS * 4, bar);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < WST + WTST; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int u = 0; u < WST && u < items; ++u) load_pair(u);
+    for (int j = 0; j < WTST && j < tiles; ++j) load_tile(j);
+  }
+  __syncwarp();
+
+  // dQ: m, 1 / l and di of the thread's rows g and g + 8 of its warp's 16
+  float rm[2] = {0.f, 0.f}, rinv[2] = {0.f, 0.f}, rdi[2] = {0.f, 0.f};
+  if constexpr (!DKV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long i = sbase + r0 + warp * 16 + g + 8 * r;
+      rm[r] = p.m[i];
+      rinv[r] = 1.f / p.l[i];
+      rdi[r] = p.di[i];
+    }
+  }
+
+  float acc1[32], acc2[32], sc[32], dp[32];  // dK | dQ, dV, S, dP
+  uint32_t pa[4][4], da[4][4];               // P and dS as A fragments
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc1[i] = acc2[i] = sc[i] = dp[i] = 0.f;
+
+  // item u, chunk x, added to d (S or dP); its stage refilled after
+  auto chunk = [&](float (&d)[32], int u, int x) {
+    const int s = u % WST;
+    const uint32_t st = pairs + s * 2 * BOX;
+    bar_wait(bars + 8 * s, (u / WST) & 1);
+    hold(d);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_ss(d, desc(st + kk * 32), desc(st + BOX + kk * 32),
+             x > 0 || kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    hold(d);
+    __syncthreads();  // no warp reads the stage any more
+    if (tid == 0 && u + WST < items) load_pair(u + WST);
+    __syncwarp();
+  };
+
+  for (int j = 0; j < tiles; ++j) {
+    for (int x = 0; x < nc; ++x) chunk(sc, j * 2 * nc + x, x);
+    for (int x = 0; x < nc; ++x) chunk(dp, j * 2 * nc + nc + x, x);
+    const int s = j % WTST;
+    const uint32_t t1 = tring + s * 2 * BOX, t2 = t1 + BOX;
+    const float* tm = stats + s * 3 * ROWS;
+    const float* ti = inv + s * ROWS;
+    bar_wait(bars + 8 * (WST + s), (j / WTST) & 1);
+    if constexpr (DKV) {
+      if (tid < ROWS) inv[s * ROWS + tid] = 1.f / tm[ROWS + tid];
+      __syncthreads();
+    }
+
+    // P, in fp32; as A fragments rounded to bf16
+    float pv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float mm, iv;
+      if constexpr (DKV) {
+        const int col = 8 * (i >> 2) + 2 * c + (i & 1);
+        mm = tm[col];
+        iv = ti[col];
+      } else {
+        mm = rm[(i >> 1) & 1];
+        iv = rinv[(i >> 1) & 1];
+      }
+      pv[i] = exp_ftz(__fmul_rn(sc[i], p.scale) - mm) * iv;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        pa[kk][r] = pack_bf16(pv[8 * kk + 2 * r], pv[8 * kk + 2 * r + 1]);
+
+    // dS = (dP - di) P scale; acc1 += dS S1[:, sub], dK/dV: acc2 += P S2
+    float dsv[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float dd = DKV ? tm[2 * ROWS + 8 * (i >> 2) + 2 * c + (i & 1)]
+                           : rdi[(i >> 1) & 1];
+      dsv[i] = (dp[i] - dd) * pv[i] * p.scale;
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        da[kk][r] = pack_bf16(dsv[8 * kk + 2 * r], dsv[8 * kk + 2 * r + 1]);
+    hold(acc1);
+    if constexpr (DKV) hold(acc2);
+    wg_fence();
+    if constexpr (DKV) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        mma_rs(acc2, pa[kk], desc(t2 + kk * 16 * 128));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      mma_rs(acc1, da[kk], desc(t1 + kk * 16 * 128));
+    wg_commit();
+    wg_wait<0>();
+    hold(acc1);
+    if constexpr (DKV) hold(acc2);
+    __syncthreads();  // no warp reads the tile stage any more
+    if (tid == 0 && j + WTST < tiles) load_tile(j + WTST);
+    __syncwarp();
+  }
+
+  const int row = r0 + warp * 16 + g, col = sub * 64 + 2 * c;
+  __nv_bfloat16* o1 = static_cast<__nv_bfloat16*>(p.g1) + b * p.g1_b +
+                      h * p.g1_h + row * p.g1_n + col;
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    *reinterpret_cast<__nv_bfloat162*>(o1 + t * 8) =
+        __floats2bfloat162_rn(acc1[4 * t], acc1[4 * t + 1]);
+    *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * p.g1_n + t * 8) =
+        __floats2bfloat162_rn(acc1[4 * t + 2], acc1[4 * t + 3]);
+  }
+  if constexpr (DKV) {
+    __nv_bfloat16* o2 = static_cast<__nv_bfloat16*>(p.g2) + b * p.g2_b +
+                        h * p.g2_h + row * p.g2_n + col;
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      *reinterpret_cast<__nv_bfloat162*>(o2 + t * 8) =
+          __floats2bfloat162_rn(acc2[4 * t], acc2[4 * t + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(o2 + 8 * p.g2_n + t * 8) =
+          __floats2bfloat162_rn(acc2[4 * t + 2], acc2[4 * t + 3]);
+    }
+  }
+}
+
+// fp32: split TF32 as above, streamed tiles of 32 rows. A pair stage holds
+// the fixed rows' and the streamed tile's 64 columns of the chunk (two
+// 32-column boxes each); once it lands one pass rounds both to hi in place
+// and writes lo beside them (one lo pair for the chunk in work), and the
+// chunk's 24 products (8 k-steps, each hi lo', lo hi', hi hi') are one
+// chain, summed by the tensor cores from 0 and added to S (dP) by the FMA
+// pipes. The tile stage's boxes are split the same way for the gradient
+// products (mma.sync, grad_mma), which run as above.
+constexpr int WRS = 32;                          // streamed rows a tile
+constexpr int WST32 = 3;                         // chunk pairs a ring, fp32
+constexpr int WFBOX = ROWS * 128;                // 64 fixed rows x 32 columns
+constexpr int WSBOX = WRS * 128;                 // a streamed box
+constexpr int WPAIR = 2 * WFBOX + 2 * WSBOX;     // a chunk of both sides
+constexpr int WTILE = 2 * WSBOX;                 // a tile's 64 columns
+
+// the slack, the pair ring, the chunk's lo pair, the tile ring (S1's 64
+// columns, then S2's), the tile in work's lo, for dK/dV m, l (then 1/l)
+// and di of each tile stage, the barriers
+template <bool DKV>
+constexpr int smem_wide_f32() {
+  return 1024 + (WST32 + 1) * WPAIR + (WTST + 1) * 2 * WTILE +
+         (DKV ? WTST * 3 * WRS * 4 : 0) + 8 * (WST32 + WTST);
+}
+
+template <bool DKV>
+__global__ void __launch_bounds__(WG, 1)
+    flash_bwd_wide_f32(const __grid_constant__ TmaParams tp, int D) {
+  const Params& p = tp.p;
+  extern __shared__ __align__(1024) unsigned char f32_smem[];
+  const uint32_t raw = smem_addr(f32_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = f32_smem + (base - raw);
+  // byte offsets: the pair ring (stage s: the fixed boxes, then the
+  // streamed ones), the lo pair, the tile ring, the tile's lo, the stats
+  constexpr int LO = WST32 * WPAIR, TRING = LO + WPAIR,
+                TLO = TRING + WTST * 2 * WTILE, STATS = TLO + 2 * WTILE;
+  float* stats = reinterpret_cast<float*>(sm + STATS);
+  const uint32_t bars = base + STATS + (DKV ? WTST * 3 * WRS * 4 : 0);
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int g = (tid & 31) >> 2, c = tid & 3;
+  const int nc = D / 64;
+  const int sub = blockIdx.x % nc;
+  const int r0 = (blockIdx.x / nc) * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int tiles = (DKV ? p.n_q : p.n_kv) / WRS, items = tiles * 2 * nc;
+  const long long sbase =
+      (static_cast<long long>(b) * gridDim.y + h) * p.n_q;  // m, l, di
+
+  auto load_pair = [&](int u) {
+    const int s = u % WST32, t = u % (2 * nc), x = t % nc;
+    const uint32_t bar = bars + 8 * s, dst = base + s * WPAIR;
+    bar_expect(bar, WPAIR);
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      tma_box(dst + y * WFBOX, t < nc ? &tp.f1 : &tp.f2, 64 * x + 32 * y,
+              r0, h, b, bar);
+      tma_box(dst + 2 * WFBOX + y * WSBOX, t < nc ? &tp.s1 : &tp.s2,
+              64 * x + 32 * y, (u / (2 * nc)) * WRS, h, b, bar);
+    }
+  };
+  auto load_tile = [&](int j) {
+    const int s = j % WTST;
+    const uint32_t bar = bars + 8 * (WST32 + s),
+                   dst = base + TRING + s * 2 * WTILE;
+    bar_expect(bar, DKV ? 2 * WTILE + 3 * WRS * 4 : WTILE);
+#pragma unroll
+    for (int y = 0; y < 2; ++y) {
+      tma_box(dst + y * WSBOX, &tp.s1, 64 * sub + 32 * y, j * WRS, h, b,
+              bar);
+      if constexpr (DKV)
+        tma_box(dst + WTILE + y * WSBOX, &tp.s2, 64 * sub + 32 * y,
+                j * WRS, h, b, bar);
+    }
+    if constexpr (DKV) {
+      const long long i = sbase + static_cast<long long>(j) * WRS;
+      const uint32_t st = smem_addr(stats + s * 3 * WRS);
+      bulk_copy(st, p.m + i, WRS * 4, bar);
+      bulk_copy(st + WRS * 4, p.l + i, WRS * 4, bar);
+      bulk_copy(st + 2 * WRS * 4, p.di + i, WRS * 4, bar);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < WST32 + WTST; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int u = 0; u < WST32 && u < items; ++u) load_pair(u);
+    for (int j = 0; j < WTST && j < tiles; ++j) load_tile(j);
+  }
+  __syncwarp();
+
+  // dQ: m, 1 / l and di of the thread's rows g and g + 8 of its warp's 16
+  float rm[2] = {0.f, 0.f}, rinv[2] = {0.f, 0.f}, rdi[2] = {0.f, 0.f};
+  if constexpr (!DKV) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long long i = sbase + r0 + warp * 16 + g + 8 * r;
+      rm[r] = p.m[i];
+      rinv[r] = 1.f / p.l[i];
+      rdi[r] = p.di[i];
+    }
+  }
+
+  float acc1[32], acc2[32];  // dK | dQ, dV (grad_mma's layout)
+  float sc[WRS / 2], dp[WRS / 2], part[WRS / 2];  // S, dP; a chunk of one
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc1[i] = acc2[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WRS / 2; ++i) sc[i] = dp[i] = part[i] = 0.f;
+  const uint64_t al = desc(base + LO), bl = desc(base + LO + 2 * WFBOX);
+
+  // item u, chunk x, added to d (S or dP); its stage refilled after
+  auto chunk = [&](float (&d)[WRS / 2], int u, int x) {
+    const int s = u % WST32;
+    unsigned char* st = sm + s * WPAIR;
+    bar_wait(bars + 8 * s, (u / WST32) & 1);
+    split_pass<WPAIR>(st, sm + LO, tid);  // hi in place, lo beside
+    fence_async_smem();
+    __syncthreads();
+    const uint64_t ah = desc(smem_addr(st)),
+                   bh = desc(smem_addr(st) + 2 * WFBOX);
+    hold(part);
+    wg_fence();
+#pragma unroll
+    for (int y = 0; y < 2; ++y)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t fo = (y * WFBOX + kk * 32) / 16,
+                       so = (y * WSBOX + kk * 32) / 16;
+        mma_tf32_ss(part, ah + fo, bl + so, y > 0 || kk > 0);
+        mma_tf32_ss(part, al + fo, bh + so, 1);
+        mma_tf32_ss(part, ah + fo, bh + so, 1);
+      }
+    wg_commit();
+    wg_wait<0>();
+    hold(part);
+#pragma unroll
+    for (int i = 0; i < WRS / 2; ++i) d[i] = x == 0 ? part[i] : d[i] + part[i];
+    __syncthreads();  // the stage and the lo pair are free
+    if (tid == 0 && u + WST32 < items) load_pair(u + WST32);
+    __syncwarp();
+  };
+
+  for (int j = 0; j < tiles; ++j) {
+    for (int x = 0; x < nc; ++x) chunk(sc, j * 2 * nc + x, x);
+    for (int x = 0; x < nc; ++x) chunk(dp, j * 2 * nc + nc + x, x);
+    const int s = j % WTST;
+    unsigned char* t1 = sm + TRING + s * 2 * WTILE;
+    float* tm = stats + s * 3 * WRS;  // m, 1 / l, di of the stage's rows
+    bar_wait(bars + 8 * (WST32 + s), (j / WTST) & 1);
+    // the tile's boxes: hi in place, lo beside (S1's, then S2's)
+    split_pass<(DKV ? 2 : 1) * WTILE>(t1, sm + TLO, tid);
+    if constexpr (DKV) {
+      if (tid < WRS) tm[WRS + tid] = 1.f / tm[WRS + tid];
+    }
+    fence_async_smem();  // before TMA writes the stage again
+    __syncthreads();
+
+    // P = exp(S scale - m) / l and dS = (dP - di) P scale, in place, fp32
+#pragma unroll
+    for (int i = 0; i < WRS / 2; ++i) {
+      float mm, iv, dd;
+      if constexpr (DKV) {
+        const int col = 8 * (i >> 2) + 2 * c + (i & 1);
+        mm = tm[col];
+        iv = tm[WRS + col];
+        dd = tm[2 * WRS + col];
+      } else {
+        mm = rm[(i >> 1) & 1];
+        iv = rinv[(i >> 1) & 1];
+        dd = rdi[(i >> 1) & 1];
+      }
+      sc[i] = exp_ftz(__fmul_rn(sc[i], p.scale) - mm) * iv;
+      dp[i] = (dp[i] - dd) * sc[i] * p.scale;
+    }
+
+    // acc1 += dS S1[:, sub]; dK/dV: acc2 += P S2[:, sub]
+    grad_mma<WRS>(acc1, dp, t1, sm + TLO, 0, g, c);
+    if constexpr (DKV)
+      grad_mma<WRS>(acc2, sc, t1 + WTILE, sm + TLO + WTILE, 0, g, c);
+    __syncthreads();  // no warp reads the tile stage any more
+    if (tid == 0 && j + WTST < tiles) load_tile(j + WTST);
+    __syncwarp();
+  }
+
+  const int row = r0 + warp * 16 + g, col = sub * 64;
+  store_f32(static_cast<float*>(p.g1) + b * p.g1_b + h * p.g1_h +
+                row * p.g1_n + col,
+            p.g1_n, acc1, c);
+  if constexpr (DKV)
+    store_f32(static_cast<float*>(p.g2) + b * p.g2_b + h * p.g2_h +
+                  row * p.g2_n + col,
+              p.g2_n, acc2, c);
+}
+
+// Blocks of the kernel `fn` that fit on one SM with `smem` bytes of shared
+// memory, as the occupancy API counts them from its registers, threads and
+// shared memory; -1 if refused.
+template <typename Fn>
+int occupancy(Fn fn, int smem) {
   int n = -1;
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess ||
@@ -800,20 +1211,30 @@ int blocks_per_sm(int dtype) {
   return n;
 }
 
+// of the bf16 (dtype 0) or fp32 kernel
 template <int D, bool DKV>
-int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
-  if (dtype != 0 && dtype != 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+int blocks_per_sm(int dtype) {
+  return dtype == 0 ? occupancy(flash_bwd_bf16<D, DKV>, smem_bf16<D, DKV>())
+                    : occupancy(flash_bwd_f32<D, DKV>, smem_f32<D, DKV>());
+}
+
+template <bool DKV>
+int blocks_per_sm_wide(int dtype) {
+  return dtype == 0
+             ? occupancy(flash_bwd_wide_bf16<DKV>, smem_wide_bf16<DKV>())
+             : occupancy(flash_bwd_wide_f32<DKV>, smem_wide_f32<DKV>());
+}
+
+// The four TMA maps: fixed tiles of 64 rows, streamed tiles of `rs` rows,
+// boxes of 128 bytes of columns (64 bf16 or 32 fp32, by `esize`); false if
+// the streamed or fixed rows are no multiple of their tiles or a map is
+// refused.
+template <bool DKV>
+bool maps(TmaParams& tp, int D, int B, int H, int esize, int rs) {
+  const Params& p = tp.p;
   const int fixed = DKV ? p.n_kv : p.n_q, streamed = DKV ? p.n_q : p.n_kv;
-  // bf16: 64-row tiles of 64 columns; fp32: fixed tiles of 64 rows and
-  // streamed tiles of F32<D>::RS rows, 32 columns a box
-  const int esize = dtype == 0 ? 2 : 4,
-            rs = dtype == 0 ? ROWS : F32<D>::RS;
-  if (fixed % ROWS != 0 || streamed % rs != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (fixed % ROWS != 0 || streamed % rs != 0) return false;
   const int q_rows = DKV ? rs : ROWS, kv_rows = DKV ? ROWS : rs;
-  TmaParams tp;
-  tp.p = p;
   CUtensorMap q, k, v, d;
   if (!tensor_map(&q, p.q, D, p.n_q, H, B, p.q_n, p.q_h, p.q_b, esize,
                   q_rows) ||
@@ -823,12 +1244,26 @@ int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
                   kv_rows) ||
       !tensor_map(&d, p.dout, D, p.n_q, H, B, p.d_n, p.d_h, p.d_b, esize,
                   q_rows))
-    return static_cast<int>(cudaErrorInvalidValue);
+    return false;
   tp.f1 = DKV ? k : q;
   tp.f2 = DKV ? v : d;
   tp.s1 = DKV ? q : k;
   tp.s2 = DKV ? d : v;
-  const dim3 grid(fixed / ROWS * (D / 64), H, B);
+  return true;
+}
+
+template <int D, bool DKV>
+int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
+  if (dtype != 0 && dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // bf16: 64-row tiles of 64 columns; fp32: fixed tiles of 64 rows and
+  // streamed tiles of F32<D>::RS rows, 32 columns a box
+  TmaParams tp;
+  tp.p = p;
+  if (!maps<DKV>(tp, D, B, H, dtype == 0 ? 2 : 4,
+                 dtype == 0 ? ROWS : F32<D>::RS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((DKV ? p.n_kv : p.n_q) / ROWS * (D / 64), H, B);
   cudaError_t e;
   if (dtype == 0) {
     e = cudaFuncSetAttribute(flash_bwd_bf16<D, DKV>,
@@ -846,37 +1281,72 @@ int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// How the bf16 (dtype 0) or fp32 dK/dV (dkv != 0) or dQ kernel runs at
-// this shape: plan[0] the blocks it launches, plan[1] its blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused).
-template <int D, bool DKV>
-int plan_for(int dtype, int B, int H, int n_q, int n_kv, int* plan) {
-  if (dtype != 0 && dtype != 1) return -1;
-  plan[0] = (DKV ? n_kv : n_q) / ROWS * (D / 64) * H * B;
-  plan[1] = blocks_per_sm<D, DKV>(dtype);
-  return 0;
+// Dh a multiple of 128 from 384 up: streamed tiles of 64 rows in bf16, 32
+// in fp32
+template <bool DKV>
+int launch_wide(int dtype, int B, int H, int D, const Params& p,
+                cudaStream_t st) {
+  if (dtype != 0 && dtype != 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TmaParams tp;
+  tp.p = p;
+  if (!maps<DKV>(tp, D, B, H, dtype == 0 ? 2 : 4, dtype == 0 ? ROWS : WRS))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((DKV ? p.n_kv : p.n_q) / ROWS * (D / 64), H, B);
+  const int smem =
+      dtype == 0 ? smem_wide_bf16<DKV>() : smem_wide_f32<DKV>();
+  void (*fn)(TmaParams, int) =
+      dtype == 0 ? flash_bwd_wide_bf16<DKV> : flash_bwd_wide_f32<DKV>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  fn<<<grid, WG, smem, st>>>(tp, D);
+  return static_cast<int>(cudaGetLastError());
 }
+
+bool wide(int D) { return D >= FLASH_WIDE_FROM && D % 128 == 0; }
 
 template <bool DKV>
 int dispatch(int dtype, int B, int H, int D, const Params& p,
              cudaStream_t st) {
   if (B < 1 || H < 1 || p.n_q < 1 || p.n_kv < 1)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (wide(D)) return launch_wide<DKV>(dtype, B, H, D, p, st);
   switch (D) {
     case 64: return launch<64, DKV>(dtype, B, H, p, st);
     case 128: return launch<128, DKV>(dtype, B, H, p, st);
-    case 192: return launch<192, DKV>(dtype, B, H, p, st);
     case 256: return launch<256, DKV>(dtype, B, H, p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// How the bf16 (dtype 0) or fp32 kernel runs at this shape: plan[0] the
+// blocks it launches, plan[1] its blocks an SM (-1 if refused)
+template <bool DKV>
+int plan_for(int dtype, int D, int B, int H, int n_q, int n_kv, int* plan) {
+  if (dtype != 0 && dtype != 1) return -1;
+  if (wide(D)) {
+    plan[1] = blocks_per_sm_wide<DKV>(dtype);
+  } else {
+    switch (D) {
+      case 64: plan[1] = blocks_per_sm<64, DKV>(dtype); break;
+      case 128: plan[1] = blocks_per_sm<128, DKV>(dtype); break;
+      case 256: plan[1] = blocks_per_sm<256, DKV>(dtype); break;
+      default: return -1;
+    }
+  }
+  plan[0] = (DKV ? n_kv : n_q) / ROWS * (D / 64) * H * B;
+  return 0;
+}
+
 }  // namespace flash_bwd
 
-// dtype 0: bf16, 1: fp32 (q, k, v, do and the gradients alike). m, l, di:
-// (B, H, n_q) fp32, contiguous. Strides in elements: (batch, row, head) of
-// q, k, v, do and the gradients; Dh is contiguous. Each returns a
-// cudaError_t: not 0 if the shape is refused or the launch failed.
+// dtype 0: bf16, 1: fp32 (q, k, v, do and the gradients alike). Dh 64, 128
+// and 256 take a template instance each, every multiple of 128 from 384 up
+// the wide kernels. m, l, di: (B, H, n_q) fp32, contiguous. Strides in
+// elements: (batch, row, head) of q, k, v, do and the gradients; Dh is
+// contiguous. Each returns a cudaError_t: not 0 if the shape is refused or
+// the launch failed.
 extern "C" int flash_attention_bwd_dkv_launch(
     const void* q, const void* k, const void* v, const void* dout,
     const float* m, const float* l, const float* di, void* dk, void* dv,
@@ -911,22 +1381,12 @@ extern "C" int flash_attention_bwd_dq_launch(
                                     static_cast<cudaStream_t>(stream));
 }
 
+// How the bf16 (dtype 0) or fp32 dK/dV (dkv != 0) or dQ kernel runs at
+// this shape: plan[0] the blocks it launches, plan[1] its blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused).
 extern "C" int flash_attention_bwd_plan(int dkv, int dtype, int D, int B,
                                         int H, int n_q, int n_kv,
                                         int* plan) {
-  using flash_bwd::plan_for;
-  switch (D) {
-    case 64: return dkv ? plan_for<64, true>(dtype, B, H, n_q, n_kv, plan)
-                        : plan_for<64, false>(dtype, B, H, n_q, n_kv, plan);
-    case 128:
-      return dkv ? plan_for<128, true>(dtype, B, H, n_q, n_kv, plan)
-                 : plan_for<128, false>(dtype, B, H, n_q, n_kv, plan);
-    case 192:
-      return dkv ? plan_for<192, true>(dtype, B, H, n_q, n_kv, plan)
-                 : plan_for<192, false>(dtype, B, H, n_q, n_kv, plan);
-    case 256:
-      return dkv ? plan_for<256, true>(dtype, B, H, n_q, n_kv, plan)
-                 : plan_for<256, false>(dtype, B, H, n_q, n_kv, plan);
-    default: return -1;
-  }
+  return dkv ? flash_bwd::plan_for<true>(dtype, D, B, H, n_q, n_kv, plan)
+             : flash_bwd::plan_for<false>(dtype, D, B, H, n_q, n_kv, plan);
 }

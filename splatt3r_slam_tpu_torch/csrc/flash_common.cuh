@@ -12,6 +12,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The least head dim of the wide kernels (every multiple of 128 from it up;
+// the template instances take 64, 128 and 256). A build with
+// -DFLASH_WIDE_FROM=128 runs the wide kernels at 128 and 256 too, in place
+// of the instances, to time the two there (chip_smoke.py --wide-from-128).
+#ifndef FLASH_WIDE_FROM
+#define FLASH_WIDE_FROM 384
+#endif
+
 namespace flash_common {
 
 // __expf's steps (ex2.approx of x times log2 e) with denormals flushed

@@ -32,19 +32,28 @@ Built and launched through `cuda_build` (nvcc for sm_90a, ctypes).
   tensors (they launch or raise), the plain versions for CPU tensors; no
   fallback from one to the other. `launches` counts forward kernel
   launches; `bwd_launches` counts backward calls that launched the pair
-  (the dK/dV kernel, then the dQ kernel).
+  (the dK/dV kernel, then the dQ kernel); `wide_launches` and
+  `wide_bwd_launches` count those of them at a head dim of the wide
+  kernels (below).
+- `flash_head_dim_ok(dh)`: the TPU kernel's own head-dim rule, which
+  `models/layers.py::attend` applies before it picks the kernel.
 - `FlashAttention`: the `torch.autograd.Function` that `models/layers.py::
   attend` calls. Its forward asks for l and m only when autograd records
   the call for an input that requires grad (`ctx.needs_input_grad`); its
   backward is `flash_attention_bwd`.
 
 Tensors are (B, N, H, Dh), the JAX layout; k and v share their N, which
-may differ from q's (cross-attention). The kernels take Dh in
-`HEAD_DIMS`, q, k and v of one dtype (bf16 or fp32), n_q and n_kv
-multiples of 64, Dh contiguous and every row 16-byte aligned; a strided
-view (v straight from the fused qkv projection) is read in place, forward
-and backward. The backward makes its cotangent contiguous once (a no-op for
-the cotangent autograd hands over from the output projection).
+may differ from q's (cross-attention). The kernels take Dh 64, 128 and
+256 (`HEAD_DIMS`, a template instance each) and every multiple of 128
+from 384 up (one wide kernel a dtype and role, the head dim at run time,
+which streams the contraction over Dh in chunks of 64 columns); a head
+dim of 128 or more that is no multiple of 128 is refused with the TPU
+kernel's NotImplementedError, as `_attend_flash` refuses it. They take q,
+k and v of one dtype (bf16 or fp32), n_q and n_kv multiples of 64, Dh
+contiguous and every row 16-byte aligned; a strided view (v straight from
+the fused qkv projection) is read in place, forward and backward. The
+backward makes its cotangent contiguous once (a no-op for the cotangent
+autograd hands over from the output projection).
 """
 
 from __future__ import annotations
@@ -55,12 +64,36 @@ from torch.distributed.tensor import DTensor
 from splatt3r_slam_tpu_torch import cuda_build
 
 BLOCK_K = 128  # the TPU kernels' blocks (BlockSizes.get_default)
-HEAD_DIMS = (64, 128, 192, 256)  # the kernels' template instances
+MIN_BLOCK_SIZE = 128  # the TPU kernel's lane width (flash_attention.py:321)
+HEAD_DIMS = (64, 128, 256)  # the kernels' template instances
+WIDE_MIN = 384  # the wide kernels take every multiple of 128 from here
 ROWS = 64  # n_q and n_kv must be multiples of this
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 launches = 0  # forward kernel launches made by `flash_attention`
 bwd_launches = 0  # backward kernel pairs launched by `flash_attention_bwd`
+wide_launches = 0  # of `launches`, those at a wide kernel's head dim
+wide_bwd_launches = 0  # of `bwd_launches`, the same
+
+
+def flash_head_dim_ok(dh: int) -> bool:
+    """The head dims the TPU kernel takes: below its lane width, or a
+    multiple of it. `_flash_attention_kernel_single_batch` (JAX's
+    jax/experimental/pallas/ops/tpu/flash_attention.py:455-463, JAX 0.9.0)
+    raises NotImplementedError for any other, and the JAX package's
+    `_attend` then takes its einsum path."""
+    return dh < MIN_BLOCK_SIZE or dh % MIN_BLOCK_SIZE == 0
+
+
+def head_dim_refused(dh: int) -> str:
+    """The TPU kernel's words for a head dim it refuses."""
+    return f"head_dim={dh} should be a multiple of {MIN_BLOCK_SIZE} if larger"
+
+
+def wide_head_dim(dh: int) -> bool:
+    """Whether head dim `dh` runs on the wide kernels (no template
+    instance): a multiple of 128 from 384 up."""
+    return dh >= WIDE_MIN and dh % MIN_BLOCK_SIZE == 0
 
 
 def _heads_first(t):
@@ -154,9 +187,12 @@ def _check(q, k, v):
         raise ValueError(f"flash_attention: q, k and v must share one dtype "
                          f"of bfloat16 or float32, got {q.dtype}, "
                          f"{k.dtype}, {v.dtype}")
-    if D not in HEAD_DIMS:
+    if not flash_head_dim_ok(D):
+        raise NotImplementedError(head_dim_refused(D))
+    if D not in HEAD_DIMS and not wide_head_dim(D):
         raise ValueError(f"flash_attention: head dim {D} is not one the "
-                         f"kernel is built for {HEAD_DIMS}")
+                         f"kernels are built for: {HEAD_DIMS} or a multiple "
+                         f"of {MIN_BLOCK_SIZE} from {WIDE_MIN} up")
     if n_q % ROWS or k.shape[1] % ROWS or n_q == 0 or k.shape[1] == 0:
         raise ValueError(f"flash_attention: n_q {n_q} and n_kv "
                          f"{k.shape[1]} must be positive multiples of {ROWS}")
@@ -223,8 +259,10 @@ def flash_attention(q, k, v, scale, residuals: bool = False):
         0 if m is None else m.data_ptr(), _DTYPE_CODE[q.dtype], B, H, n_q,
         k.shape[1], D, *_strides("q", q), *_strides("k", k),
         *_strides("v", v), *_strides("out", out), float(scale))
-    global launches
+    global launches, wide_launches
     launches += 1
+    if wide_head_dim(D):
+        wide_launches += 1
     return (out, l, m) if residuals else out
 
 
@@ -241,8 +279,10 @@ def flash_attention_bwd(q, k, v, o, l, m, do, scale):
     di = _di(o, do)
     dk, dv = _launch_dkv(q, k, v, do, m, l, di, scale)
     dq = _launch_dq(q, k, v, do, m, l, di, scale)
-    global bwd_launches
+    global bwd_launches, wide_bwd_launches
     bwd_launches += 1
+    if wide_head_dim(q.shape[3]):
+        wide_bwd_launches += 1
     return dq, dk, dv
 
 

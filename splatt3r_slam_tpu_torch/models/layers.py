@@ -12,18 +12,25 @@ images are NHWC, as in the JAX package.
 
 Attention goes through the hand-written flash-attention kernels
 (`models/flash_attention.py`: the forward, and under autograd its two
-backward kernels) where the flash-attention mode picks them, and through
-`F.scaled_dot_product_attention` otherwise (the counterpart of the JAX
-package's einsum path, which XLA computes).
+backward kernels) where the flash-attention mode picks them and the TPU
+kernel would take the head dim (below 128 or a multiple of 128), and
+through `F.scaled_dot_product_attention` otherwise (the counterpart of the
+JAX package's einsum path, which XLA computes).
 """
 
 from __future__ import annotations
+
+import logging
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from splatt3r_slam_tpu_torch.models.flash_attention import FlashAttention
+from splatt3r_slam_tpu_torch.models.flash_attention import (
+    FlashAttention,
+    flash_head_dim_ok,
+    head_dim_refused,
+)
 
 
 def _dt(dtype):
@@ -159,12 +166,27 @@ def attend_sdpa(q, k, v, scale):
     return out.transpose(1, 2).to(v.dtype)
 
 
+_FLASH_ROUTE_LOGGED = False
+
+
 def attend(q, k, v, scale):
     """Softmax attention on (B, N, H, D) q/k/v: the flash-attention kernel
-    where the mode picks it, its gradient through the two backward kernels
-    (no fallback: each launches or raises), `attend_sdpa` otherwise."""
-    if _flash_wanted(q.shape[1], k.shape[1], q.shape[-1], q.device):
-        return FlashAttention.apply(q, k, v, scale)
+    where the mode picks it and the TPU kernel takes the head dim
+    (`flash_head_dim_ok`), its gradient through the two backward kernels
+    (no fallback: each launches or raises), `attend_sdpa` otherwise. The
+    head-dim rule is read from the shape before any launch, so a shape
+    gets the JAX package's route: its `_attend` tries the TPU kernel, which
+    refuses such a head dim, and takes its einsum path, logging once."""
+    dh = q.shape[-1]
+    if _flash_wanted(q.shape[1], k.shape[1], dh, q.device):
+        if flash_head_dim_ok(dh):
+            return FlashAttention.apply(q, k, v, scale)
+        global _FLASH_ROUTE_LOGGED
+        if not _FLASH_ROUTE_LOGGED:
+            _FLASH_ROUTE_LOGGED = True
+            logging.getLogger(__name__).warning(
+                "flash attention unavailable (%s); using einsum path",
+                head_dim_refused(dh))
     return attend_sdpa(q, k, v, scale)
 
 

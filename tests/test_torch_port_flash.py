@@ -121,7 +121,7 @@ def _qkv(shape, dtype, seed):
 # -- the plain version against the Pallas TPU kernel -------------------------
 
 CASES = ((1, 256, 256, 2, 64), (2, 768, 768, 2, 64), (1, 256, 512, 1, 64),
-         (1, 256, 256, 1, 128))
+         (1, 256, 256, 1, 128), (1, 256, 256, 1, 384), (1, 256, 256, 1, 512))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -150,13 +150,14 @@ def test_plain_matches_pallas_kernel(shape, dtype):
 
 def _split_tf32_forward(q, k, v, scale, passes=3):
     """The fp32 kernel's steps, emulated: kv tiles of 64 rows at Dh 64 and
-    32 above, S = Q·Kᵀ and P·V in split TF32 (`mm_split`), then s·scale,
+    from 384 up (the wide kernel), 32 at Dh 128 and 256, S = Q·Kᵀ and P·V in
+    split TF32 (`mm_split`), then s·scale,
     the online softmax with O rescaled by exp(m_old - m_new) and one
     division by l at the end → (out, l, m) as `flash_attention_torch`
     gives them with `residuals`."""
     qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, N, D)
     B, H, n_q, D = qf.shape
-    rows = 64 if D == 64 else 32
+    rows = 64 if D == 64 or D >= 384 else 32
     m = torch.full((B, H, n_q, 1), float("-inf"))
     l = torch.zeros((B, H, n_q, 1))
     o = torch.zeros((B, H, n_q, D))
@@ -173,7 +174,8 @@ def _split_tf32_forward(q, k, v, scale, passes=3):
 
 
 @pytest.mark.parametrize("shape", [(1, 256, 256, 2, 64),
-                                   (1, 256, 512, 1, 128)],
+                                   (1, 256, 512, 1, 128),
+                                   (1, 256, 256, 1, 384)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_split_tf32_forward_matches_pallas_kernel(shape):
     """The fp32 forward kernel's arithmetic, emulated on the CPU: its steps
@@ -267,7 +269,8 @@ class TestFlashSelection:
         TL.set_flash_attention(mode)
         for nq in (64, 100, 256, 512, 768, 4096):
             for nk in (256, 700, 768, 4096):
-                for dh in (32, 48, 64, 128, 192, 256, 320):
+                for dh in (32, 48, 64, 128, 192, 256, 320, 384, 448,
+                           512):
                     assert TL._flash_shape_ok(nq, nk, dh) == \
                         JL._flash_shape_ok(nq, nk, dh)
                     assert TL._flash_wanted(nq, nk, dh, "cpu") == \
@@ -287,17 +290,87 @@ def test_attend_routes_by_mode(calls):
         assert torch.equal(got, want)
 
 
-def test_head_dim_above_256_is_refused():
-    """A standing difference: the shape rule admits Dh 320 (any multiple
-    of 64), the JAX package's flash kernel takes it, and the port's kernel
-    is built for Dh up to 256, so `attend` with "on" raises there (on the
-    CPU as on the card) instead of attending another way."""
-    assert TL._flash_shape_ok(256, 256, 320) and JL._flash_shape_ok(256, 256,
-                                                                      320)
+@pytest.mark.parametrize("mode", ["on", "auto"])
+@pytest.mark.parametrize("dh", [64, 128, 192, 256, 320, 384, 512])
+def test_attend_takes_the_jax_route(dh, mode, calls, monkeypatch, caplog):
+    """`attend` against the JAX package's `_attend` on one input (1, 256,
+    256, 1, Dh, fp32), both packages in one mode: the port runs its flash
+    path exactly where the JAX package's Pallas kernel completes a call
+    (with "on", at the head dims the TPU kernel takes: below 128 or a
+    multiple of it), and both take their einsum path elsewhere, the JAX
+    package after the kernel refuses the head dim, the port from the shape
+    alone, each logging that once in the same words. The values agree at
+    the bar of SDPA against the einsum path (5e-3, fp32)."""
+    monkeypatch.setattr(JL, "_FLASH_FALLBACK_LOGGED", False)
+    monkeypatch.setattr(TL, "_FLASH_ROUTE_LOGGED", False)
+    arrays = _qkv((1, 256, 256, 1, dh), "float32", seed=dh)
+    scale = dh ** -0.5
+    JL.set_flash_attention(mode)
+    TL.set_flash_attention(mode)
+    with pltpu.force_tpu_interpret_mode(), caplog.at_level("WARNING"):
+        want = np.asarray(JL._attend(*(jnp.asarray(a) for a in arrays),
+                                     scale))
+        got = TL.attend(*(torch.from_numpy(a) for a in arrays), scale)
+    flash = mode == "on" and fa.flash_head_dim_ok(dh)
+    assert calls["jax_flash"] == calls["flash"] == int(flash)
+    assert flash == (mode == "on" and dh in (64, 128, 256, 384, 512))
+    assert np.abs(got.numpy() - want).max() <= 5e-3
+    refused = [r.getMessage() for r in caplog.records
+               if "using einsum path" in r.getMessage()]
+    if mode == "on" and not flash:
+        words = (f"flash attention unavailable (head_dim={dh} should be a "
+                 "multiple of 128 if larger); using einsum path")
+        assert refused == [words, words]  # the JAX package's, then ours
+    else:
+        assert refused == []
+
+
+def test_the_route_is_logged_once(caplog, monkeypatch):
+    """The einsum path at a refused head dim is logged at the first call
+    only, as the JAX package logs it."""
+    monkeypatch.setattr(TL, "_FLASH_ROUTE_LOGGED", False)
     TL.set_flash_attention("on")
-    q, k, v = (torch.zeros(1, 256, 1, 320) for _ in range(3))
-    with pytest.raises(ValueError, match="head dim 320"):
-        TL.attend(q, k, v, 0.05)
+    q = torch.zeros(1, 256, 1, 192)
+    with caplog.at_level("WARNING"):
+        for _ in range(3):
+            TL.attend(q, q, q, 0.1)
+    assert [r.getMessage() for r in caplog.records] == [
+        "flash attention unavailable (head_dim=192 should be a multiple of "
+        "128 if larger); using einsum path"]
+
+
+@pytest.mark.parametrize("dh", [192, 320, 448])
+def test_wrapper_refuses_head_dims_the_tpu_kernel_refuses(dh):
+    """`flash_attention` and `flash_attention_bwd`, called directly, refuse
+    a head dim of 128 or more that is no multiple of 128 as the Pallas
+    kernel does (`_attend_flash` raises it): NotImplementedError, the
+    kernel's message."""
+    z = torch.zeros(1, 64, 1, dh)
+    msg = f"head_dim={dh} should be a multiple of 128 if larger"
+    with pytest.raises(NotImplementedError, match=re.escape(msg)):
+        fa.flash_attention(z, z, z, 0.1)
+    l = m = torch.ones(1, 1, 64)
+    with pytest.raises(NotImplementedError, match=re.escape(msg)):
+        fa.flash_attention_bwd(z, z, z, z, l, m, z, 0.1)
+    with pltpu.force_tpu_interpret_mode(), \
+            pytest.raises(NotImplementedError, match=re.escape(msg)):
+        jfa.flash_attention(*(jnp.zeros((1, 1, 256, dh)),) * 3,
+                            sm_scale=0.1)
+
+
+@pytest.mark.parametrize("dh", [384, 512, 1024])
+def test_wrapper_admits_the_wide_head_dims(dh, calls):
+    """Every multiple of 128 from 384 up is admitted, forward and backward:
+    on the CPU the plain versions run (the kernels run on the card)."""
+    rng = np.random.default_rng(dh)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (1, 64, 2, dh)).astype(np.float32)) for _ in range(4))
+    out, l, m = fa.flash_attention(q, k, v, dh ** -0.5, residuals=True)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, out, l, m, do, dh ** -0.5)
+    assert calls["flash"] == 1
+    want = TL.attend_sdpa(q, k, v, dh ** -0.5)
+    assert float((out - want).abs().max()) <= 1e-5
+    assert dq.shape == dk.shape == dv.shape == q.shape
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -391,8 +464,10 @@ def test_flash_source_is_hand_written(name, case):
     TF32 on the tensor cores (every operand split into TF32 hi and lo
     rounded to nearest, wgmma .tf32 for S and dP and for the forward's P·V
     on a transposed V, mma.sync .tf32 for the backward's gradients), no
-    FMA loop in the fp32 kernel and no cp.async left; each with one
-    template instance per head dim the wrapper admits, no library on the
+    FMA loop in the fp32 kernels and no cp.async left; each with one
+    template instance per head dim of `HEAD_DIMS` and, for every other
+    head dim the wrapper admits (multiples of 128 from 384 up), one wide
+    kernel a dtype that takes the head dim at run time; no library on the
     route and no atomics. A source is read together with the local headers
     it includes, and its own text calls their wgmma, TMA and mbarrier
     helpers."""
@@ -421,23 +496,38 @@ def test_flash_source_is_hand_written(name, case):
                "+ 0x1000u) & 0xFFFFE000u", "fence.proxy.async.shared::cta",
                "CU_TENSOR_MAP_DATA_TYPE_FLOAT32"):
         assert op in code, op
+    stem = "flash_fwd" if name == "flash_attention" else "flash_bwd"
     if name == "flash_attention":  # P·V by wgmma on the transposed V
-        for helper in ("mma_tf32<64>(", "split_vt<D>("):
+        for helper in ("mma_tf32<64>(", "split_vt<RS>(", "split_vt<64>("):
             assert helper in own, helper
-        fp32 = re.search(r"flash_fwd_f32\(const __grid_constant__ TmaParams "
-                         r"tp\) \{.*?\n\}\n", own, re.S)
     else:  # the gradients by mma.sync; wgmma from registers above Dh 128
-        for helper in ("mma_tf32<RS>(", "mma_tf32_m16n8("):
+        for helper in ("mma_tf32<RS>(", "mma_tf32_m16n8(", "grad_mma<WRS>("):
             assert helper in own, helper
         assert "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32" in code
-        fp32 = re.search(r"flash_bwd_f32\(const __grid_constant__ TmaParams "
-                         r"tp\) \{.*?\n\}\n", own, re.S)
         assert "fmaf(" not in own
-    assert fp32 and "fmaf(" not in fp32.group(0)
+    for kernel in ("f32", "wide_f32"):  # no FMA loop in any fp32 kernel
+        args = "tp" if kernel == "f32" else "tp, int D"
+        fp32 = re.search(rf"{stem}_{kernel}\(const __grid_constant__ "
+                         rf"TmaParams {args}\) \{{.*?\n\}}\n", own, re.S)
+        assert fp32 and "fmaf(" not in fp32.group(0), kernel
+        assert "mma_tf32_ss(" in fp32.group(0) and "split_tf32(" in code
     assert "cp_async" not in code and "cp.async.cg" not in code
     ops = re.sub(r"//[^\n]*", "", code).lower()  # without the comments
     assert not re.search(r"\b(atomic|atom\.|red\.)", ops)
     assert tuple(int(d) for d in re.findall(case, code)) == fa.HEAD_DIMS
+    # every other head dim: the wide kernels, the head dim at run time, for
+    # the multiples of 128 from 384 up (FLASH_WIDE_FROM), streaming S over
+    # Dh in 64-column chunks
+    assert re.search(r"if \((flash::)?wide\(D\)\) return "
+                     r"(flash::)?launch_wide", own)
+    assert ("bool wide(int D) { return D >= FLASH_WIDE_FROM && D % 128 == 0; }"
+            in own)
+    assert "#define FLASH_WIDE_FROM 384" in code
+    assert (fa.WIDE_MIN, fa.MIN_BLOCK_SIZE) == (384, 128)
+    for dtype in ("bf16", "f32"):
+        assert re.search(rf"{stem}_wide_{dtype}\(const __grid_constant__ "
+                         r"TmaParams tp, int D\)", own), dtype
+    assert own.count("const int nc = D / 64;") == 2  # one a wide kernel
     csrc = cuda_build.KERNELS[name][0].parent
     assert {p.name for p in csrc.glob("*.cu")} == {
         s.name for s, _, _ in cuda_build.KERNELS.values()}

@@ -154,7 +154,8 @@ def _rel(got, want):
 
 # (B, n_q, n_kv, H, Dh, v strided)
 CASES = ((1, 256, 256, 2, 64, False), (1, 256, 512, 2, 64, False),
-         (1, 256, 256, 1, 128, False), (1, 256, 256, 2, 64, True))
+         (1, 256, 256, 1, 128, False), (1, 256, 256, 2, 64, True),
+         (1, 256, 256, 1, 384, False))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
