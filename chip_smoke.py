@@ -12,7 +12,8 @@ Phases, each printing one line of its own; any failure exits non-zero:
              wide kernels, bf16 and fp32, that take every multiple of 128
              from Dh 384 up at run time; all on the tensor cores, fp32 in
              split TF32) and flash_attention_bwd.cu (the dK/dV and dQ
-             kernels, 12 template instances and 4 wide kernels), with nvcc
+             kernels, 12 template instances and 4 wide kernels, the fp32
+             ones on thread-block clusters along Dh), with nvcc
              (sm_90a), one nvcc a source, started together
              (`cuda_build.build`); print the build seconds, each library's
              kernels (template instances and wide kernels) and what ptxas
@@ -301,8 +302,10 @@ Phases, each printing one line of its own; any failure exits non-zero:
              that the Pallas flash attention's VJP runs): at 7c's shapes
              (the full-finetune step's own B1 shapes among them), at Dh
              128 and 256 in bf16 and fp32 (B1 n_q 256 n_kv 512 H4, Dh 128
-             with v strided) and at 7c's rows of the wide kernels, the
-             forward's output with its
+             with v strided), at 7c's rows of the wide kernels and, in
+             fp32, at Dh 1152 (B1 n_q 256 n_kv 512 H1: the clusters' passes
+             above Dh 1024), the fp32 wide pair run twice at each row and
+             its gradients the same bits, the forward's output with its
              residuals l and m the same as without, l and m within 1e-5 of
              the plain version's, and both backward kernels against the
              plain backward (`flash_attention_bwd_torch`), each gradient
@@ -311,7 +314,9 @@ Phases, each printing one line of its own; any failure exits non-zero:
              backward on the same inputs (`library_ms`) and its bound (in
              fp32 the faster of the fp32 pipes and split TF32 on the
              tensor cores), and each kernel's blocks, blocks an SM (the
-             occupancy API), waves and ptxas registers, the fp32 pair also
+             occupancy API), cluster size and resident clusters
+             (cudaOccupancyMaxActiveClusters) where it has clusters, waves,
+             ptxas registers and spills, the fp32 pair also
              at the fp32 comparison step's own B1 shapes (N768 H16 with v
              strided, H12); `train.main` in this process
              with the mode on and
@@ -355,8 +360,11 @@ the device alone, median of 7 rounds (`[compare]`). The earlier backward
 wrote live rows only, so it is timed with the memset it needs. Where DIR
 holds a `flash_attention_bwd.cu`, it also builds that into a library of its
 own and, after phase 7d, times its dK/dV and dQ kernels in turns with this
-checkout's at every bf16 Dh-64 shape and every fp32 shape of 7d, median of
-7 rounds (`[compare-flash-bwd]`); where it holds a `flash_attention.cu`,
+checkout's at every shape of 7d (the wide rows where DIR's source has the
+fp32 wide kernels), median of 7 rounds, with the gradient elements
+where the two builds differ and, for the fp32 wide pair, whether it is
+faster at every row and its sum over the parent's (`[compare-flash-bwd]`);
+where it holds a `flash_attention.cu`,
 it builds that too and, after phase 7c, times its forward in turns with
 this checkout's at every bf16 Dh-64 shape and every fp32 shape of 7c,
 median of 7 rounds, with both `call_ms` and, in bf16, the count of output
@@ -2735,7 +2743,7 @@ def _flash_held(torch, fl, q, k, v, scale, what, timed=True):
 
 # the ctypes argument types of the plan entry points: flash_attention_plan
 # (dtype, D, B, H, n_q, plan[2]) and flash_attention_bwd_plan (dkv, dtype,
-# D, B, H, n_q, n_kv, plan[2]), dtype 0 bf16 and 1 fp32;
+# D, B, H, n_q, n_kv, plan[4]), dtype 0 bf16 and 1 fp32;
 # tests/test_torch_port_flash.py holds them against the C signatures
 FLASH_PLAN_ARGTYPES = {
     "flash_attention_plan": [ctypes.c_int] * 5
@@ -3180,7 +3188,11 @@ FLASH_BWD_SHAPES = (
     FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES[:2]
     + tuple((f"bf16_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d,
              "bfloat16", d == 128) for d in (128, 256))
-    + FLASH_FP32_SHAPES[2:] + FLASH_WIDE_SHAPES)
+    + FLASH_FP32_SHAPES[2:] + FLASH_WIDE_SHAPES
+    # above Dh 1024 the fp32 wide pair runs passes of clusters, each block
+    # contracting slices in turn (n = 9 slices: 2 passes of 5 blocks)
+    + (("fp32_dh1152 B1 Nq256 Nkv512 H1", 1, 256, 512, 1, 1152, "float32",
+        False),))
 # the kernels against the plain backward, each gradient's largest error over
 # its peak: two bf16 steps in bf16 (both round p, ds and the gradients to
 # bf16, with fp32 sums in another order: at most 0.52 of it on an H100);
@@ -3270,7 +3282,13 @@ def _ptxas_kernels(log):
 def _registers(log, key):
     """ptxas registers of the one kernel of `log` whose mangled name holds
     `key` (e.g. `flash_fwd_bf16ILi64EE`, `flash_bwd_wide_f32ILb1EE`)."""
-    (r,) = [r for k, r, *_ in _ptxas_kernels(log) if key in k]
+    return _ptxas_kernel(log, key)[0]
+
+
+def _ptxas_kernel(log, key):
+    """(registers, spill store bytes, spill load bytes) of the one kernel of
+    `log` whose mangled name holds `key`."""
+    (r,) = [tuple(r) for k, *r in _ptxas_kernels(log) if key in k]
     return r
 
 
@@ -3278,8 +3296,10 @@ def _flash_bwd_plans(torch, so, log):
     """plan(dkv, dtype, B, n_q, n_kv, H, D) → how the bf16 or fp32 (dtype
     "bfloat16" or "float32") dK/dV (dkv) or dQ kernel of the library `so`
     runs at that shape: the blocks it launches, its blocks an SM (the
-    occupancy API), the waves over the card's SMs and its registers (from
-    the library's ptxas log `log`)."""
+    occupancy API), its cluster's blocks (1 without one) and the clusters
+    resident at once (cudaOccupancyMaxActiveClusters, 0 without), the waves
+    (over the card's SMs, or over the resident clusters), its registers and
+    spill bytes (from the library's ptxas log `log`)."""
     fn = ctypes.CDLL(str(so)).flash_attention_bwd_plan
     fn.argtypes = FLASH_PLAN_ARGTYPES["flash_attention_bwd_plan"]
     fn.restype = ctypes.c_int
@@ -3288,15 +3308,20 @@ def _flash_bwd_plans(torch, so, log):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def plan(dkv, dtype, B, n_q, n_kv, H, D):
-        out = (ctypes.c_int * 2)()
+        out = (ctypes.c_int * 4)()
         fp32 = dtype == "float32"
         assert fn(int(dkv), int(fp32), D, B, H, n_q, n_kv, out) == 0
         kind = "f32" if fp32 else "bf16"
         key = (f"flash_bwd_wide_{kind}ILb{int(dkv)}EE" if wide_head_dim(D)
                else f"flash_bwd_{kind}ILi{D}ELb{int(dkv)}EE")
-        return dict(blocks=out[0], blocks_per_sm=out[1],
-                    registers=_registers(log, key),
-                    waves=out[0] / (sms * out[1]), sms=sms)
+        regs, spill_st, spill_ld = _ptxas_kernel(log, key)
+        blocks, per_sm, cluster, clusters = out
+        assert per_sm > 0 and clusters >= 0, list(out)
+        return dict(blocks=blocks, blocks_per_sm=per_sm, cluster=cluster,
+                    max_active_clusters=clusters, registers=regs,
+                    spill_stores=spill_st, spill_loads=spill_ld,
+                    waves=(blocks / cluster / clusters if clusters
+                           else blocks / (sms * per_sm)), sms=sms)
 
     return plan
 
@@ -3307,17 +3332,23 @@ def _is_dkv_kernel(name):
     return "Lb1E" in name or ", true>" in name
 
 
-def _flash_bwd_errors(torch, fl, args, scale, what):
+def _flash_bwd_errors(torch, fl, args, scale, what, twice=False):
     """The backward kernels (`flash_attention_bwd`) against the plain
     backward on args = (q, k, v, o, l, m, do), in their working dtype →
     {dq, dk, dv: largest error over the gradient's peak, abs_dq, abs_dk,
-    abs_dv: the largest absolute errors, bar}."""
+    abs_dv: the largest absolute errors, bar}; with `twice` the kernels run
+    again and must give the same bits (`same_bits`)."""
     got = fl.flash_attention_bwd(*args, scale)
     want = fl.flash_attention_bwd_torch(*args, scale)
     torch.cuda.synchronize()
     bar = (FLASH_BWD_BF16_BAR if args[0].dtype == torch.bfloat16
            else FLASH_BWD_FP32_BAR)
     h = {"bar": bar}
+    if twice:
+        again = fl.flash_attention_bwd(*args, scale)
+        torch.cuda.synchronize()
+        h["same_bits"] = all(torch.equal(a, b) for a, b in zip(got, again))
+        assert h["same_bits"], f"{what}: two runs' gradients differ"
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.shape == w.shape and g.dtype == w.dtype, (what, name)
         assert torch.isfinite(g).all(), f"{what}: {name} not finite"
@@ -3377,7 +3408,10 @@ def _flash_bwd_held(torch, fl, q, k, v, do, scale, what):
 
     o, l, m, l_err, m_err = _flash_residuals_held(torch, fl, q, k, v,
                                                   scale, what)
-    h = _flash_bwd_errors(torch, fl, (q, k, v, o, l, m, do), scale, what)
+    # the fp32 wide pair sums S and dP across a cluster: run it twice
+    h = _flash_bwd_errors(torch, fl, (q, k, v, o, l, m, do), scale, what,
+                          twice=(q.dtype == torch.float32
+                                 and fl.wide_head_dim(q.shape[3])))
     B, n_q, H, D = q.shape
     n_kv = k.shape[1]
     h.update(shape=[B, n_q, n_kv, H, D], dtype=str(q.dtype)[6:],
@@ -3534,8 +3568,13 @@ def _flash_train_phase(torch, cr, fl, layers, work):
     for label, h in shapes.items():
         grid = " | " + ", ".join(
             f"{name} {g['blocks']} blocks, {g['blocks_per_sm']} an SM, "
-            f"{g['waves']:.2f} waves, {g['registers']} registers"
+            + (f"clusters of {g['cluster']} ({g['max_active_clusters']} "
+               "resident), " if g["max_active_clusters"] else "")
+            + f"{g['waves']:.2f} waves, {g['registers']} registers, spills "
+            f"{g['spill_stores']}/{g['spill_loads']} bytes"
             for name, g in (("dK/dV", h["plan_dkv"]), ("dQ", h["plan_dq"])))
+        if "same_bits" in h:
+            grid += " | two runs the same bits"
         lines.append(
             f"[flash-train-kernel] {label} ({h['dtype']}, v "
             f"{'contiguous' if h['v_contiguous'] else 'strided'}): kernels "
@@ -3918,9 +3957,11 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
     """Build the flash_attention_bwd.cu found in `parent` (an earlier
     commit's, with the same C entry points) into a library of its own and
     time its dK/dV and dQ kernels in turns with this checkout's at every
-    bf16 Dh-64 shape and every fp32 shape of FLASH_BWD_SHAPES → {shape:
-    {dkv: (parent ms, this checkout's ms), dq: (...), diff: the largest
-    difference of the two builds' gradients over each gradient's peak}},
+    shape of FLASH_BWD_SHAPES, the wide kernels' rows only where the
+    parent's source has them (`flash_bwd_wide_f32`) → {shape:
+    {dtype, D, dkv: (parent ms, this checkout's ms), dq: (...), diff: the
+    largest difference of the two builds' gradients over each gradient's
+    peak, differ: the gradient elements where the two builds differ}},
     each ms the median over `rounds` of a device-only time of 20 launches.
     Two fp32 builds may differ by twice the fp32 bar (each is held within
     it of the plain backward)."""
@@ -3929,14 +3970,16 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
     from splatt3r_slam_tpu_torch import cuda_build
 
     names = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq")
-    so = _parent_library(cuda_build.KERNELS[names[0]][0], parent)
+    source = cuda_build.KERNELS[names[0]][0]
+    so = _parent_library(source, parent)
+    with open(os.path.join(parent, source.name)) as f:
+        parent_wide = "flash_bwd_wide_f32" in f.read()
     old = {n: cuda_build._entry(so, n) for n in names}
     new = {n: cuda_build._fns[n] for n in names}  # resolved by phase 7d
     rng = np.random.default_rng(13)
     runs, found = {}, {}
     for label, B, nq, nk, nh, D, dt, strided in FLASH_BWD_SHAPES:
-        # the wide kernels' rows only where the parent's source has them
-        if (dt == "bfloat16" and D != 64) or fl.wide_head_dim(D):
+        if fl.wide_head_dim(D) and not parent_wide:
             continue
         q, k, v, do = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D,
                                         getattr(torch, dt), strided)
@@ -3956,9 +3999,10 @@ def _compare_flash_bwd_with_parent(torch, fl, parent, rounds=7):
         got = [(dq_fn(), *dkv_fn()) for dkv_fn, dq_fn in zip(
             runs[label, "dkv"], runs[label, "dq"])]
         torch.cuda.synchronize()
-        found[label] = {"diff": max(
+        found[label] = {"dtype": dt, "D": D, "diff": max(
             float((a.float() - b.float()).abs().max() / b.float().abs().max())
-            for a, b in zip(*got))}
+            for a, b in zip(*got)), "differ": sum(
+            int((a != b).sum()) for a, b in zip(*got))}
         bar = (FLASH_BWD_BF16_BAR if dt == "bfloat16"
                else 2 * FLASH_BWD_FP32_BAR)
         assert found[label]["diff"] <= bar, (label, found)
@@ -4846,17 +4890,26 @@ def main(argv=None) -> int:
     if args.parent and os.path.exists(
             os.path.join(args.parent, "flash_attention_bwd.cu")):
         found = _compare_flash_bwd_with_parent(torch, fl, args.parent)
-        faster = all(f[kind][1] < f[kind][0] for f in found.values()
+        # the fp32 wide pair (redesigned in this checkout's source): faster
+        # at every row?; the pair's sum, this checkout's over the parent's
+        wide32 = {label: f for label, f in found.items()
+                  if f["dtype"] == "float32" and fl.wide_head_dim(f["D"])}
+        faster = all(f[kind][1] < f[kind][0] for f in wide32.values()
                      for kind in ("dkv", "dq"))
+        ratios = {label: (f["dkv"][1] + f["dq"][1])
+                  / (f["dkv"][0] + f["dq"][0]) for label, f in wide32.items()}
         print("[compare-flash-bwd] device ms, the flash_attention_bwd.cu in "
               "--parent → this checkout's, in turns, median of 7 rounds of "
               "20 launches | " + " | ".join(
                   f"{label}: dK/dV {f['dkv'][0]:.4f} → {f['dkv'][1]:.4f}, dQ "
                   f"{f['dq'][0]:.4f} → {f['dq'][1]:.4f} (gradients differ by "
-                  f"{f['diff']:.1e} of their peak)"
+                  f"{f['diff']:.1e} of their peak, in {f['differ']} "
+                  f"elements)"
                   for label, f in found.items())
-              + f" | this checkout's faster at every shape: {faster} | "
-              f"{_smi()}")
+              + f" | the fp32 wide kernels faster at every wide row: {faster}"
+              ", the pair's sum over the parent's: " + ", ".join(
+                  f"{label.split()[0]} {r:.3f}" for label, r in ratios.items())
+              + f" | {_smi()}")
         results["compare_flash_bwd"] = found
     if args.wide_from_128:
         found = _compare_wide_with_instances(torch, fl)
@@ -5095,6 +5148,13 @@ def main(argv=None) -> int:
            for label, h in ft_res["shapes"].items()
            if fl.wide_head_dim(h["shape"][4])
            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")},
+        # how each wide row ran: the fp32 kernel on clusters along Dh
+        **{f"plan_{label.split()[0]}": {
+            k: h[f"plan_{kind}"][k] for k in (
+                "cluster", "max_active_clusters", "blocks", "blocks_per_sm",
+                "waves", "registers", "spill_stores", "spill_loads")}
+           for label, h in ft_res["shapes"].items()
+           if fl.wide_head_dim(h["shape"][4])},
         "launches_flash_route": route_res["bwd_launches"],
         "launches_flash_train": ft_wide_bwd,
         "launches_other_phases": 0,

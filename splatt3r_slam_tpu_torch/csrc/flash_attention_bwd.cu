@@ -121,8 +121,12 @@
 //
 // Head dims: those of the forward (flash_attention.cu). Dh 64, 128 and 256
 // are template instances of the kernels above; every multiple of 128 from
-// 384 up runs on one wide kernel a dtype and gradient, Dh at run time, S
-// and dP streamed over Dh in 64-column chunks ("wide head dims" below).
+// 384 up runs on one wide kernel a dtype and gradient, Dh at run time
+// ("wide head dims" below): in bf16 S and dP streamed over Dh in 64-column
+// chunks by every block; in fp32 on a thread-block cluster along Dh, each
+// block contracting its own 128 columns and the cluster adding the partials
+// of S and dP through distributed shared memory, so that they are computed
+// once for each pair of tiles.
 
 #include "flash_common.cuh"  // mbarrier, TMA, wgmma and split-TF32 helpers
 
@@ -791,17 +795,19 @@ __global__ void __launch_bounds__(WG, 1)
 // ------------------------------------------------------ wide head dims ----
 
 // Dh a multiple of 128 from 384 up, the head dim at run time: one kernel a
-// dtype and gradient. The blocks are those above (64 fixed rows and 64
-// gradient columns, fixed/64 x Dh/64 blocks a head), but no tile spans Dh:
-// S and dP are summed over Dh in chunks of 64 columns, each a pair of
-// 64-column boxes (the fixed rows' and the streamed tile's) that TMA brings
-// into a ring of its own, S's chunks then dP's for every streamed tile, so
-// every block of a fixed tile computes S and dP whole, (Dh/64) times the
-// work of one block. The streamed tile's boxes at the block's 64 columns
-// (S1's, and for dK/dV S2's with m, l and di) come into a second ring for
-// the gradient products, which run as above. Each chunk is waited for
-// before the next starts and each stage is refilled once its products
-// have retired: simple, not fast.
+// dtype and gradient. No tile spans Dh, whose 64-row tiles outgrow shared
+// memory (at Dh 512 in fp32 q's hi and lo alone would be 256 KiB).
+//
+// bf16: the blocks above (64 fixed rows and 64 gradient columns, fixed/64 x
+// Dh/64 blocks a head). S and dP are summed over Dh in chunks of 64
+// columns, each a pair of 64-column boxes (the fixed rows' and the streamed
+// tile's) that TMA brings into a ring of its own, S's chunks then dP's for
+// every streamed tile, so every block of a fixed tile computes S and dP
+// whole, (Dh/64) times the work of one block. The streamed tile's boxes at
+// the block's 64 columns (S1's, and for dK/dV S2's with m, l and di) come
+// into a second ring for the gradient products, which run as above. Each
+// chunk is waited for before the next starts and each stage is refilled
+// once its products have retired: simple, not fast.
 constexpr int WST = 4;   // chunk pairs a ring, bf16
 constexpr int WTST = 2;  // streamed tiles' boxes a ring
 
@@ -1000,212 +1006,472 @@ __global__ void __launch_bounds__(WG, 2)
   }
 }
 
-// fp32: split TF32 as above, streamed tiles of 32 rows. A pair stage holds
-// the fixed rows' and the streamed tile's 64 columns of the chunk (two
-// 32-column boxes each); once it lands one pass rounds both to hi in place
-// and writes lo beside them (one lo pair for the chunk in work), and the
-// chunk's 24 products (8 k-steps, each hi lo', lo hi', hi hi') are one
-// chain, summed by the tensor cores from 0 and added to S (dP) by the FMA
-// pipes. The tile stage's boxes are split the same way for the gradient
-// products (mma.sync, grad_mma), which run as above.
-constexpr int WRS = 32;                          // streamed rows a tile
-constexpr int WST32 = 3;                         // chunk pairs a ring, fp32
-constexpr int WFBOX = ROWS * 128;                // 64 fixed rows x 32 columns
-constexpr int WSBOX = WRS * 128;                 // a streamed box
-constexpr int WPAIR = 2 * WFBOX + 2 * WSBOX;     // a chunk of both sides
-constexpr int WTILE = 2 * WSBOX;                 // a tile's 64 columns
+// fp32: split TF32 as above, on a thread-block cluster along Dh, so that S
+// and dP are computed once for each (fixed tile, streamed tile) pair (the
+// bf16 scheme above sums them in each of a fixed tile's Dh/64 blocks: in
+// fp32 at Dh 512, 4.5x and 5.7x the pair's tensor work).
+//
+// Slices and clusters. Dh is cut into slices of WC = 128 columns, n = Dh /
+// 128 of them. The blocks of one fixed tile (64 rows) form a cluster of cs
+// = n blocks (up to the portable limit of 8: Dh 1024), block r at slice r.
+// A block holds the fixed rows at its slice and streams the other side's
+// tiles at the same columns, and those boxes serve both of its products:
+// its partial of S and dP (the contraction over its 128 columns) and its
+// gradients at its 128 columns (dK and dV, or dQ): one stage, no second
+// ring for the gradients. Why 128 columns: 64 fixed rows x 128 columns of
+// a gradient are 64 accumulator registers a thread of a warpgroup, and
+// with the contraction's chains and A fragments beside them the dK/dV
+// kernel takes 249 registers; the buffers below take 231,184 of the
+// 232,448 bytes of shared memory a block may have at 128 columns. dQ has
+// one gradient but the same shared memory, so its slices are 128 columns
+// too. Above Dh 1024 (n > 8) the kernel runs `rounds` = ceil(n / 8) passes
+// of clusters of cs = ceil(n / rounds) blocks a fixed tile: block r of pass
+// p writes the gradients of slice r + p cs (none past n) and contracts its
+// slices r, r + cs, ... in turn each streamed tile, reloading the fixed
+// slices for each and the gradients' slice last; each pass computes S and
+// dP whole, `rounds` times the least work, which no Dh up to 1024 pays.
+//
+// A block is two warpgroups. Warpgroup 0 forms the block's partial of S
+// (S^T = K Q^T for dK/dV, S = Q K^T for dQ), warpgroup 1 that of dP, by
+// wgmma m64n32k8 .tf32 from the fixed slice (A fragments split hi/lo in
+// registers box by box, as the Dh-256 instance does: the fixed hi and lo
+// do not fit) and the streamed slice, which the warpgroup that reads it
+// splits hi/lo in place once it lands. A partial is two chains of 24
+// products (the slice's 32-column boxes 0 and 2, and 1 and 3), each summed
+// by the tensor cores from 0 and the two added in fp32; one box's group
+// stays in flight while the next box's fragments are split (wg_wait<1>).
+//
+// The exchange, two cluster barriers a tile (barrier.cluster.arrive.release
+// / wait.acquire). The partials go to the block's shared memory. After the
+// first barrier each block owns a contiguous 1/cs of the 64 x 32 elements:
+// it reads the cs partials of those through distributed shared memory
+// (mapa, ld.shared::cluster; all loads of a unit before its adds), adds
+// them in rank order (slice 0, 1, ...; with rounds, each block's slices in
+// its own order first) and forms P = exp(s scale - m) (1 / l) (s scale
+// rounded first) and dS = (dP - di) P scale in fp32 once for them. After
+// the second barrier every warpgroup reads the P or dS of its own
+// accumulator elements from their owners. So each element of S and dP is
+// summed once, in one order, every block uses the same bits of P and dS,
+// and the gradients are the same bits from run to run, with no atomics.
+// Every block reading every partial instead (one barrier a tile, the
+// exponentials formed cs times) reads cs times the bytes and measured
+// slower at every row, the more so the larger the cluster.
+//
+// The gradients by wgmma from registers: dK/dV, warpgroup 0 dK += dS^T Q
+// and warpgroup 1 dV += P^T dO at all 128 columns (m64n128k8); dQ, each
+// warpgroup dQ += dS K at 64 of them (m64n64k8). The A operand is P^T or
+// dS^T as the accumulator of S^T holds it, the contraction index of each 8
+// permuted (k = c is column 2 c, k = c + 4 is 2 c + 1); the B operand is
+// the streamed slice's hi and lo transposed (wgmma takes no transposed
+// tf32 operand), rows the gradient's columns, positions the tile's rows in
+// the same order (transpose_t). Each tile's 12 products are summed by the
+// tensor cores from 0 and added in fp32. mma.sync m16n8k8 (grad_mma) in
+// their place measured no faster, nor with the warps splitting the
+// columns instead of the rows.
+//
+// Buffers and order. The fixed slices (64 KiB) load once. A streamed tile
+// of 32 rows (both tensors' slices, 32 KiB, with m, l and di for dK/dV)
+// lands in the one stage; its lo (32 KiB) and the transposed hi and lo (64
+// KiB) lie beside it. The stage and its lo serve the contraction only, so
+// once the block has contracted tile j and transposed it, tile j + 1 loads
+// into the stage, behind tile j's exchange and gradients. Per tile: split,
+// contract, write the partial, arrive at the first barrier; while it
+// completes, transpose and issue the next tile's copies (a copy a warp);
+// then the exchange and the gradients. RS = 32 because 64-row tiles do not
+// fit (the tf32 wgmma costs about as much at N 32 as at 64, so S and dP run
+// at half their rate). Two stages, to overlap one tile's exchange with the
+// next tile's contraction, do not fit either. Shared memory: 231,184
+// bytes, one block an SM. A cluster's blocks share a GPC, so fewer than 132
+// blocks may be resident at once: the plan reports
+// cudaOccupancyMaxActiveClusters beside the grid.
+constexpr int WRS = 32;                // streamed rows a tile
+constexpr int WC = 128;                // columns a slice
+constexpr int WCLUSTER = 8;            // the portable cluster limit
+constexpr int WT = 2 * WG;             // threads a block
+constexpr int WFBOX = ROWS * 128;      // 64 fixed rows x 32 columns
+constexpr int WSBOX = WRS * 128;       // a streamed box
+constexpr int WFIX = 4 * WFBOX;        // one fixed tensor's slice
+constexpr int WHALF = 4 * WSBOX;       // one streamed tensor's slice
+constexpr int WTB = WC * 128;          // a streamed slice transposed
+constexpr int WMAT = ROWS * WRS * 4;   // a 64 x 32 fp32 matrix (S, dP, P, dS)
+constexpr int WU = WMAT / 8;           // its 8-byte units (element pairs)
+// byte offsets: the fixed slices (f1, then f2), the stage (s1's slice, then
+// s2's; hi in place after the split), its lo, the transposed slices (s1's
+// hi and lo, then s2's), the partials (S, then dP), their sums' P and dS,
+// the stats (dK/dV: m, l, di of even and odd tiles; dQ: m, 1/l, di of the
+// fixed rows), the barriers (the stage's, the fixed slices'), and 1024
+// bytes of alignment slack
+constexpr int WFIXO = 0, WSTG = 2 * WFIX, WLO = WSTG + 2 * WHALF,
+              WTT = WLO + 2 * WHALF, WPART = WTT + 4 * WTB,
+              WFIN = WPART + 2 * WMAT, WSTATS = WFIN + 2 * WMAT,
+              WBARS = WSTATS + 2 * 3 * WRS * 4;
+constexpr int smem_wide_f32() { return WBARS + 2 * 8 + 1024; }
+static_assert(2 * 3 * WRS == 3 * ROWS, "the stats hold either layout");
+static_assert(smem_wide_f32() <= 232448, "more than a block's shared memory");
 
-// the slack, the pair ring, the chunk's lo pair, the tile ring (S1's 64
-// columns, then S2's), the tile in work's lo, for dK/dV m, l (then 1/l)
-// and di of each tile stage, the barriers
-template <bool DKV>
-constexpr int smem_wide_f32() {
-  return 1024 + (WST32 + 1) * WPAIR + (WTST + 1) * 2 * WTILE +
-         (DKV ? WTST * 3 * WRS * 4 : 0) + 8 * (WST32 + WTST);
+// Slices, rounds (passes) and cluster size of a head dim (above).
+struct WidePlan {
+  int n, rounds, cs;
+};
+
+__host__ __device__ inline WidePlan wide_plan(int D) {
+  const int n = D / WC, rounds = (n + WCLUSTER - 1) / WCLUSTER;
+  return {n, rounds, (n + rounds - 1) / rounds};
+}
+
+// Column n of a streamed slice already split (hi in place, lo beside it,
+// four boxes of WRS rows as TMA lays them), written transposed: row n of
+// the result, its 32 positions the tile's rows, each 8 in the order 0, 2,
+// 4, 6, 1, 3, 5, 7 (the accumulators of S and dP hold columns 2 c and 2 c
+// + 1 of each 8, the k = c and c + 4 of the gradient products' A
+// fragments), 128-byte swizzled: the K-major B operand of wgmma; positions
+// 4 p0 to 4 p1 - 1, a 16-byte piece at a time. A warp's reads of a row fall
+// in one 128-byte row of the slice.
+__device__ __forceinline__ void transpose_t(const unsigned char* hi,
+                                            const unsigned char* lo,
+                                            unsigned char* th,
+                                            unsigned char* tl, int n, int p0,
+                                            int p1) {
+  const int cc = n & 31;
+  const int col = (n >> 5) * WSBOX + ((cc & 3) << 2);
+#pragma unroll
+  for (int pc = 0; pc < WRS / 4; ++pc) {  // positions 4 pc to + 3
+    if (pc < p0 || pc >= p1) continue;
+    const int r0 = 8 * (pc >> 1) + (pc & 1);
+    uint32_t hv[4], lv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // rows r0 + 2 e
+      const int r = r0 + 2 * e;
+      const int off = col + r * 128 + (((cc >> 2) ^ (r & 7)) << 4);
+      hv[e] = *reinterpret_cast<const uint32_t*>(hi + off);
+      lv[e] = *reinterpret_cast<const uint32_t*>(lo + off);
+    }
+    const int off = n * 128 + ((pc ^ (n & 7)) << 4);
+    *reinterpret_cast<uint4*>(th + off) =
+        make_uint4(hv[0], hv[1], hv[2], hv[3]);
+    *reinterpret_cast<uint4*>(tl + off) =
+        make_uint4(lv[0], lv[1], lv[2], lv[3]);
+  }
 }
 
 template <bool DKV>
-__global__ void __launch_bounds__(WG, 1)
+__global__ void __launch_bounds__(WT, 1)
     flash_bwd_wide_f32(const __grid_constant__ TmaParams tp, int D) {
   const Params& p = tp.p;
   extern __shared__ __align__(1024) unsigned char f32_smem[];
   const uint32_t raw = smem_addr(f32_smem);
   const uint32_t base = (raw + 1023) & ~1023u;
   unsigned char* sm = f32_smem + (base - raw);
-  // byte offsets: the pair ring (stage s: the fixed boxes, then the
-  // streamed ones), the lo pair, the tile ring, the tile's lo, the stats
-  constexpr int LO = WST32 * WPAIR, TRING = LO + WPAIR,
-                TLO = TRING + WTST * 2 * WTILE, STATS = TLO + 2 * WTILE;
-  float* stats = reinterpret_cast<float*>(sm + STATS);
-  const uint32_t bars = base + STATS + (DKV ? WTST * 3 * WRS * 4 : 0);
+  float* stats = reinterpret_cast<float*>(sm + WSTATS);
+  const uint32_t bars = base + WBARS;  // the stage, the fixed slices
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = (tid & 31) >> 2, c = tid & 3;
-  const int nc = D / 64;
-  const int sub = blockIdx.x % nc;
-  const int r0 = (blockIdx.x / nc) * ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int tiles = (DKV ? p.n_q : p.n_kv) / WRS, items = tiles * 2 * nc;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & (WG - 1);
+  const int warp = t >> 5, g = (t & 31) >> 2, c = t & 3;
+  const WidePlan w = wide_plan(D);
+  const int rank = static_cast<int>(cluster_rank()),
+            cs = static_cast<int>(cluster_blocks());
+  const int pass = static_cast<int>(blockIdx.x) / cs % w.rounds;
+  const int r0 = static_cast<int>(blockIdx.x) / (cs * w.rounds) * ROWS,
+            h = blockIdx.y, b = blockIdx.z;
+  const int gs = rank + pass * cs;  // the gradients' slice (none past n)
+  const int items = (w.n - rank + cs - 1) / cs;  // slices contracted a tile
+  const int tiles = (DKV ? p.n_q : p.n_kv) / WRS, total = tiles * items;
   const long long sbase =
       (static_cast<long long>(b) * gridDim.y + h) * p.n_q;  // m, l, di
 
-  auto load_pair = [&](int u) {
-    const int s = u % WST32, t = u % (2 * nc), x = t % nc;
-    const uint32_t bar = bars + 8 * s, dst = base + s * WPAIR;
-    bar_expect(bar, WPAIR);
+  // the k-th slice a tile contracts: its rounds in turn from the one after
+  // its pass, so that the gradients' slice comes last
+  auto slice = [&](int k) {
+    for (int x = 0, seen = 0; x < w.rounds; ++x) {
+      const int sl = rank + (pass + 1 + x) % w.rounds * cs;
+      if (sl < w.n && seen++ == k) return sl;
+    }
+    return 0;
+  };
+  auto load_fixed = [&](int sl) {
+    const uint32_t bar = bars + 8;
+    bar_expect(bar, 2 * WFIX);
 #pragma unroll
-    for (int y = 0; y < 2; ++y) {
-      tma_box(dst + y * WFBOX, t < nc ? &tp.f1 : &tp.f2, 64 * x + 32 * y,
-              r0, h, b, bar);
-      tma_box(dst + 2 * WFBOX + y * WSBOX, t < nc ? &tp.s1 : &tp.s2,
-              64 * x + 32 * y, (u / (2 * nc)) * WRS, h, b, bar);
+    for (int x = 0; x < 4; ++x) {
+      tma_box(base + WFIXO + x * WFBOX, &tp.f1, WC * sl + 32 * x, r0, h, b,
+              bar);
+      tma_box(base + WFIXO + WFIX + x * WFBOX, &tp.f2, WC * sl + 32 * x, r0,
+              h, b, bar);
     }
   };
-  auto load_tile = [&](int j) {
-    const int s = j % WTST;
-    const uint32_t bar = bars + 8 * (WST32 + s),
-                   dst = base + TRING + s * 2 * WTILE;
-    bar_expect(bar, DKV ? 2 * WTILE + 3 * WRS * 4 : WTILE);
-#pragma unroll
-    for (int y = 0; y < 2; ++y) {
-      tma_box(dst + y * WSBOX, &tp.s1, 64 * sub + 32 * y, j * WRS, h, b,
-              bar);
-      if constexpr (DKV)
-        tma_box(dst + WTILE + y * WSBOX, &tp.s2, 64 * sub + 32 * y,
-                j * WRS, h, b, bar);
-    }
-    if constexpr (DKV) {
-      const long long i = sbase + static_cast<long long>(j) * WRS;
-      const uint32_t st = smem_addr(stats + s * 3 * WRS);
-      bulk_copy(st, p.m + i, WRS * 4, bar);
-      bulk_copy(st + WRS * 4, p.l + i, WRS * 4, bar);
-      bulk_copy(st + 2 * WRS * 4, p.di + i, WRS * 4, bar);
+  // item u: streamed tile u / items at its (u % items)-th slice. Copy x
+  // of its 8 is box x & 3 of s1 (x < 4) or s2; copy 0 also sets the bytes
+  // the barrier expects (a copy may land before it), copies 1 to 3 of dK/dV
+  // also bring m, l and di of the tile's rows (the stats of its parity)
+  auto load_copy = [&](int u, int x) {
+    const int j = u / items, sl = w.rounds == 1 ? rank : slice(u % items);
+    const uint32_t dst = base + WSTG + (x >> 2) * WHALF;
+    if (x == 0) bar_expect(bars, 2 * WHALF + (DKV ? 3 * WRS * 4 : 0));
+    tma_box(dst + (x & 3) * WSBOX, x < 4 ? &tp.s1 : &tp.s2,
+            WC * sl + 32 * (x & 3), j * WRS, h, b, bars);
+    if (DKV && x >= 1 && x <= 3) {
+      const float* src = x == 1 ? p.m : (x == 2 ? p.l : p.di);
+      bulk_copy(smem_addr(stats + (j & 1) * 3 * WRS + (x - 1) * WRS),
+                src + sbase + static_cast<long long>(j) * WRS, WRS * 4, bars);
     }
   };
 
   if (tid == 0) {
-    for (int s = 0; s < WST32 + WTST; ++s) bar_init(bars + 8 * s);
+    for (int s = 0; s < 2; ++s) bar_init(bars + 8 * s);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (!DKV) {  // m, 1 / l and di of the fixed rows
+    if (tid < ROWS) {
+      const long long i = sbase + r0 + tid;
+      stats[tid] = p.m[i];
+      stats[ROWS + tid] = 1.f / p.l[i];
+      stats[2 * ROWS + tid] = p.di[i];
+    }
   }
   __syncthreads();
   if (tid == 0) {
-    for (int u = 0; u < WST32 && u < items; ++u) load_pair(u);
-    for (int j = 0; j < WTST && j < tiles; ++j) load_tile(j);
+    load_fixed(slice(0));
+    for (int x = 0; x < 8; ++x) load_copy(0, x);
   }
   __syncwarp();
 
-  // dQ: m, 1 / l and di of the thread's rows g and g + 8 of its warp's 16
-  float rm[2] = {0.f, 0.f}, rinv[2] = {0.f, 0.f}, rdi[2] = {0.f, 0.f};
-  if constexpr (!DKV) {
+  // S (warpgroup 0) or dP (warpgroup 1) of one item, from 0: boxes 0 and 2
+  // one chain, 1 and 3 another; box x's group in flight while box x + 1's
+  // fragments are split
+  const unsigned char* fix = sm + WFIXO + wg * WFIX;
+  auto contract = [&](float (&out)[WRS / 2], uint64_t bh, uint64_t bl) {
+    float ca[WRS / 2], cb[WRS / 2];
+    uint32_t fh[2][4][4], fl[2][4][4];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const long long i = sbase + r0 + warp * 16 + g + 8 * r;
-      rm[r] = p.m[i];
-      rinv[r] = 1.f / p.l[i];
-      rdi[r] = p.di[i];
-    }
-  }
-
-  float acc1[32], acc2[32];  // dK | dQ, dV (grad_mma's layout)
-  float sc[WRS / 2], dp[WRS / 2], part[WRS / 2];  // S, dP; a chunk of one
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc1[i] = acc2[i] = 0.f;
-#pragma unroll
-  for (int i = 0; i < WRS / 2; ++i) sc[i] = dp[i] = part[i] = 0.f;
-  const uint64_t al = desc(base + LO), bl = desc(base + LO + 2 * WFBOX);
-
-  // item u, chunk x, added to d (S or dP); its stage refilled after
-  auto chunk = [&](float (&d)[WRS / 2], int u, int x) {
-    const int s = u % WST32;
-    unsigned char* st = sm + s * WPAIR;
-    bar_wait(bars + 8 * s, (u / WST32) & 1);
-    split_pass<WPAIR>(st, sm + LO, tid);  // hi in place, lo beside
-    fence_async_smem();
-    __syncthreads();
-    const uint64_t ah = desc(smem_addr(st)),
-                   bh = desc(smem_addr(st) + 2 * WFBOX);
-    hold(part);
-    wg_fence();
-#pragma unroll
-    for (int y = 0; y < 2; ++y)
+    for (int x = 0; x < 4; ++x) {
+      const int f = x & 1;
+      float (&d)[WRS / 2] = f == 0 ? ca : cb;
+      if (x >= 2) {  // box x - 2 has retired: its chain and fragments free
+        wg_wait<1>();
+        hold(d);
+        hold(fh[f]);
+        hold(fl[f]);
+      }
+      fixed_frags(fix, x, warp, g, c, fh[f], fl[f]);
+      hold(fh[f]);
+      hold(fl[f]);
+      wg_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const uint32_t fo = (y * WFBOX + kk * 32) / 16,
-                       so = (y * WSBOX + kk * 32) / 16;
-        mma_tf32_ss(part, ah + fo, bl + so, y > 0 || kk > 0);
-        mma_tf32_ss(part, al + fo, bh + so, 1);
-        mma_tf32_ss(part, ah + fo, bh + so, 1);
+        const uint32_t off = (x * WSBOX + kk * 32) / 16;
+        mma_tf32<WRS>(d, fh[f][kk], bl + off, x >= 2 || kk > 0);
+        mma_tf32<WRS>(d, fl[f][kk], bh + off, 1);
+        mma_tf32<WRS>(d, fh[f][kk], bh + off, 1);
       }
-    wg_commit();
+      wg_commit();
+    }
     wg_wait<0>();
-    hold(part);
+    hold(ca);
+    hold(cb);
+    hold(fh[0]);
+    hold(fl[0]);
+    hold(fh[1]);
+    hold(fl[1]);
 #pragma unroll
-    for (int i = 0; i < WRS / 2; ++i) d[i] = x == 0 ? part[i] : d[i] + part[i];
-    __syncthreads();  // the stage and the lo pair are free
-    if (tid == 0 && u + WST32 < items) load_pair(u + WST32);
-    __syncwarp();
+    for (int i = 0; i < WRS / 2; ++i) out[i] = ca[i] + cb[i];
   };
 
-  for (int j = 0; j < tiles; ++j) {
-    for (int x = 0; x < nc; ++x) chunk(sc, j * 2 * nc + x, x);
-    for (int x = 0; x < nc; ++x) chunk(dp, j * 2 * nc + nc + x, x);
-    const int s = j % WTST;
-    unsigned char* t1 = sm + TRING + s * 2 * WTILE;
-    float* tm = stats + s * 3 * WRS;  // m, 1 / l, di of the stage's rows
-    bar_wait(bars + 8 * (WST32 + s), (j / WTST) & 1);
-    // the tile's boxes: hi in place, lo beside (S1's, then S2's)
-    split_pass<(DKV ? 2 : 1) * WTILE>(t1, sm + TLO, tid);
-    if constexpr (DKV) {
-      if (tid < WRS) tm[WRS + tid] = 1.f / tm[WRS + tid];
-    }
-    fence_async_smem();  // before TMA writes the stage again
-    __syncthreads();
-
-    // P = exp(S scale - m) / l and dS = (dP - di) P scale, in place, fp32
+  // the warpgroup's gradient (wgmma's accumulator layout): dK/dV, all 128
+  // columns of the slice (warpgroup 0 dK, 1 dV); dQ, 64 of them
+  constexpr int GN = DKV ? WC : WC / 2;
+  float acc[GN / 2];
+  float sc[WRS / 2];  // the block's partial of S or dP
 #pragma unroll
-    for (int i = 0; i < WRS / 2; ++i) {
-      float mm, iv, dd;
-      if constexpr (DKV) {
-        const int col = 8 * (i >> 2) + 2 * c + (i & 1);
-        mm = tm[col];
-        iv = tm[WRS + col];
-        dd = tm[2 * WRS + col];
-      } else {
-        mm = rm[(i >> 1) & 1];
-        iv = rinv[(i >> 1) & 1];
-        dd = rdi[(i >> 1) & 1];
-      }
-      sc[i] = exp_ftz(__fmul_rn(sc[i], p.scale) - mm) * iv;
-      dp[i] = (dp[i] - dd) * sc[i] * p.scale;
+  for (int i = 0; i < GN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WRS / 2; ++i) sc[i] = 0.f;
+  const bool reload = items > 1;
+  // the transposed tensor the warpgroup writes (dK/dV: its own, all 128
+  // columns; dQ: s1's, half the positions each) and reads (dQ: s1's rows
+  // 64 wg on)
+  unsigned char* th = sm + WTT + (DKV ? wg : 0) * 2 * WTB;
+  const uint64_t gth = desc(smem_addr(th) + (DKV ? 0 : wg * GN * 128)),
+                 gtl = gth + WTB / 16;
+  int u = 0;
+  for (int j = 0; j < tiles; ++j) {
+    for (int k = 0; k < items; ++k, ++u) {
+      unsigned char* hi = sm + WSTG + wg * WHALF;
+      unsigned char* lo = sm + WLO + wg * WHALF;
+      bar_wait(bars, u & 1);
+      if (u == 0 || reload) bar_wait(bars + 8, u & 1);
+      split_pass<WHALF>(hi, lo, t);  // the warpgroup's tensor: hi, lo
+      fence_async_smem();
+      named_sync(2 + wg, WG);
+      float part[WRS / 2];
+      contract(part, desc(smem_addr(hi)), desc(smem_addr(lo)));
+#pragma unroll
+      for (int i = 0; i < WRS / 2; ++i)
+        sc[i] = k == 0 ? part[i] : sc[i] + part[i];
+      // the block is done with the fixed slices and the stage's products
+      // (and with the last tile's gradients); item u + 1 comes into the
+      // stage here if it is of this tile, else under the exchange
+      named_sync(1, WT);
+      if (tid == 0 && reload && u + 1 < total)
+        load_fixed(slice((u + 1) % items));
+      if ((tid & 31) == 0 && k + 1 < items) load_copy(u + 1, tid >> 5);
+      __syncwarp();
     }
 
-    // acc1 += dS S1[:, sub]; dK/dV: acc2 += P S2[:, sub]
-    grad_mma<WRS>(acc1, dp, t1, sm + TLO, 0, g, c);
-    if constexpr (DKV)
-      grad_mma<WRS>(acc2, sc, t1 + WTILE, sm + TLO + WTILE, 0, g, c);
-    __syncthreads();  // no warp reads the tile stage any more
-    if (tid == 0 && j + WTST < tiles) load_tile(j + WTST);
+    // the partials into the block's shared memory, S's then dP's, in the
+    // accumulator's order (unit 2 (i2 * 128 + t) + e: elements 4 i2 + 2 e
+    // and + 1); while the cluster barrier completes, the gradients' slice
+    // transposed, then the next tile's first item into the stage, a copy a
+    // warp, behind the exchange and the gradients
+    float4* pw = reinterpret_cast<float4*>(sm + WPART + wg * WMAT);
+#pragma unroll
+    for (int i2 = 0; i2 < WRS / 8; ++i2)
+      pw[i2 * WG + t] = make_float4(sc[4 * i2], sc[4 * i2 + 1],
+                                    sc[4 * i2 + 2], sc[4 * i2 + 3]);
+    cluster_arrive();
+    transpose_t(sm + WSTG + (DKV ? wg : 0) * WHALF,
+                sm + WLO + (DKV ? wg : 0) * WHALF, th, th + WTB, t,
+                DKV ? 0 : 4 * wg, DKV ? WRS / 4 : 4 * wg + 4);
+    fence_async_smem();  // before the gradients' wgmma read it
+    named_sync(1, WT);
+    if ((tid & 31) == 0 && u < total) load_copy(u, tid >> 5);
     __syncwarp();
-  }
+    cluster_wait();
 
-  const int row = r0 + warp * 16 + g, col = sub * 64;
-  store_f32(static_cast<float*>(p.g1) + b * p.g1_b + h * p.g1_h +
-                row * p.g1_n + col,
-            p.g1_n, acc1, c);
-  if constexpr (DKV)
-    store_f32(static_cast<float*>(p.g2) + b * p.g2_b + h * p.g2_h +
-                  row * p.g2_n + col,
-              p.g2_n, acc2, c);
+    // the block's units [lo_u, hi_u), one a thread: the cs partials added
+    // in rank order, then P and dS
+    const float* st = DKV ? stats + (j & 1) * 3 * WRS : stats;
+    const int lo_u = rank * WU / cs, hi_u = (rank + 1) * WU / cs;
+    for (int x = lo_u + tid; x < hi_u; x += WT) {
+      const uint32_t at = base + WPART + 8 * x;
+      float2 sq[WCLUSTER], dq[WCLUSTER];  // all loads before the adds
+#pragma unroll
+      for (int q = 0; q < WCLUSTER; ++q)
+        if (q < cs) {
+          sq[q] = ld_cluster(at, q);
+          dq[q] = ld_cluster(at + WMAT, q);
+        }
+      float2 sv = sq[0], dv = dq[0];
+#pragma unroll
+      for (int q = 1; q < WCLUSTER; ++q)
+        if (q < cs) {
+          sv = make_float2(sv.x + sq[q].x, sv.y + sq[q].y);
+          dv = make_float2(dv.x + dq[q].x, dv.y + dq[q].y);
+        }
+      // unit x holds elements 4 (x / 256) + 2 (x & 1) and + 1 of
+      // accumulator thread (x / 2) % 128: row row0, columns col0 and + 1
+      const int wt = (x >> 1) & (WG - 1);
+      const int row0 = 16 * (wt >> 5) + ((wt & 31) >> 2) + 8 * (x & 1),
+                col0 = 8 * (x >> 8) + 2 * (wt & 3);
+      const float sa[2] = {sv.x, sv.y}, da[2] = {dv.x, dv.y};
+      float pa[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // dK/dV: the streamed (q) row is the column; dQ: the fixed row
+        const int r = DKV ? col0 + e : row0;
+        const float mm = st[r];
+        const float iv = DKV ? 1.f / st[WRS + r] : st[ROWS + r];
+        const float dd = DKV ? st[2 * WRS + r] : st[2 * ROWS + r];
+        pa[e] = exp_ftz(__fmul_rn(sa[e], p.scale) - mm) * iv;
+        ds[e] = (da[e] - dd) * pa[e] * p.scale;
+      }
+      float2* fw = reinterpret_cast<float2*>(sm + WFIN);
+      fw[x] = make_float2(pa[0], pa[1]);
+      fw[WU + x] = make_float2(ds[0], ds[1]);
+    }
+    cluster_sync();
+
+    // the gradients by wgmma m64nGNk8 .tf32, P^T or dS^T from registers
+    // (its contraction index permuted as the transposed slice's positions)
+    // on the transposed slice: dK/dV, warpgroup 0 dK += dS^T S1 and 1 dV
+    // += P^T S2; dQ, dQ += dS S1 at the warpgroup's 64 columns. The tile's
+    // 12 products are summed by the tensor cores from 0 and added to the
+    // gradient in fp32.
+    if (gs < w.n) {
+      const uint32_t src =
+          base + WFIN + (DKV && wg == 1 ? 0 : WMAT);  // P or dS
+      float v[WRS / 2];
+#pragma unroll
+      for (int i2 = 0; i2 < WRS / 4; ++i2) {  // elements 2 i2 and + 1
+        const int x = 2 * ((i2 >> 1) * WG + t) + (i2 & 1);
+        const float2 y = ld_cluster(src + 8 * x, ((x + 1) * cs - 1) / WU);
+        v[2 * i2] = y.x;
+        v[2 * i2 + 1] = y.y;
+      }
+      uint32_t ah[WRS / 8][4], al[WRS / 8][4];
+#pragma unroll
+      for (int kk = 0; kk < WRS / 8; ++kk) {
+        split_tf32(v[4 * kk], ah[kk][0], al[kk][0]);
+        split_tf32(v[4 * kk + 2], ah[kk][1], al[kk][1]);
+        split_tf32(v[4 * kk + 1], ah[kk][2], al[kk][2]);
+        split_tf32(v[4 * kk + 3], ah[kk][3], al[kk][3]);
+      }
+      float part[GN / 2];
+      hold(ah);
+      hold(al);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < WRS / 8; ++kk) {
+        mma_tf32<GN>(part, ah[kk], gtl + kk * 2, kk > 0);
+        mma_tf32<GN>(part, al[kk], gth + kk * 2, 1);
+        mma_tf32<GN>(part, ah[kk], gth + kk * 2, 1);
+      }
+      wg_commit();
+      wg_wait<0>();
+      hold(part);
+      hold(ah);
+      hold(al);
+#pragma unroll
+      for (int i = 0; i < GN / 2; ++i) acc[i] += part[i];
+    }
+  }
+  cluster_sync();  // no block of the cluster reads this one's units now
+
+  if (gs < w.n) {  // rows 16 warp + g and + 8, columns 8 q + 2 c and + 1
+    const bool second = DKV && wg == 1;  // dV
+    const long long n_stride = second ? p.g2_n : p.g1_n;
+    float* out = (second ? static_cast<float*>(p.g2) + b * p.g2_b +
+                               h * p.g2_h
+                         : static_cast<float*>(p.g1) + b * p.g1_b +
+                               h * p.g1_h) +
+                 (r0 + 16 * warp + g) * n_stride + WC * gs +
+                 (DKV ? 0 : GN * wg) + 2 * c;
+#pragma unroll
+    for (int q = 0; q < GN / 8; ++q)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        *reinterpret_cast<float2*>(out + r * 8 * n_stride + 8 * q) =
+            make_float2(acc[4 * q + 2 * r], acc[4 * q + 2 * r + 1]);
+  }
+}
+
+// The fp32 wide kernel's launch at a shape with `fixed` fixed rows: its
+// grid (a cluster of cs blocks along Dh for each fixed tile and pass), two
+// warpgroups a block, its shared memory, on stream `st`.
+inline void wide_f32_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& at,
+                            int fixed, int B, int H, int D, cudaStream_t st) {
+  const WidePlan w = wide_plan(D);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(fixed / ROWS * w.rounds * w.cs, H, B);
+  cfg.blockDim = dim3(WT);
+  cfg.dynamicSmemBytes = smem_wide_f32();
+  cfg.stream = st;
+  at.id = cudaLaunchAttributeClusterDimension;
+  at.val.clusterDim.x = w.cs;
+  at.val.clusterDim.y = 1;
+  at.val.clusterDim.z = 1;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
 }
 
 // Blocks of the kernel `fn` that fit on one SM with `smem` bytes of shared
 // memory, as the occupancy API counts them from its registers, threads and
 // shared memory; -1 if refused.
 template <typename Fn>
-int occupancy(Fn fn, int smem) {
+int occupancy(Fn fn, int smem, int threads = WG) {
   int n = -1;
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, WG, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads, smem) !=
           cudaSuccess)
     return -1;
   return n;
@@ -1222,7 +1488,7 @@ template <bool DKV>
 int blocks_per_sm_wide(int dtype) {
   return dtype == 0
              ? occupancy(flash_bwd_wide_bf16<DKV>, smem_wide_bf16<DKV>())
-             : occupancy(flash_bwd_wide_f32<DKV>, smem_wide_f32<DKV>());
+             : occupancy(flash_bwd_wide_f32<DKV>, smem_wide_f32(), WT);
 }
 
 // The four TMA maps: fixed tiles of 64 rows, streamed tiles of `rs` rows,
@@ -1281,8 +1547,9 @@ int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dh a multiple of 128 from 384 up: streamed tiles of 64 rows in bf16, 32
-// in fp32
+// Dh a multiple of 128 from 384 up: bf16, streamed tiles of 64 rows and a
+// block for each 64 gradient columns; fp32, streamed tiles of WRS rows on
+// clusters along Dh
 template <bool DKV>
 int launch_wide(int dtype, int B, int H, int D, const Params& p,
                 cudaStream_t st) {
@@ -1292,15 +1559,26 @@ int launch_wide(int dtype, int B, int H, int D, const Params& p,
   tp.p = p;
   if (!maps<DKV>(tp, D, B, H, dtype == 0 ? 2 : 4, dtype == 0 ? ROWS : WRS))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((DKV ? p.n_kv : p.n_q) / ROWS * (D / 64), H, B);
-  const int smem =
-      dtype == 0 ? smem_wide_bf16<DKV>() : smem_wide_f32<DKV>();
-  void (*fn)(TmaParams, int) =
-      dtype == 0 ? flash_bwd_wide_bf16<DKV> : flash_bwd_wide_f32<DKV>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  fn<<<grid, WG, smem, st>>>(tp, D);
+  const int fixed = DKV ? p.n_kv : p.n_q;
+  cudaError_t e;
+  if (dtype == 0) {
+    e = cudaFuncSetAttribute(flash_bwd_wide_bf16<DKV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_wide_bf16<DKV>());
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_bwd_wide_bf16<DKV><<<dim3(fixed / ROWS * (D / 64), H, B), WG,
+                               smem_wide_bf16<DKV>(), st>>>(tp, D);
+  } else {
+    e = cudaFuncSetAttribute(flash_bwd_wide_f32<DKV>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem_wide_f32());
+    if (e != cudaSuccess) return static_cast<int>(e);
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute at;
+    wide_f32_config(cfg, at, fixed, B, H, D, st);
+    e = cudaLaunchKernelEx(&cfg, flash_bwd_wide_f32<DKV>, tp, D);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1321,12 +1599,29 @@ int dispatch(int dtype, int B, int H, int D, const Params& p,
 }
 
 // How the bf16 (dtype 0) or fp32 kernel runs at this shape: plan[0] the
-// blocks it launches, plan[1] its blocks an SM (-1 if refused)
+// blocks it launches, plan[1] its blocks an SM (-1 if refused), plan[2] the
+// blocks of its clusters (1: no cluster), plan[3] the clusters that fit on
+// the card at once (cudaOccupancyMaxActiveClusters; 0: no cluster)
 template <bool DKV>
 int plan_for(int dtype, int D, int B, int H, int n_q, int n_kv, int* plan) {
   if (dtype != 0 && dtype != 1) return -1;
+  const int fixed = DKV ? n_kv : n_q;
+  plan[0] = fixed / ROWS * (D / 64) * H * B;
+  plan[2] = 1;
+  plan[3] = 0;
   if (wide(D)) {
     plan[1] = blocks_per_sm_wide<DKV>(dtype);
+    if (dtype == 1) {  // the cluster kernel: its own grid
+      cudaLaunchConfig_t cfg;
+      cudaLaunchAttribute at;
+      wide_f32_config(cfg, at, fixed, B, H, D, nullptr);
+      plan[0] = static_cast<int>(cfg.gridDim.x * cfg.gridDim.y *
+                                 cfg.gridDim.z);
+      plan[2] = static_cast<int>(at.val.clusterDim.x);
+      if (cudaOccupancyMaxActiveClusters(&plan[3], flash_bwd_wide_f32<DKV>,
+                                         &cfg) != cudaSuccess)
+        plan[3] = -1;
+    }
   } else {
     switch (D) {
       case 64: plan[1] = blocks_per_sm<64, DKV>(dtype); break;
@@ -1335,7 +1630,6 @@ int plan_for(int dtype, int D, int B, int H, int n_q, int n_kv, int* plan) {
       default: return -1;
     }
   }
-  plan[0] = (DKV ? n_kv : n_q) / ROWS * (D / 64) * H * B;
   return 0;
 }
 
@@ -1382,8 +1676,10 @@ extern "C" int flash_attention_bwd_dq_launch(
 }
 
 // How the bf16 (dtype 0) or fp32 dK/dV (dkv != 0) or dQ kernel runs at
-// this shape: plan[0] the blocks it launches, plan[1] its blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused).
+// this shape, four ints: plan[0] the blocks it launches, plan[1] its blocks
+// an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused),
+// plan[2] its cluster's blocks (1 without a cluster), plan[3] its clusters
+// resident at once (cudaOccupancyMaxActiveClusters, 0 without a cluster).
 extern "C" int flash_attention_bwd_plan(int dkv, int dtype, int D, int B,
                                         int H, int n_q, int n_kv,
                                         int* plan) {

@@ -1,8 +1,9 @@
 // Device and host helpers shared by the flash-attention sources
 // (flash_attention.cu, flash_attention_bwd.cu), each included once per
-// library: bf16 packing, the mbarrier, TMA and wgmma primitives of Hopper
-// (sm_90a), the split-TF32 (3xTF32) pieces of the fp32 kernels, and the
-// host-side TMA tensor map of a tensor in the JAX layout.
+// library: bf16 packing, the mbarrier, TMA, thread-block cluster and wgmma
+// primitives of Hopper (sm_90a), the split-TF32 (3xTF32) pieces of the
+// fp32 kernels, and the host-side TMA tensor map of a tensor in the JAX
+// layout.
 
 #pragma once
 
@@ -80,6 +81,54 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n"
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// ---- thread-block clusters ----
+// This block's rank in its cluster and the cluster's block count.
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t cluster_blocks() {
+  uint32_t n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;\n" : "=r"(n));
+  return n;
+}
+
+// The cluster barrier, every thread of every block: after the wait, this
+// thread's writes to shared memory before its arrival are seen by every
+// read in the cluster. Work between the two is not ordered by it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// 8 bytes at the shared-memory address `addr` (this block's layout) of the
+// cluster's block `rank`, through distributed shared memory.
+__device__ __forceinline__ float2 ld_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t remote;
+  float2 v;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote) : "r"(addr), "r"(rank));
+  asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
+  return v;
+}
+
+// The named barrier `id` of `count` threads (ids 1 up; 0 is
+// __syncthreads's).
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
 }
 
 // wgmma's descriptor of an operand in shared memory in the 128-byte
@@ -223,7 +272,7 @@ __device__ __forceinline__ void split_pass(unsigned char* hi,
 // d (64 x N, fp32) = a b^T (+ d if `accumulate`), tf32 in: a (64 x 8) from
 // registers (a warp's rows 16 warp + g and + 8, columns c and c + 4, in
 // that order: g = lane / 4, c = lane % 4), b (N x 8) K-major in shared
-// memory (wgmma takes no transposed tf32 operand). N is 16, 32 or 64.
+// memory (wgmma takes no transposed tf32 operand). N is 16, 32, 64 or 128.
 template <int N>
 __device__ __forceinline__ void mma_tf32(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b,
@@ -264,6 +313,32 @@ __device__ __forceinline__ void mma_tf32<64>(float (&d)[32],
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " FLASH_D32
       ", {%32, %33, %34, %35}, %36, acc, 1, 1;\n}\n"
       : FLASH_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+#define FLASH_ACC64(d)                                                   \
+  FLASH_ACC32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),       \
+      "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),       \
+      "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),       \
+      "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),       \
+      "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
+      "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
+      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+template <>
+__device__ __forceinline__ void mma_tf32<128>(float (&d)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "
+      "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, acc, 1, "
+      "1;\n}\n"
+      : FLASH_ACC64(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 

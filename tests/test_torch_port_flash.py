@@ -467,10 +467,13 @@ def test_flash_source_is_hand_written(name, case):
     FMA loop in the fp32 kernels and no cp.async left; each with one
     template instance per head dim of `HEAD_DIMS` and, for every other
     head dim the wrapper admits (multiples of 128 from 384 up), one wide
-    kernel a dtype that takes the head dim at run time; no library on the
-    route and no atomics. A source is read together with the local headers
-    it includes, and its own text calls their wgmma, TMA and mbarrier
-    helpers."""
+    kernel a dtype that takes the head dim at run time; the fp32 wide
+    backward on thread-block clusters along Dh, each block contracting its
+    own 128-column slice once and the partials of S and dP exchanged
+    through distributed shared memory between cluster barriers; no library
+    on the route and no atomics. A source is read together with the local
+    headers it includes, and its own text calls their wgmma, TMA and
+    mbarrier helpers."""
     source = cuda_build.KERNELS[name][0]
     code = source.read_text()
     own = re.sub(r"//[^\n]*", "", code)
@@ -501,16 +504,21 @@ def test_flash_source_is_hand_written(name, case):
         for helper in ("mma_tf32<64>(", "split_vt<RS>(", "split_vt<64>("):
             assert helper in own, helper
     else:  # the gradients by mma.sync; wgmma from registers above Dh 128
-        for helper in ("mma_tf32<RS>(", "mma_tf32_m16n8(", "grad_mma<WRS>("):
+        for helper in ("mma_tf32<RS>(", "mma_tf32_m16n8(", "grad_mma<RS>(",
+                       "mma_tf32<GN>(", "transpose_t("):
             assert helper in own, helper
-        assert "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32" in code
+        for n in (16, 128):
+            assert f"wgmma.mma_async.sync.aligned.m64n{n}k8.f32.tf32.tf32" \
+                in code
         assert "fmaf(" not in own
     for kernel in ("f32", "wide_f32"):  # no FMA loop in any fp32 kernel
         args = "tp" if kernel == "f32" else "tp, int D"
         fp32 = re.search(rf"{stem}_{kernel}\(const __grid_constant__ "
                          rf"TmaParams {args}\) \{{.*?\n\}}\n", own, re.S)
         assert fp32 and "fmaf(" not in fp32.group(0), kernel
-        assert "mma_tf32_ss(" in fp32.group(0) and "split_tf32(" in code
+        # wgmma .tf32, both operands from shared memory or A from registers
+        assert re.search(r"mma_tf32(_ss\(|<)", fp32.group(0)), kernel
+        assert "split_tf32(" in code
     assert "cp_async" not in code and "cp.async.cg" not in code
     ops = re.sub(r"//[^\n]*", "", code).lower()  # without the comments
     assert not re.search(r"\b(atomic|atom\.|red\.)", ops)
@@ -527,7 +535,27 @@ def test_flash_source_is_hand_written(name, case):
     for dtype in ("bf16", "f32"):
         assert re.search(rf"{stem}_wide_{dtype}\(const __grid_constant__ "
                          r"TmaParams tp, int D\)", own), dtype
-    assert own.count("const int nc = D / 64;") == 2  # one a wide kernel
+    # one a wide kernel that streams S over Dh in 64-column chunks: both of
+    # the forward's; of the backward's only the bf16 pair
+    assert own.count("const int nc = D / 64;") == (
+        2 if name == "flash_attention" else 1)
+    if name != "flash_attention":
+        # the fp32 wide pair: a cluster of blocks along Dh, each contracting
+        # its own 128-column slice once a streamed tile (no loop over every
+        # chunk of Dh), the partials added through distributed shared
+        # memory between cluster barriers, launched with the cluster's size
+        wide32 = re.search(r"flash_bwd_wide_f32\(const __grid_constant__ "
+                           r"TmaParams tp, int D\) \{.*?\n\}\n", own, re.S)
+        body = wide32.group(0)
+        for helper in ("cluster_rank()", "cluster_sync();", "ld_cluster(",
+                       "contract(", "mma_tf32<GN>(", "transpose_t("):
+            assert helper in body, helper
+        assert not re.search(r"D / (32|64)", body)
+        for op in ("barrier.cluster.arrive.release", "barrier.cluster.wait",
+                   "mapa.shared::cluster", "ld.shared::cluster",
+                   "cudaLaunchAttributeClusterDimension",
+                   "cudaLaunchKernelEx(", "cudaOccupancyMaxActiveClusters("):
+            assert op in code, op
     csrc = cuda_build.KERNELS[name][0].parent
     assert {p.name for p in csrc.glob("*.cu")} == {
         s.name for s, _, _ in cuda_build.KERNELS.values()}

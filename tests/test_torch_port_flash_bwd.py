@@ -183,16 +183,38 @@ def test_plain_backward_matches_pallas_kernels(case, dtype, calls):
 
 # -- the fp32 kernels' arithmetic: split TF32 -----------------------------------
 
+def _contract(a, b, passes):
+    """a bᵀ over Dh, as the fp32 kernels sum S and dP: in one sum at the
+    template instances' head dims; at the wide head dims the way the wide
+    kernels' clusters sum them (csrc/flash_attention_bwd.cu): Dh in slices
+    of 128 columns, one a block; a slice's partial is two chains of
+    products, its 32-column boxes 0 and 2 and its boxes 1 and 3, each
+    summed apart and the two added; the slices' partials added in slice
+    order (Dh up to 1024, one pass of clusters)."""
+    D = a.shape[-1]
+    if not fa.wide_head_dim(D):
+        return mm_split(a, b.transpose(-1, -2), passes)
+    total = None
+    for s0 in range(0, D, 128):
+        chains = [torch.cat([torch.arange(s0 + 32 * x, s0 + 32 * x + 32)
+                             for x in boxes]) for boxes in ((0, 2), (1, 3))]
+        part = sum(mm_split(a[..., cols], b[..., cols].transpose(-1, -2),
+                            passes) for cols in chains)
+        total = part if total is None else total + part
+    return total
+
+
 def _split_tf32_backward(q, k, v, o, l, m, do, scale, passes=3):
     """The plain backward's steps (fp32, one block) with every product in
     split TF32: S, dP, dV, dK and dQ; p and ds enter their products as
-    fp32 values, split like every other operand."""
+    fp32 values, split like every other operand; S and dP summed over Dh
+    as the kernels sum them (`_contract`)."""
     qf, kf, vf, dof = (t.transpose(1, 2) for t in (q, k, v, do))
     di = fa._di(o, do)[..., None]
-    s = mm_split(qf, kf.transpose(-1, -2), passes) * scale
+    s = _contract(qf, kf, passes) * scale
     p = torch.exp(s - m[..., None]) * (1 / l)[..., None]
     dv = mm_split(p.transpose(-1, -2), dof, passes)
-    dp = mm_split(dof, vf.transpose(-1, -2), passes)
+    dp = _contract(dof, vf, passes)
     ds = (dp - di) * p * scale
     dk = mm_split(ds.transpose(-1, -2), qf, passes)
     dq = mm_split(ds, kf, passes)
@@ -216,14 +238,17 @@ def test_tf32_rounding_keeps_ten_mantissa_bits():
     assert float(((hi + lo - y).abs() / y.abs()).max()) <= 2.0 ** -22
 
 
-@pytest.mark.parametrize("shape", [(1, 256, 256, 2, 64), (1, 256, 256, 1, 128)],
+@pytest.mark.parametrize("shape", [(1, 256, 256, 2, 64), (1, 256, 256, 1, 128),
+                                   (1, 256, 256, 1, 384)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_split_tf32_backward_matches_pallas_kernels(shape, calls):
     """The fp32 kernels' arithmetic, emulated on the CPU: the plain
     backward's steps with every product in split TF32 (three TF32 products
-    summed in fp32) hold the JAX package's Pallas backward at the fp32 bar
-    (1e-5 of each gradient's peak), where one TF32 product alone does not;
-    the forward's l and m are the plain forward's."""
+    summed in fp32) and, at a wide head dim, S and dP summed slice by slice
+    as the wide kernels' clusters sum them, hold the JAX package's Pallas
+    backward at the fp32 bar (1e-5 of each gradient's peak), where one TF32
+    product alone does not; the forward's l and m are the plain
+    forward's."""
     arrays = _arrays(shape, seed=sum(shape) + 1)
     scale = shape[-1] ** -0.5
     want = _jax_vjp(arrays, jnp.float32, scale)
