@@ -10,8 +10,9 @@ Phases, each printing one line of its own; any failure exits non-zero:
              (both include composite_common.cuh), flash_attention.cu
              (6 template instances: bf16 and fp32, Dh 64/128/256, and 2
              wide kernels, bf16 and fp32, that take every multiple of 128
-             from Dh 384 up at run time; all on the tensor cores, fp32 in
-             split TF32) and flash_attention_bwd.cu (the dK/dV and dQ
+             from Dh 384 up at run time, on thread-block clusters along
+             Dh; all on the tensor cores, fp32 in split TF32) and
+             flash_attention_bwd.cu (the dK/dV and dQ
              kernels, 12 template instances and 4 wide kernels, the fp32
              ones on thread-block clusters along Dh), with nvcc
              (sm_90a), one nvcc a source, started together
@@ -267,13 +268,16 @@ Phases, each printing one line of its own; any failure exits non-zero:
              128 with v strided), every fp32 row with its residuals l and
              m within 1e-5 of the plain version's; the wide kernels in bf16
              and fp32 with their residuals at Dh 384 and 512 (B1 n_q 256
-             n_kv 512 H4), B1 N768 H8 Dh 512 and B1 n_q 256 n_kv 512 H2
-             Dh 1024; each timed (`ms`,
+             n_kv 512 H4), B1 N768 H8 Dh 512, B1 n_q 256 n_kv 512 H2
+             Dh 1024 and B1 n_q 256 n_kv 512 H1 Dh 1152 (the clusters'
+             passes above Dh 1024); each timed (`ms`,
              `call_ms`) beside the plain version, SDPA on the same inputs
              (`library_ms`) and the bound (in fp32 the faster of the fp32
              pipes and split TF32 on the tensor cores), with its blocks,
              blocks an SM (the occupancy API), waves and ptxas registers
-             (`flash_attention_plan`); held, untimed, with its residuals,
+             (`flash_attention_plan`; for the wide kernels also the
+             cluster's blocks and the clusters resident at once, the
+             waves counted over those); held, untimed, with its residuals,
              at the scales 0.1 and -0.125 in bf16 and fp32
              (`[flash-scale]`); `auto` picks the kernel at N4096 and SDPA
              at N768; `attend` routed as the JAX package routes it
@@ -366,13 +370,15 @@ where the two builds differ and, for the fp32 wide pair, whether it is
 faster at every row and its sum over the parent's (`[compare-flash-bwd]`);
 where it holds a `flash_attention.cu`,
 it builds that too and, after phase 7c, times its forward in turns with
-this checkout's at every bf16 Dh-64 shape and every fp32 shape of 7c,
-median of 7 rounds, with both `call_ms` and, in bf16, the count of output
-elements where the two differ, in fp32 their largest difference
-(`[compare-flash]`). Each set of sources is compared only where DIR holds
-it. nvcc compiles DIR's sources in DIR: a header that they include
-(`composite_common.cuh`, or `flash_common.cuh` for the flash sources of
-this checkout and later) must be put there too.
+this checkout's at every bf16 Dh-64 shape, every fp32 shape and every
+wide row (both dtypes) of 7c, median of 7 rounds, with both `call_ms` and,
+in bf16, the count of output elements where the two differ, in fp32 their
+largest difference, and whether the wide forward is faster at B1 N768 H8
+Dh 512 in both dtypes and at every fp32 wide row (`[compare-flash]`).
+Each set of sources is compared only where DIR holds it. nvcc compiles
+DIR's sources in DIR: a header that they include (`composite_common.cuh`,
+or `flash_common.cuh` for the flash sources of this checkout and later)
+must be put there too.
 
 With `--wide-from-128` it also builds this checkout's two flash sources
 again with `-DFLASH_WIDE_FROM=128`, where the wide kernels take Dh 128 and
@@ -2663,6 +2669,12 @@ FLASH_WIDE_SHAPES = tuple(
         ("dh512 B1 Nq256 Nkv512 H4", 256, 512, 4, 512),
         ("dh512n768 B1 N768 H8", 768, 768, 8, 512),
         ("dh1024 B1 Nq256 Nkv512 H2", 256, 512, 2, 1024)))
+# above Dh 1024 the wide kernels run passes of clusters, each block
+# contracting slices in turn (n = 9 slices: 2 passes of 5 blocks), both
+# dtypes; 7c holds the forward there, 7d the fp32 pair
+FLASH_WIDE_PASS_SHAPES = tuple(
+    (f"{tag}_dh1152 B1 Nq256 Nkv512 H1", 1, 256, 512, 1, 1152, dt, False)
+    for tag, dt in (("bf16", "bfloat16"), ("fp32", "float32")))
 FLASH_WIDE_HEAD = "bf16_dh512n768 B1 N768 H8"  # their row in the JSON line
 # the kernel against its plain version: two bf16 steps of the output's peak
 # (both round p to bf16, against running maxima over 64 and 128 kv rows,
@@ -2742,7 +2754,7 @@ def _flash_held(torch, fl, q, k, v, scale, what, timed=True):
 
 
 # the ctypes argument types of the plan entry points: flash_attention_plan
-# (dtype, D, B, H, n_q, plan[2]) and flash_attention_bwd_plan (dkv, dtype,
+# (dtype, D, B, H, n_q, plan[4]) and flash_attention_bwd_plan (dkv, dtype,
 # D, B, H, n_q, n_kv, plan[4]), dtype 0 bf16 and 1 fp32;
 # tests/test_torch_port_flash.py holds them against the C signatures
 FLASH_PLAN_ARGTYPES = {
@@ -2756,9 +2768,11 @@ FLASH_PLAN_ARGTYPES = {
 def _flash_plans(torch, so, log):
     """plan(dtype, B, n_q, H, D) → how the bf16 or fp32 (dtype "bfloat16"
     or "float32") forward of the library `so` runs at that shape: the
-    blocks it launches, its blocks an SM (the occupancy API), the waves
-    over the card's SMs and its registers (from the library's ptxas log
-    `log`)."""
+    blocks it launches, its blocks an SM (the occupancy API), its
+    cluster's blocks (1 without one) and the clusters resident at once
+    (cudaOccupancyMaxActiveClusters, 0 without), the waves (over the
+    card's SMs, or over the resident clusters), its registers and spill
+    bytes (from the library's ptxas log `log`)."""
     fn = ctypes.CDLL(str(so)).flash_attention_plan
     fn.argtypes = FLASH_PLAN_ARGTYPES["flash_attention_plan"]
     fn.restype = ctypes.c_int
@@ -2767,15 +2781,20 @@ def _flash_plans(torch, so, log):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def plan(dtype, B, n_q, H, D):
-        out = (ctypes.c_int * 2)()
+        out = (ctypes.c_int * 4)()
         fp32 = dtype == "float32"
         assert fn(int(fp32), D, B, H, n_q, out) == 0
         kind = "f32" if fp32 else "bf16"
         key = (f"flash_fwd_wide_{kind}E" if wide_head_dim(D)
                else f"flash_fwd_{kind}ILi{D}EE")
-        return dict(blocks=out[0], blocks_per_sm=out[1],
-                    registers=_registers(log, key),
-                    waves=out[0] / (sms * out[1]), sms=sms)
+        regs, spill_st, spill_ld = _ptxas_kernel(log, key)
+        blocks, per_sm, cluster, clusters = out
+        assert per_sm > 0 and clusters >= 0, list(out)
+        return dict(blocks=blocks, blocks_per_sm=per_sm, cluster=cluster,
+                    max_active_clusters=clusters, registers=regs,
+                    spill_stores=spill_st, spill_loads=spill_ld,
+                    waves=(blocks / cluster / clusters if clusters
+                           else blocks / (sms * per_sm)), sms=sms)
 
     return plan
 
@@ -2812,7 +2831,7 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
     shapes = {}
     for label, B, nq, nk, nh, D, dt_name, strided in (
             FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES
-            + FLASH_WIDE_SHAPES):
+            + FLASH_WIDE_SHAPES + FLASH_WIDE_PASS_SHAPES):
         dt = getattr(torch, dt_name)
         # with `strided`, v as Attention hands it over (n_kv rows)
         q, k, v, _ = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D, dt,
@@ -2837,7 +2856,10 @@ def _flash_phase(torch, root, cr, fl, layers, device="cuda"):
             f"call_ms {h['call_ms']:.4f}, plain {h['plain_ms']:.3f} ms, SDPA "
             f"{h['library_ms']:.4f} ms | bound {h['bound_ms']:.4f} ms by "
             f"{h['bound_by']} | {g['blocks']} blocks, {g['blocks_per_sm']} "
-            f"an SM, {g['waves']:.2f} waves, {g['registers']} registers | "
+            f"an SM"
+            + (f", clusters of {g['cluster']}, {g['max_active_clusters']} "
+               f"resident" if g["cluster"] > 1 else "")
+            + f", {g['waves']:.2f} waves, {g['registers']} registers | "
             f"{smi}")
 
     # scales that are not 1/sqrt(64): not a power of two, and negative (the
@@ -3189,10 +3211,8 @@ FLASH_BWD_SHAPES = (
     + tuple((f"bf16_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d,
              "bfloat16", d == 128) for d in (128, 256))
     + FLASH_FP32_SHAPES[2:] + FLASH_WIDE_SHAPES
-    # above Dh 1024 the fp32 wide pair runs passes of clusters, each block
-    # contracting slices in turn (n = 9 slices: 2 passes of 5 blocks)
-    + (("fp32_dh1152 B1 Nq256 Nkv512 H1", 1, 256, 512, 1, 1152, "float32",
-        False),))
+    # the fp32 wide pair's passes of clusters
+    + FLASH_WIDE_PASS_SHAPES[1:])
 # the kernels against the plain backward, each gradient's largest error over
 # its peak: two bf16 steps in bf16 (both round p, ds and the gradients to
 # bf16, with fp32 sums in another order: at most 0.52 of it on an H100);
@@ -3279,15 +3299,10 @@ def _ptxas_kernels(log):
     return out
 
 
-def _registers(log, key):
-    """ptxas registers of the one kernel of `log` whose mangled name holds
-    `key` (e.g. `flash_fwd_bf16ILi64EE`, `flash_bwd_wide_f32ILb1EE`)."""
-    return _ptxas_kernel(log, key)[0]
-
-
 def _ptxas_kernel(log, key):
     """(registers, spill store bytes, spill load bytes) of the one kernel of
-    `log` whose mangled name holds `key`."""
+    `log` whose mangled name holds `key` (e.g. `flash_fwd_bf16ILi64EE`,
+    `flash_bwd_wide_f32ILb1EE`)."""
     (r,) = [tuple(r) for k, *r in _ptxas_kernels(log) if key in k]
     return r
 
@@ -3911,9 +3926,10 @@ def _in_turns(torch, runs, rounds, **device_ms_kw):
 def _compare_flash_with_parent(torch, fl, parent, rounds=7):
     """Build the flash_attention.cu found in `parent` into a library of its
     own and time its forward in turns with this checkout's at every bf16
-    Dh-64 shape and every fp32 shape of 7c → {shape: {dtype, ms: (parent
-    ms, this checkout's ms), call_ms: (...), differ: output elements where
-    the two builds differ, elements, diff: their largest difference}},
+    Dh-64 shape, every fp32 shape and every wide row (both dtypes) of 7c →
+    {shape: {dtype, D, ms: (parent ms, this checkout's ms), call_ms: (...),
+    differ: output elements where the two builds differ, elements, diff:
+    their largest difference}},
     each ms the median over `rounds` of a device-only time of 20 launches.
     Two fp32 builds may differ by twice the fp32 bar (each is held within
     it of the plain version)."""
@@ -3928,8 +3944,9 @@ def _compare_flash_with_parent(torch, fl, parent, rounds=7):
     rng = np.random.default_rng(14)
     runs, found = {}, {}
     for label, B, nq, nk, nh, D, dt, strided in (
-            FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES):
-        if dt == "bfloat16" and D != 64:
+            FLASH_SHAPES + FLASH_STEP_SHAPES + FLASH_FP32_SHAPES
+            + FLASH_WIDE_SHAPES + FLASH_WIDE_PASS_SHAPES):
+        if dt == "bfloat16" and D != 64 and not fl.wide_head_dim(D):
             continue
         q, k, v, _ = _flash_bwd_inputs(torch, rng, B, nq, nk, nh, D,
                                        getattr(torch, dt), strided)
@@ -3941,7 +3958,7 @@ def _compare_flash_with_parent(torch, fl, parent, rounds=7):
         a, b = (fn() for fn in runs[label])
         torch.cuda.synchronize()
         d = (a.float() - b.float()).abs()
-        found[label] = dict(dtype=dt, differ=int((d > 0).sum()),
+        found[label] = dict(dtype=dt, D=D, differ=int((d > 0).sum()),
                             elements=d.numel(), diff=float(d.max()))
         bar = (FLASH_BF16_BAR * float(b.float().abs().max())
                if dt == "bfloat16" else 2 * FLASH_FP32_BAR)
@@ -4858,6 +4875,14 @@ def main(argv=None) -> int:
             os.path.join(args.parent, "flash_attention.cu")):
         found = _compare_flash_with_parent(torch, fl, args.parent)
         faster = all(f["ms"][1] < f["ms"][0] for f in found.values())
+        # the wide forward (redesigned in this checkout's source): faster at
+        # B1 N768 H8 Dh 512 in both dtypes and at every fp32 wide row?
+        wide = {label: f for label, f in found.items()
+                if fl.wide_head_dim(f["D"])}
+        head = FLASH_WIDE_HEAD.split("_", 1)[1]
+        wide_faster = all(f["ms"][1] < f["ms"][0] for label, f in
+                          wide.items() if f["dtype"] == "float32"
+                          or label.endswith(head))
         print("[compare-flash] device ms, the flash_attention.cu in --parent "
               "→ this checkout's, in turns, median of 7 rounds of 20 "
               "launches | " + " | ".join(
@@ -4868,8 +4893,9 @@ def main(argv=None) -> int:
                      if f["dtype"] == "bfloat16" else
                      f"the outputs differ by at most {f['diff']:.1e}")
                   for label, f in found.items())
-              + f" | this checkout's faster at every shape: {faster} | "
-              f"{_smi()}")
+              + f" | this checkout's faster at every shape: {faster}; the "
+              f"wide forward faster at {head} (bf16 and fp32) and at every "
+              f"fp32 wide row: {wide_faster} | {_smi()}")
         results["compare_flash"] = found
 
     # -- 7d. full-finetune training with the mode on -------------------------
@@ -5120,6 +5146,13 @@ def main(argv=None) -> int:
            if fl.wide_head_dim(h["shape"][4])
            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms",
                      "err", "l_err", "m_err")},
+        # how each wide row ran: clusters along Dh
+        **{f"plan_{label.split()[0]}": {
+            k: h["plan"][k] for k in (
+                "cluster", "max_active_clusters", "blocks", "blocks_per_sm",
+                "waves", "registers", "spill_stores", "spill_loads")}
+           for label, h in flash_res["shapes"].items()
+           if fl.wide_head_dim(h["shape"][4])},
         "launches_flash_route": route_res["fwd_launches"],
         "launches_flash_train": ft_wide_fwd,
         "launches_other_phases": 0,

@@ -130,11 +130,14 @@
 // SDPA as the JAX package routes them to einsum). Dh 64, 128 and 256 are
 // template instances of the kernels above, whose tiles span Dh; every
 // multiple of 128 from 384 up runs on one wide kernel a dtype that takes
-// Dh at run time and streams S over it in 64-column chunks (the "wide head
-// dims" section below), so that shared memory does not grow with Dh. The
-// instances stay: on an H100 the wide kernels, built to take Dh 128 and 256
-// too, are slower there at every row timed (chip_smoke.py --wide-from-128;
-// the times in PERF.md).
+// Dh at run time, on a thread-block cluster along Dh: each block holds a
+// 128-column slice of q, k, v and O, the blocks' partials of S are added
+// once through distributed shared memory and the softmax formed once an
+// element by the rows' owners (the "wide head dims" section below), so
+// that shared memory does not grow with Dh and S is computed once a pair
+// of tiles. The instances stay where they are: the wide kernels built to
+// take Dh 128 and 256 too (chip_smoke.py --wide-from-128) measured slower
+// there than the instances (PERF.md).
 
 #include <type_traits>
 
@@ -687,367 +690,888 @@ __global__ void __launch_bounds__(WG, 1)
 // ------------------------------------------------------ wide head dims ----
 
 // Dh a multiple of 128 from 384 up, the head dim at run time: one kernel a
-// dtype. A block owns 64 q rows and 64 output columns, as above (n_q/64 x
-// Dh/64 blocks a head), but no tile spans Dh: S = Q K^T is summed over Dh
-// in chunks of 64 columns, each a pair of 64-column boxes (q's rows, the kv
-// tile's rows) that TMA brings into a ring of its own, and every block of a
-// q tile computes S whole, (Dh/64) times the S work of one block. The
-// block's 64 columns of v come by TMA into a second ring. Each chunk is
-// waited for before the next starts and each stage is refilled once its
-// products have retired: simple, not fast.
-constexpr int WST = 4;   // chunk pairs a ring, bf16
-constexpr int WVST = 2;  // v tiles a ring
+// dtype, on a thread-block cluster along Dh, so that S is computed once for
+// each (q tile, kv tile) (a block for each 64 output columns that
+// contracts S over all of Dh does Dh/64 times the S work: 4.5x the tensor
+// work of a tile at Dh 512).
+//
+// Slices and clusters. Dh is cut into slices of WC = 128 columns, n = Dh /
+// 128 of them. The blocks of one q tile (64 rows) form a cluster of cs = n
+// blocks (up to the portable limit of 8: Dh 1024), block r at slice r: it
+// holds q's slice r (loaded once; in fp32 split hi/lo once), streams the kv
+// tiles' slices r, forms its partial of S over its 128 columns and
+// accumulates O at them. Above Dh 1024 the kernel runs `rounds` = ceil(n /
+// 8) passes of clusters of cs = ceil(n / rounds) blocks a q tile, as the
+// fp32 backward does: block r of pass p writes O at slice r + p cs (none
+// past n) and contracts slices r, r + cs, ... each kv tile, each slice's q
+// and k loaded together into one stage and contracted before the next
+// loads (no overlap there); each pass computes S whole, `rounds` times the
+// least work, which no Dh up to 1024 pays.
+//
+// The exchange, one cluster barrier a tile (barrier.cluster.arrive.release
+// / wait.acquire). Each block owns a fixed 1/cs of the q tile's rows (rows
+// 64 q / cs up to 64 (q + 1) / cs for rank q), a row held by eight "units",
+// halves of what the row's four accumulator threads hold (8 scores a unit
+// in bf16, 4 in fp32), so that every thread of a block owns a unit from cs
+// 4 up (bf16) or 2 up (fp32). Once a barrier has shown every block's
+// partial of tile j (each block writes it to its shared memory in the
+// accumulator's order), the owner of a unit reads the cs partials of its
+// scores through distributed shared memory (mapa once a rank,
+// ld.shared::cluster; up to four ranks' loads before their adds), adds
+// them in rank order, and forms the online softmax once an element: s
+// scale rounded, the row's running max (over its eight units), exp(m_old -
+// m_new), p = exp(s scale - m) and the unit's share of the running sum l,
+// held by the owner across the tiles. It writes p into every block's
+// shared memory (st.shared::cluster) where that block's accumulator thread
+// of those scores reads it, in the form its wgmma takes (bf16 packed as
+// the A fragment; fp32 as it is, split hi/lo by the reader), and the row's
+// rescale factor. The next barrier shows P to every block, which reads its
+// rows' P and rescale factors from its own shared memory and adds P·V at
+// its 128 columns; the same barrier shows tile j + 1's partials, written
+// before it. The partials, P and the rescale factors are double-buffered
+// (by the tile's parity), so that one barrier a tile orders every read
+// before the write that reuses its buffer. So each element of S is summed
+// once, in one order, and every block uses the same bits of p. At the end
+// the owners publish each row's l and m: every block divides its O by l,
+// and rank 0 of the first pass writes l and m. Measured slower on an H100
+// and not kept: every block reading every partial (bf16, one barrier a
+// tile, the softmax formed cs times, cs times the remote bytes;
+// scripts/probe_wide_forward.py builds it and times it beside this one,
+// PERF.md); two barriers a tile (the partials, then P, each read through
+// distributed shared memory after its barrier); owners of whole
+// quarter-rows whose loads are waited for in place.
+//
+// Order. A tile's owner loads are issued right after the barrier that
+// shows its partials and land under the previous tile's P·V issue and the
+// contraction of the tile after it; tile j + 2's contraction is issued
+// after tile j's P·V and runs on the tensor cores under tile j + 1's owner
+// work. A block's contraction is one group of wgmmas a tile: no chunk of
+// Dh is waited for before the next issues. k's slice streams through one
+// stage, refilled as soon as its products retire (it lands under the
+// barrier and the next owner loads); v's through a ring of two, refilled
+// once the P·V that read it has retired (or, in fp32, once it is split
+// transposed). One k stage, not two: in bf16 a second (16 KiB) takes a
+// block to 131,616 bytes, past the 115,712 at which two blocks fit an SM
+// (not tried); in fp32 a second with its lo (32 KiB) does not fit beside
+// the 213,536 bytes.
+//
+// Rounding. bf16: a slice's partial is one wgmma chain (8 k-steps) and the
+// partials are added in fp32 in rank order (above Dh 1024 the block's own
+// slices in one chain). fp32: S is formed as the fp32 wide backward forms
+// it (flash_attention_bwd.cu): a slice's partial is two chains of 24 TF32
+// products (its 32-column boxes 0 and 2, and 1 and 3; one a warpgroup),
+// each summed by the tensor cores from 0, the two added in fp32, and the
+// slices' partials added in rank order, then s scale rounded: the p that
+// the forward sums is the p that the backward recomputes from the same m
+// and l. Above Dh 1024 the orders part: each warpgroup adds its chain's
+// sums over the block's slices r, r + cs, ... in turn, then the owner adds
+// the two chains, where the backward adds each slice's two chains first
+// and takes the slices from the one after its pass; so there the two may
+// form S apart in its last bits (each is held at its bar at Dh 1152,
+// chip_smoke.py 7c and 7d). The softmax's steps are the plain version's:
+// s scale rounded, its row maximum, then exp(s scale - m); O is rescaled
+// by exp(m_old - m_new) each tile and divided by l once.
 
-// 1024 bytes of alignment slack, the pair ring (q box, then k box), the v
-// ring, the barriers (a pair stage each, then a v stage each)
-constexpr int smem_wide_bf16() {
-  return 1024 + WST * 2 * BOX + WVST * BOX + 8 * (WST + WVST);
+// The rank of a cluster of cs that owns row r of the q tile.
+__device__ __forceinline__ int row_owner(int r, int cs) {
+  return ((r + 1) * cs - 1) >> 6;
 }
 
-// The softmax is the fp32 kernel's: s scale rounded, its row maximum, then
-// exp(s scale - m), as the plain version takes them (no sign flip of q).
+// The exchange's buffers, both dtypes, two of each (a tile's parity): the
+// partials (bf16 one chain of 64 x 64 fp32, fp32 two of 64 x 32), P (64
+// rows of 64 bf16 or 32 fp32) and the rows' rescale factors.
+constexpr int WPARTB = 16384, WPB = 8192, WALB = BQ * 4;
+
+// A unit is half of a row's scores as one accumulator thread holds them:
+// unit u of the q tile is row r = u / 8, c = u / 2 % 4 and half i = u % 2,
+// the row's columns 8 nt + 2 c and + 1 for nt = NH i to NH i + NH - 1 (NH:
+// bf16 4, fp32 2): in every block's partial, elements 4 nt + 2 h and + 1 of
+// accumulator thread t = 32 (r / 16) + 4 (r % 8) + c (h = r / 8 % 2), the
+// float2 at (2 nt + h) 128 + t of each chain (bf16 one, fp32 two). Eight
+// lanes in a row hold a row's units.
+template <bool F32>
+struct Unit {
+  static constexpr int NH = F32 ? 2 : 4, CH = F32 ? 2 : 1, RB = 4;
+  static constexpr int CHB = 4 * NH * 128 * 8;  // bytes of a chain's partial
+  using Loads = float2[RB][CH][NH];  // RB ranks' loads before their adds
+};
+
+__device__ __forceinline__ float oct_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(FULL, x, 1));
+  x = fmaxf(x, __shfl_xor_sync(FULL, x, 2));
+  return fmaxf(x, __shfl_xor_sync(FULL, x, 4));
+}
+
+__device__ __forceinline__ float oct_sum(float x) {
+  x += __shfl_xor_sync(FULL, x, 1);
+  x += __shfl_xor_sync(FULL, x, 2);
+  return x + __shfl_xor_sync(FULL, x, 4);
+}
+
+// The unit's scores in the partials (at byte offset `part` of each block's
+// shared memory, whose address is `base`) of ranks q0 to q0 + RB - 1
+// (zeros past cs, and everywhere with `on` false: a thread with no unit,
+// which still takes part in its row's shuffles)
+template <bool F32>
+__device__ __forceinline__ void own_load(typename Unit<F32>::Loads& x,
+                                         uint32_t base, int part, int unit,
+                                         bool on, int cs, int q0) {
+  using U = Unit<F32>;
+  const int r = unit >> 3, c = (unit >> 1) & 3, i = unit & 1;
+  const int t = 32 * (r >> 4) + 4 * (r & 7) + c, h = (r >> 3) & 1;
+#pragma unroll
+  for (int qq = 0; qq < U::RB; ++qq) {
+    const bool here = on && q0 + qq < cs;
+    const uint32_t at =
+        (here ? cluster_map(base, q0 + qq) : 0) + part + (h * 128 + t) * 8;
+#pragma unroll
+    for (int ch = 0; ch < U::CH; ++ch)
+#pragma unroll
+      for (int n = 0; n < U::NH; ++n) {
+        const int nt = U::NH * i + n;
+        x[qq][ch][n] = here ? ld_dsmem(at + ch * U::CHB + nt * 2048)
+                            : make_float2(0.f, 0.f);
+      }
+  }
+}
+
+// One tile's softmax for a unit the block owns, from the loads of ranks 0
+// to RB - 1 (`x`; the others are loaded here): the cs partials added in
+// rank order (fp32: each rank's two chains first), s scale rounded, the
+// row's running max m over its eight lanes, exp(m_old - m_new), p = exp(s
+// scale - m) and the unit's share l of the running sum; p goes to byte
+// offset `pout` of every block of the cluster, the 16-byte piece i of
+// thread t's row half h at ((2 h + i) 128 + t) 16 (bf16 packed pairs, fp32
+// as it is), and the rescale factor to row r at offset `arow`.
+template <bool F32>
+__device__ __forceinline__ void own_finish(const typename Unit<F32>::Loads& x,
+                                           uint32_t base, int part, int pout,
+                                           int arow, int unit, bool on,
+                                           int cs, float scale, float& m,
+                                           float& l) {
+  using U = Unit<F32>;
+  const int r = unit >> 3, c = (unit >> 1) & 3, i = unit & 1;
+  const int t = 32 * (r >> 4) + 4 * (r & 7) + c, h = (r >> 3) & 1;
+  float2 a[U::NH];
+  auto add = [&](const typename Unit<F32>::Loads& y, int q0) {
+#pragma unroll
+    for (int qq = 0; qq < U::RB; ++qq)
+      if (q0 + qq < cs) {
+#pragma unroll
+        for (int n = 0; n < U::NH; ++n) {
+          float2 v = y[qq][0][n];
+          if constexpr (U::CH == 2)
+            v = make_float2(v.x + y[qq][1][n].x, v.y + y[qq][1][n].y);
+          a[n] = q0 + qq == 0 ? v : make_float2(a[n].x + v.x, a[n].y + v.y);
+        }
+      }
+  };
+  add(x, 0);
+#pragma unroll
+  for (int q0 = U::RB; q0 < WCLUSTER; q0 += U::RB)
+    if (q0 < cs) {
+      typename Unit<F32>::Loads y;
+      own_load<F32>(y, base, part, unit, on, cs, q0);
+      add(y, q0);
+    }
+  float s[2 * U::NH], tmax = neg_inf();
+#pragma unroll
+  for (int n = 0; n < U::NH; ++n) {
+    s[2 * n] = __fmul_rn(a[n].x, scale);
+    s[2 * n + 1] = __fmul_rn(a[n].y, scale);
+    tmax = fmaxf(tmax, fmaxf(s[2 * n], s[2 * n + 1]));
+  }
+  const float mn = fmaxf(m, oct_max(tmax));
+  const float alpha = exp_ftz(m - mn);  // 0 on the first tile
+  m = mn;
+  float rs = 0.f;
+#pragma unroll
+  for (int n = 0; n < U::NH; ++n) {
+    const float p0 = exp_ftz(s[2 * n] - m), p1 = exp_ftz(s[2 * n + 1] - m);
+    rs += p0 + p1;
+    s[2 * n] = p0;
+    s[2 * n + 1] = p1;
+  }
+  l = l * alpha + rs;
+  if (!on) return;
+  uint4 v;
+  if constexpr (F32)
+    v = make_uint4(__float_as_uint(s[0]), __float_as_uint(s[1]),
+                   __float_as_uint(s[2]), __float_as_uint(s[3]));
+  else
+    v = make_uint4(pack_bf16(s[0], s[1]), pack_bf16(s[2], s[3]),
+                   pack_bf16(s[4], s[5]), pack_bf16(s[6], s[7]));
+#pragma unroll
+  for (int q = 0; q < WCLUSTER; ++q)
+    if (q < cs) {
+      const uint32_t at = cluster_map(base, q);
+      st_dsmem(at + pout + ((2 * h + i) * 128 + t) * 16, v);
+      if (c == 0 && i == 0) st_dsmem(at + arow + 4 * r, alpha);
+    }
+}
+
+// bf16: kv tiles of 64 rows, one warpgroup a block. The block's q slice is
+// two 64 x 64 boxes; a k or v slice of a tile two more (16 KiB each). S's
+// partial is wgmma m64n64k16 over the slice's 128 columns (8 k-steps, both
+// operands K-major in shared memory); O at the block's 128 columns is
+// wgmma m64n128k16 with P from registers (the owner writes it packed as
+// the A fragment) and v's slice read transposed (MN-major, its two boxes
+// 8 KiB apart). Shared memory: 115,232 bytes, two blocks an SM only without
+// alignment slack, so the kernel declares it 1024-byte aligned and traps if
+// it is not.
+constexpr int WSL = 2 * BOX;  // a 64-row slice (16 KiB)
+// byte offsets: q's slice, the k stage, the v ring, the partials, P, the
+// rescale factors, the barriers (the k stage's, the v ring's, q's)
+constexpr int WB_K = WSL, WB_V = WB_K + WSL, WB_PART = WB_V + 2 * WSL,
+              WB_P = WB_PART + 2 * WPARTB, WB_AL = WB_P + 2 * WPB,
+              WB_BARS = WB_AL + 2 * WALB;
+constexpr int smem_wide_bf16() { return WB_BARS + 8 * 4; }
+
 __global__ void __launch_bounds__(WG, 2)
     flash_fwd_wide_bf16(const __grid_constant__ TmaParams tp, int D) {
   const Params& p = tp.p;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
-  const uint32_t pairs = base, vring = base + WST * 2 * BOX;
-  const uint32_t bars = vring + WVST * BOX;
+  extern __shared__ __align__(1024) unsigned char wide_smem[];
+  const uint32_t base = smem_addr(wide_smem);
+  if (base & 1023) __trap();
+  unsigned char* sm = wide_smem;
+  const uint32_t kbar = base + WB_BARS, vbars = kbar + 8, qbar = kbar + 24;
 
   const int tid = threadIdx.x, warp = tid >> 5;
   const int g = (tid & 31) >> 2, c = tid & 3;
-  const int nc = D / 64;  // chunks of the contraction
-  const int sub = blockIdx.x % nc;
-  const int q0 = (blockIdx.x / nc) * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tiles = p.n_kv / BK, items = tiles * nc;
+  const WidePlan w = wide_plan(D);
+  const int rank = static_cast<int>(cluster_rank()),
+            cs = static_cast<int>(cluster_blocks());
+  const int pass = static_cast<int>(blockIdx.x) / cs % w.rounds;
+  const int q0 = static_cast<int>(blockIdx.x) / (cs * w.rounds) * BQ,
+            h = blockIdx.y, b = blockIdx.z;
+  const int gs = rank + pass * cs;  // O's slice (none past n)
+  const bool out = gs < w.n;
+  const int items = (w.n - rank + cs - 1) / cs;  // slices contracted a tile
+  const bool multi = w.rounds > 1;
+  const int tiles = p.n_kv / BK;
 
-  // item u (chunk u % nc of kv tile u / nc) into its pair stage, by thread 0
-  auto load_pair = [&](int u) {
-    const int s = u % WST, x = u % nc;
-    const uint32_t bar = bars + 8 * s, dst = pairs + s * 2 * BOX;
-    bar_expect(bar, 2 * BOX);
-    tma_box(dst, &tp.q, 64 * x, q0, h, b, bar);
-    tma_box(dst + BOX, &tp.k, 64 * x, (u / nc) * BK, h, b, bar);
+  // k's slice of tile j into the k stage, v's into the v ring, by thread 0
+  auto load_k = [&](int j) {
+    bar_expect(kbar, WSL);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      tma_box(base + WB_K + x * BOX, &tp.k, WC * rank + 64 * x, j * BK, h,
+              b, kbar);
   };
   auto load_v = [&](int j) {
-    const uint32_t bar = bars + 8 * (WST + j % WVST);
-    bar_expect(bar, BOX);
-    tma_box(vring + (j % WVST) * BOX, &tp.v, 64 * sub, j * BK, h, b, bar);
+    const uint32_t bar = vbars + 8 * (j & 1),
+                   dst = base + WB_V + (j & 1) * WSL;
+    bar_expect(bar, WSL);
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+      tma_box(dst + x * BOX, &tp.v, WC * gs + 64 * x, j * BK, h, b, bar);
+  };
+  // with passes, item u (slice rank + (u % items) cs of tile u / items):
+  // its q and k slices into q's place and the k stage
+  auto load_pair = [&](int u) {
+    const int sl = rank + u % items * cs, j = u / items;
+    bar_expect(kbar, 2 * WSL);
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      tma_box(base + x * BOX, &tp.q, WC * sl + 64 * x, q0, h, b, kbar);
+      tma_box(base + WB_K + x * BOX, &tp.k, WC * sl + 64 * x, j * BK, h, b,
+              kbar);
+    }
   };
 
   if (tid == 0) {
-    for (int s = 0; s < WST + WVST; ++s) bar_init(bars + 8 * s);
+    for (int s = 0; s < 4; ++s) bar_init(kbar + 8 * s);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (tid == 0) {
-    for (int u = 0; u < WST && u < items; ++u) load_pair(u);
-    for (int j = 0; j < WVST && j < tiles; ++j) load_v(j);
+    if (multi) {
+      load_pair(0);
+    } else {
+      bar_expect(qbar, WSL);
+#pragma unroll
+      for (int x = 0; x < 2; ++x)
+        tma_box(base + x * BOX, &tp.q, WC * rank + 64 * x, q0, h, b, qbar);
+      load_k(0);
+    }
+    if (out)
+      for (int j = 0; j < 2 && j < tiles; ++j) load_v(j);
   }
   __syncwarp();
 
-  float o[32], sc[32];
-  uint32_t pa[4][4];
+  float o[64], sc[32];  // O at the block's 128 columns; S's partial
+  uint32_t pa[4][4];    // P's A fragments
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = sc[i] = 0.f;
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
 
-  for (int j = 0; j < tiles; ++j) {
-    // S = Q K_j^T, chunk by chunk
-    for (int x = 0; x < nc; ++x) {
-      const int u = j * nc + x, s = u % WST;
-      const uint32_t st = pairs + s * 2 * BOX;
-      bar_wait(bars + 8 * s, (u / WST) & 1);
+  // the block's partial of tile j's S into sc: one chain, issued and left
+  // in flight; with passes every item in turn, each waited for
+  auto scores = [&](int j) {
+    if (!multi) {
+      bar_wait(kbar, j & 1);
       hold(sc);
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_ss(sc, desc(st + kk * 32), desc(st + BOX + kk * 32),
-               x > 0 || kk > 0);
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+        mma_ss(sc, desc(base + off), desc(base + WB_K + off), kk);
+      }
+      wg_commit();
+      return;
+    }
+    for (int k = 0; k < items; ++k) {
+      const int u = j * items + k;
+      bar_wait(kbar, u & 1);
+      hold(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+        mma_ss(sc, desc(base + off), desc(base + WB_K + off), k > 0 || kk > 0);
+      }
       wg_commit();
       wg_wait<0>();
       hold(sc);
-      __syncthreads();  // no warp reads the stage any more
-      if (tid == 0 && u + WST < items) load_pair(u + WST);
+      __syncthreads();  // no warp reads the pair any more
+      if (tid == 0 && u + 1 < tiles * items) load_pair(u + 1);
       __syncwarp();
     }
+  };
 
-    // online softmax
-    float tmax[2] = {neg_inf(), neg_inf()};
+  // tile j's partial (its products retired) into its buffer: float2 k of
+  // thread tid at k 128 + tid (elements 2 k and 2 k + 1)
+  auto publish = [&](int j) {
+    float2* pw = reinterpret_cast<float2*>(sm + WB_PART + (j & 1) * WPARTB);
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      sc[i] = __fmul_rn(sc[i], p.scale);
-      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
-    }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(tmax[r]));
-      alpha[r] = exp_ftz(m[r] - mn);  // 0 on the first tile
-      m[r] = mn;
-    }
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const float p0 = exp_ftz(sc[4 * nt] - m[0]);
-      const float p1 = exp_ftz(sc[4 * nt + 1] - m[0]);
-      const float p2 = exp_ftz(sc[4 * nt + 2] - m[1]);
-      const float p3 = exp_ftz(sc[4 * nt + 3] - m[1]);
-      rs[0] += p0 + p1;
-      rs[1] += p2 + p3;
-      pa[nt / 2][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pa[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] *= alpha[(i >> 1) & 1];
+    for (int k = 0; k < 16; ++k)
+      pw[k * WG + tid] = make_float2(sc[2 * k], sc[2 * k + 1]);
+  };
 
-    // O += P V_j: v's 64 columns of the block, MN-major
-    bar_wait(bars + 8 * (WST + j % WVST), (j / WVST) & 1);
-    const uint32_t vt = vring + (j % WVST) * BOX;
+  // the units the block owns (eight a row): at most 512 (cs 1) over 128
+  // threads, in turns; the first turn's loads are issued ahead (all of
+  // them from cs 4 up; a second turn's, at cs 3, would spill registers)
+  constexpr int IT = 4;
+  const int lo_u = 8 * (rank * BQ / cs), hi_u = 8 * ((rank + 1) * BQ / cs);
+  float om[IT], ol[IT];
+#pragma unroll
+  for (int it = 0; it < IT; ++it) {
+    om[it] = neg_inf();
+    ol[it] = 0.f;
+  }
+  typename Unit<false>::Loads xo;
+  auto own_pref = [&](int j) {
+    const int u = lo_u + tid;
+    own_load<false>(xo, base, WB_PART + (j & 1) * WPARTB, u, u < hi_u, cs, 0);
+  };
+  auto own_fin = [&](int j) {
+    const int part = WB_PART + (j & 1) * WPARTB, pout = WB_P + (j & 1) * WPB,
+              arow = WB_AL + (j & 1) * WALB;
+    own_finish<false>(xo, base, part, pout, arow, lo_u + tid,
+                      lo_u + tid < hi_u, cs, p.scale, om[0], ol[0]);
+#pragma unroll
+    for (int it = 1; it < IT; ++it)
+      if (lo_u + it * WG < hi_u) {
+        const int u = lo_u + it * WG + tid;
+        typename Unit<false>::Loads y;
+        own_load<false>(y, base, part, u, u < hi_u, cs, 0);
+        own_finish<false>(y, base, part, pout, arow, u, u < hi_u, cs, p.scale,
+                          om[it], ol[it]);
+      }
+  };
+
+  // P and the rescale factors of the warp's rows (g and g + 8), from this
+  // block's shared memory; O rescaled and O += P V_j, left in flight
+  auto consume = [&](int j) {
+    if (!out) return;
+    const uint4* pr =
+        reinterpret_cast<const uint4*>(sm + WB_P + (j & 1) * WPB);
+    const float* ar =
+        reinterpret_cast<const float*>(sm + WB_AL + (j & 1) * WALB);
+    float al[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 x = pr[(2 * hh + i) * WG + tid];
+        const uint32_t v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int nt = 4 * i + e;
+          pa[nt >> 1][(nt & 1) * 2 + hh] = v[e];
+        }
+      }
+      al[hh] = ar[16 * warp + g + 8 * hh];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] *= al[(i >> 1) & 1];
+    bar_wait(vbars + 8 * (j & 1), (j >> 1) & 1);
+    const uint32_t vt = base + WB_V + (j & 1) * WSL;
     hold(o);
-    hold_frag(pa);
+    hold(pa);
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_rs(o, pa[kk], desc(vt + kk * 16 * 128));
+      mma_rs128(o, pa[kk], desc_mn(vt + kk * 16 * 128, BOX));
     wg_commit();
+  };
+
+  if (!multi) bar_wait(qbar, 0);
+  scores(0);
+  wg_wait<0>();
+  hold(sc);
+  publish(0);
+  __syncthreads();  // no warp reads the k stage: it takes tile 1
+  if (tid == 0 && !multi && tiles > 1) load_k(1);
+  __syncwarp();
+  cluster_sync();  // every block has started and written tile 0's partial
+  if (tiles > 1) scores(1);
+  own_pref(0);
+  own_fin(0);
+  wg_wait<0>();
+  hold(sc);
+  if (tiles > 1) publish(1);
+  __syncthreads();
+  if (tid == 0 && !multi && tiles > 2) load_k(2);
+  __syncwarp();
+  cluster_sync();  // P of tile 0 and the partials of tile 1 are seen
+  for (int j = 0; j < tiles; ++j) {
+    // tile j + 1's remote loads are in flight under P V's issue and tile j
+    // + 2's contraction
+    if (j + 1 < tiles) own_pref(j + 1);
+    consume(j);
+    if (j + 2 < tiles) scores(j + 2);
+    if (j + 1 < tiles) own_fin(j + 1);
+    // P V of tile j and S of tile j + 2 have retired
     wg_wait<0>();
     hold(o);
-    __syncthreads();
-    if (tid == 0 && j + WVST < tiles) load_v(j + WVST);
+    hold(pa);
+    hold(sc);
+    if (j + 2 < tiles) publish(j + 2);
+    __syncthreads();  // the k stage takes tile j + 3, v's of j tile j + 2
+    if (tid == 0) {
+      if (!multi && j + 3 < tiles) load_k(j + 3);
+      if (out && j + 2 < tiles) load_v(j + 2);
+    }
     __syncwarp();
+    cluster_sync();  // P of tile j + 1 and the partials of tile j + 2 seen
   }
 
-  float sum[2], inv[2];
+  // each row's l and m from its owner (in the partials' place, read by no
+  // block after the last barrier); O / l; rank 0 of the first pass writes
+  // l and m
+  float* lm = reinterpret_cast<float*>(sm + WB_PART);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] = quad_sum(l[r]);
-    inv[r] = 1.f / sum[r];
-  }
+  for (int it = 0; it < IT; ++it)
+    if (lo_u + it * WG < hi_u) {
+      const int u = lo_u + it * WG + tid;
+      const float ls = oct_sum(ol[it]);
+      if (u < hi_u && (u & 7) == 0) {
+        lm[u >> 3] = ls;
+        lm[BQ + (u >> 3)] = om[it];
+      }
+    }
+  cluster_sync();
   const int row = q0 + warp * 16 + g;  // and row + 8
-  if (p.l != nullptr && sub == 0 && c == 0) {
-    const long long i =
-        (static_cast<long long>(b) * gridDim.y + h) * p.n_q + row;
-    p.l[i] = sum[0];
-    p.l[i + 8] = sum[1];
-    p.m[i] = m[0];
-    p.m[i + 8] = m[1];
-  }
-  __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_b +
-                      h * p.o_h + row * p.o_n + sub * 64 + 2 * c;
+  float inv[2];
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    *reinterpret_cast<__nv_bfloat162*>(og + t * 8) =
-        __floats2bfloat162_rn(o[4 * t] * inv[0], o[4 * t + 1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(og + 8 * p.o_n + t * 8) =
-        __floats2bfloat162_rn(o[4 * t + 2] * inv[1], o[4 * t + 3] * inv[1]);
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + g + 8 * hh, ow = row_owner(r, cs);
+    const float ls = ld_cluster_f(base + WB_PART + 4 * r, ow);
+    inv[hh] = 1.f / ls;
+    if (p.l != nullptr && rank == 0 && pass == 0 && c == 0) {
+      const long long i =
+          (static_cast<long long>(b) * gridDim.y + h) * p.n_q + row + 8 * hh;
+      p.l[i] = ls;
+      p.m[i] = ld_cluster_f(base + WB_PART + 4 * (BQ + r), ow);
+    }
   }
+  if (out) {
+    __nv_bfloat16* og = static_cast<__nv_bfloat16*>(p.o) + b * p.o_b +
+                        h * p.o_h + row * p.o_n + WC * gs + 2 * c;
+#pragma unroll
+    for (int t = 0; t < 16; ++t) {
+      *reinterpret_cast<__nv_bfloat162*>(og + t * 8) =
+          __floats2bfloat162_rn(o[4 * t] * inv[0], o[4 * t + 1] * inv[0]);
+      *reinterpret_cast<__nv_bfloat162*>(og + 8 * p.o_n + t * 8) =
+          __floats2bfloat162_rn(o[4 * t + 2] * inv[1],
+                                o[4 * t + 3] * inv[1]);
+    }
+  }
+  cluster_sync();  // no block leaves while another reads its shared memory
 }
 
-// fp32: split TF32 as above, kv tiles of 64 rows. A pair stage holds q's and
-// k's 64 columns of the chunk (two 32-column boxes each); once it lands one
-// pass rounds both to hi in place and writes lo beside them (one lo pair
-// for the chunk in work), and the chunk's 24 products (8 k-steps, each hi
-// lo', lo hi', hi hi') are one chain, summed by the tensor cores from 0 and
-// added to S by the FMA pipes. v's 64 columns are split transposed (VT) as
-// at Dh 64, and P V is one chain a tile, as there.
-constexpr int WST32 = 3;                // chunk pairs a ring, fp32
-constexpr int WBOX = 64 * 128;          // 64 rows of 32 fp32 columns
-constexpr int WPAIR = 4 * WBOX;         // q's and k's 64 columns
-constexpr int WVTILE = 2 * WBOX;        // v's 64 columns of a 64-row tile
+// fp32: split TF32, kv tiles of WRS = 32 rows, two warpgroups a block. The
+// q slice (four 64 x 32 boxes, 32 KiB) is split once, hi in place and lo
+// beside. Warpgroup w forms chain w of the block's partial (boxes w and w +
+// 2 of the slice: 8 k-steps, each hi lo', lo hi', hi hi', by wgmma
+// m64n32k8 .tf32 with both operands K-major in shared memory), splitting
+// those two boxes of the k slice (hi in place, lo beside) once they land,
+// and O's 64 columns 64 w to 64 w + 63 of the slice: v's slice at them
+// split and written transposed (VT, hi and lo, each 8 rows in the order 0,
+// 2, 4, 6, 1, 3, 5, 7, as at Dh 64) and P V by wgmma m64n64k8 with P's A
+// fragments, split in registers, from the owner's fp32 p. P V is summed by
+// the tensor cores from 0 each tile and added to the rescaled O by the FMA
+// pipes once it retires. 64-row kv tiles do not fit: q's hi and lo (64
+// KiB), the k stage and its lo, two stages of v (64 KiB together), VT's hi
+// and lo (32 KiB) and the exchange (48 KiB) take 209 KiB at 32 rows; at 64
+// the kv tiles, VT and the exchange double (353 KiB).
+constexpr int WRS = 32;          // kv rows a tile
+constexpr int WT = 2 * WG;       // threads a block
+constexpr int WFB = BQ * 128;    // a q box: 64 rows x 32 columns
+constexpr int WSB = WRS * 128;   // a k or v box: 32 rows x 32 columns
+constexpr int WQS = 4 * WFB;     // q's slice
+constexpr int WKS = 4 * WSB;     // a k or v slice
+constexpr int WVT = WC * 128;    // v's slice transposed: 128 rows of 32
+// byte offsets: q's slice (hi in place), its lo, the k stage (hi in place
+// once split), k's lo, the v ring, VT's hi and lo, the partials, P, the
+// rescale factors, the barriers (the k stage's, the v ring's, q's)
+constexpr int WF_QLO = WQS, WF_K = 2 * WQS, WF_KLO = WF_K + WKS,
+              WF_V = WF_KLO + WKS, WF_VT = WF_V + 2 * WKS,
+              WF_PART = WF_VT + 2 * WVT, WF_P = WF_PART + 2 * WPARTB,
+              WF_AL = WF_P + 2 * WPB, WF_BARS = WF_AL + 2 * WALB;
+constexpr int smem_wide_f32() { return WF_BARS + 8 * 4; }
+static_assert(smem_wide_f32() <= 232448, "more than a block's shared memory");
 
-// the slack, the pair ring, the chunk's lo pair, the v ring, VT's hi and
-// lo, the barriers
-constexpr int smem_wide_f32() {
-  return 1024 + (WST32 + 1) * WPAIR + WVST * WVTILE + 2 * 2 * VTBOX +
-         8 * (WST32 + WVST);
-}
-
-__global__ void __launch_bounds__(WG, 1)
+__global__ void __launch_bounds__(WT, 1)
     flash_fwd_wide_f32(const __grid_constant__ TmaParams tp, int D) {
   const Params& p = tp.p;
-  extern __shared__ __align__(1024) unsigned char f32_smem[];
-  const uint32_t raw = smem_addr(f32_smem);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  unsigned char* sm = f32_smem + (base - raw);
-  // byte offsets: the pair ring (stage s: q's two boxes, then k's), the
-  // lo pair, the v ring, VT's hi and lo, the barriers
-  constexpr int LO = WST32 * WPAIR, VRING = LO + WPAIR,
-                VTH = VRING + WVST * WVTILE, VTL = VTH + 2 * VTBOX,
-                BARS = VTL + 2 * VTBOX;
-  const uint32_t bars = base + BARS;
+  extern __shared__ __align__(1024) unsigned char wide_smem[];
+  const uint32_t base = smem_addr(wide_smem);
+  if (base & 1023) __trap();
+  unsigned char* sm = wide_smem;
+  const uint32_t kbar = base + WF_BARS, vbars = kbar + 8, qbar = kbar + 24;
 
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = (tid & 31) >> 2, c = tid & 3;
-  const int nc = D / 64;
-  const int sub = blockIdx.x % nc;
-  const int q0 = (blockIdx.x / nc) * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int tiles = p.n_kv / 64, items = tiles * nc;
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & (WG - 1);
+  const int warp = t >> 5, g = (t & 31) >> 2, c = t & 3;
+  const WidePlan w = wide_plan(D);
+  const int rank = static_cast<int>(cluster_rank()),
+            cs = static_cast<int>(cluster_blocks());
+  const int pass = static_cast<int>(blockIdx.x) / cs % w.rounds;
+  const int q0 = static_cast<int>(blockIdx.x) / (cs * w.rounds) * BQ,
+            h = blockIdx.y, b = blockIdx.z;
+  const int gs = rank + pass * cs;  // O's slice (none past n)
+  const bool out = gs < w.n;
+  const int items = (w.n - rank + cs - 1) / cs;  // slices contracted a tile
+  const bool multi = w.rounds > 1;
+  const int tiles = p.n_kv / WRS;
 
-  auto load_pair = [&](int u) {
-    const int s = u % WST32, x = u % nc;
-    const uint32_t bar = bars + 8 * s, dst = base + s * WPAIR;
-    bar_expect(bar, WPAIR);
+  auto load_k = [&](int j) {
+    bar_expect(kbar, WKS);
 #pragma unroll
-    for (int y = 0; y < 2; ++y) {
-      tma_box(dst + y * WBOX, &tp.q, 64 * x + 32 * y, q0, h, b, bar);
-      tma_box(dst + (2 + y) * WBOX, &tp.k, 64 * x + 32 * y, (u / nc) * 64,
-              h, b, bar);
-    }
+    for (int x = 0; x < 4; ++x)
+      tma_box(base + WF_K + x * WSB, &tp.k, WC * rank + 32 * x, j * WRS, h,
+              b, kbar);
   };
   auto load_v = [&](int j) {
-    const uint32_t bar = bars + 8 * (WST32 + j % WVST),
-                   dst = base + VRING + (j % WVST) * WVTILE;
-    bar_expect(bar, WVTILE);
+    const uint32_t bar = vbars + 8 * (j & 1),
+                   dst = base + WF_V + (j & 1) * WKS;
+    bar_expect(bar, WKS);
 #pragma unroll
-    for (int y = 0; y < 2; ++y)
-      tma_box(dst + y * WBOX, &tp.v, 64 * sub + 32 * y, j * 64, h, b, bar);
+    for (int x = 0; x < 4; ++x)
+      tma_box(dst + x * WSB, &tp.v, WC * gs + 32 * x, j * WRS, h, b, bar);
+  };
+  auto load_pair = [&](int u) {
+    const int sl = rank + u % items * cs, j = u / items;
+    bar_expect(kbar, WQS + WKS);
+#pragma unroll
+    for (int x = 0; x < 4; ++x) {
+      tma_box(base + x * WFB, &tp.q, WC * sl + 32 * x, q0, h, b, kbar);
+      tma_box(base + WF_K + x * WSB, &tp.k, WC * sl + 32 * x, j * WRS, h, b,
+              kbar);
+    }
   };
 
   if (tid == 0) {
-    for (int s = 0; s < WST32 + WVST; ++s) bar_init(bars + 8 * s);
+    for (int s = 0; s < 4; ++s) bar_init(kbar + 8 * s);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
   if (tid == 0) {
-    for (int u = 0; u < WST32 && u < items; ++u) load_pair(u);
-    for (int j = 0; j < WVST && j < tiles; ++j) load_v(j);
+    if (multi) {
+      load_pair(0);
+    } else {
+      bar_expect(qbar, WQS);
+#pragma unroll
+      for (int x = 0; x < 4; ++x)
+        tma_box(base + x * WFB, &tp.q, WC * rank + 32 * x, q0, h, b, qbar);
+      load_k(0);
+    }
+    if (out)
+      for (int j = 0; j < 2 && j < tiles; ++j) load_v(j);
   }
   __syncwarp();
 
-  float o[32], pv[32], sc[32], part[32];  // O, P V of a tile, S, a chunk of S
-  uint32_t ph[8][4], pl[8][4];            // P's A fragments, hi and lo
+  // the warpgroup's boxes (wg and wg + 2) of q's slice and of the k slice,
+  // split: hi in place, lo beside
+  auto split_q = [&]() {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = sc[i] = part[i] = 0.f;
-  float m[2] = {neg_inf(), neg_inf()}, l[2] = {0.f, 0.f};
-  const uint64_t ql = desc(base + LO), kl = desc(base + LO + 2 * WBOX),
-                 vth = desc(base + VTH), vtl = desc(base + VTL);
+    for (int i = 0; i < 2; ++i) {
+      const int x = wg + 2 * i;
+      split_pass<WFB>(sm + x * WFB, sm + WF_QLO + x * WFB, t);
+    }
+  };
+  auto split_k = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int x = wg + 2 * i;
+      split_pass<WSB>(sm + WF_K + x * WSB, sm + WF_KLO + x * WSB, t);
+    }
+  };
+  // the warpgroup's chain of S's partial (boxes wg and wg + 2, 24
+  // products) into d from 0, one commit group
+  const uint64_t qh = desc(base), ql = desc(base + WF_QLO),
+                 kh = desc(base + WF_K), kl = desc(base + WF_KLO);
+  auto chain = [&](float (&d)[WRS / 2]) {
+    hold(d);
+    wg_fence();
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const int x = wg + 2 * i;
+        const uint32_t fo = (x * WFB + kk * 32) / 16,
+                       so = (x * WSB + kk * 32) / 16;
+        mma_tf32_ss(d, qh + fo, kl + so, i > 0 || kk > 0);
+        mma_tf32_ss(d, ql + fo, kh + so, 1);
+        mma_tf32_ss(d, qh + fo, kh + so, 1);
+      }
+    wg_commit();
+  };
 
-  for (int j = 0; j < tiles; ++j) {
-    for (int x = 0; x < nc; ++x) {
-      const int u = j * nc + x, s = u % WST32;
-      unsigned char* st = sm + s * WPAIR;
-      bar_wait(bars + 8 * s, (u / WST32) & 1);
-      split_pass<WPAIR>(st, sm + LO, tid);  // hi in place, lo beside
+  float o[32], pv[32], sc[WRS / 2];  // O, P V of a tile, S's chain
+  uint32_t ph[WRS / 8][4], pl[WRS / 8][4];  // P's A fragments, hi and lo
+  float al[2] = {0.f, 0.f};  // the rescale of the tile whose P V runs
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = pv[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < WRS / 2; ++i) sc[i] = 0.f;
+
+  // the warpgroup's chain of tile j's S into sc, left in flight; with
+  // passes every item in turn (q and k split), each waited for and added
+  auto scores = [&](int j) {
+    if (!multi) {
+      bar_wait(kbar, j & 1);
+      split_k();
       fence_async_smem();
-      __syncthreads();
-      const uint64_t qh = desc(smem_addr(st)),
-                     kh = desc(smem_addr(st) + 2 * WBOX);
-      hold(part);
-      wg_fence();
+      named_sync(1 + wg, WG);
+      chain(sc);
+      return;
+    }
+    for (int k = 0; k < items; ++k) {
+      const int u = j * items + k;
+      bar_wait(kbar, u & 1);
+      split_q();
+      split_k();
+      fence_async_smem();
+      named_sync(1 + wg, WG);
+      float part[WRS / 2];
 #pragma unroll
-      for (int y = 0; y < 2; ++y)
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) {
-          const uint32_t off = (y * WBOX + kk * 32) / 16;
-          mma_tf32_ss(part, qh + off, kl + off, y > 0 || kk > 0);
-          mma_tf32_ss(part, ql + off, kh + off, 1);
-          mma_tf32_ss(part, qh + off, kh + off, 1);
-        }
-      wg_commit();
+      for (int i = 0; i < WRS / 2; ++i) part[i] = 0.f;
+      chain(part);
       wg_wait<0>();
       hold(part);
 #pragma unroll
-      for (int i = 0; i < 32; ++i) sc[i] = x == 0 ? part[i] : sc[i] + part[i];
-      __syncthreads();  // the stage and the lo pair are free
-      if (tid == 0 && u + WST32 < items) load_pair(u + WST32);
+      for (int i = 0; i < WRS / 2; ++i)
+        sc[i] = k == 0 ? part[i] : sc[i] + part[i];
+      __syncthreads();  // no warp reads the pair any more
+      if (tid == 0 && u + 1 < tiles * items) load_pair(u + 1);
       __syncwarp();
     }
+  };
 
-    // v's 64 columns, split transposed; the raw stage goes back to TMA
-    bar_wait(bars + 8 * (WST32 + j % WVST), (j / WVST) & 1);
-    split_vt<64>(sm + VRING + (j % WVST) * WVTILE, sm + VTH, sm + VTL, tid);
+  // tile j's chains (their products retired) into their buffer: chain wg's
+  // float2 k of thread t at (8 wg + k) 128 + t
+  auto publish = [&](int j) {
+    float2* pw = reinterpret_cast<float2*>(sm + WF_PART + (j & 1) * WPARTB) +
+                 wg * 8 * WG;
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      pw[k * WG + t] = make_float2(sc[2 * k], sc[2 * k + 1]);
+  };
+
+  // the units the block owns (eight a row): at most 512 (cs 1) over 256
+  // threads, in turns, a turn's 64-unit groups spread over both
+  // warpgroups; the first turn's loads are issued ahead
+  constexpr int IT = 2;
+  const int lo_u = 8 * (rank * BQ / cs), hi_u = 8 * ((rank + 1) * BQ / cs);
+  const int ku = (tid & 63) + 64 * ((tid >> 7) & 1) + 128 * ((tid >> 6) & 1);
+  float om[IT] = {neg_inf(), neg_inf()}, ol[IT] = {0.f, 0.f};
+  typename Unit<true>::Loads xo;
+  auto own_pref = [&](int j) {
+    const int u = lo_u + ku;
+    own_load<true>(xo, base, WF_PART + (j & 1) * WPARTB, u, u < hi_u, cs, 0);
+  };
+  auto own_fin = [&](int j) {
+    const int part = WF_PART + (j & 1) * WPARTB, pout = WF_P + (j & 1) * WPB,
+              arow = WF_AL + (j & 1) * WALB;
+    own_finish<true>(xo, base, part, pout, arow, lo_u + ku, lo_u + ku < hi_u,
+                     cs, p.scale, om[0], ol[0]);
+    if (lo_u + WT < hi_u) {
+      const int u = lo_u + WT + ku;
+      typename Unit<true>::Loads y;
+      own_load<true>(y, base, part, u, u < hi_u, cs, 0);
+      own_finish<true>(y, base, part, pout, arow, u, u < hi_u, cs, p.scale,
+                       om[1], ol[1]);
+    }
+  };
+
+  // P and the rescale factors of the warp's rows, from this block's shared
+  // memory; v's slice at the warpgroup's columns split transposed; P V
+  // from 0, left in flight
+  const uint64_t vth = desc(base + WF_VT + 64 * wg * 128),
+                 vtl = vth + WVT / 16;
+  auto consume = [&](int j) {
+    if (!out) return;
+    const uint4* pr =
+        reinterpret_cast<const uint4*>(sm + WF_P + (j & 1) * WPB);
+    const float* ar =
+        reinterpret_cast<const float*>(sm + WF_AL + (j & 1) * WALB);
+    // element 4 nt + 2 hh + e: row hh of the warp's, column 8 nt + 2 c + e
+    float pf[WRS / 2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const uint4 x = pr[(2 * hh + i) * WG + t];
+        const uint32_t v[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          pf[4 * (2 * i + (e >> 1)) + 2 * hh + (e & 1)] =
+              __uint_as_float(v[e]);
+      }
+      al[hh] = ar[16 * warp + g + 8 * hh];
+    }
+    bar_wait(vbars + 8 * (j & 1), (j >> 1) & 1);
+    split_vt<WRS>(sm + WF_V + (j & 1) * WKS + 2 * wg * WSB,
+                  sm + WF_VT + 64 * wg * 128,
+                  sm + WF_VT + WVT + 64 * wg * 128, t);
     fence_async_smem();
-    __syncthreads();
-    if (tid == 0 && j + WVST < tiles) load_v(j + WVST);
-    __syncwarp();
-
-    // online softmax: s scale, then exp(s scale - m)
-    float tmax[2] = {neg_inf(), neg_inf()};
+    named_sync(1 + wg, WG);
+    // k = c is column 2 c of each 8, k = c + 4 is 2 c + 1
 #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      sc[i] = __fmul_rn(sc[i], p.scale);
-      tmax[(i >> 1) & 1] = fmaxf(tmax[(i >> 1) & 1], sc[i]);
+    for (int kk = 0; kk < WRS / 8; ++kk) {
+      split_tf32(pf[4 * kk], ph[kk][0], pl[kk][0]);
+      split_tf32(pf[4 * kk + 2], ph[kk][1], pl[kk][1]);
+      split_tf32(pf[4 * kk + 1], ph[kk][2], pl[kk][2]);
+      split_tf32(pf[4 * kk + 3], ph[kk][3], pl[kk][3]);
     }
-    float alpha[2], rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float mn = fmaxf(m[r], quad_max(tmax[r]));
-      alpha[r] = exp_ftz(m[r] - mn);  // 0 on the first tile
-      m[r] = mn;
-    }
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      sc[i] = exp_ftz(sc[i] - m[(i >> 1) & 1]);
-      rs[(i >> 1) & 1] += sc[i];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
-#pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      split_tf32(sc[4 * kk], ph[kk][0], pl[kk][0]);
-      split_tf32(sc[4 * kk + 2], ph[kk][1], pl[kk][1]);
-      split_tf32(sc[4 * kk + 1], ph[kk][2], pl[kk][2]);
-      split_tf32(sc[4 * kk + 3], ph[kk][3], pl[kk][3]);
-    }
-
-    // P V from 0, added to the rescaled O in fp32
     hold(pv);
     hold(ph);
     hold(pl);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint32_t vo = ((kk >> 2) * VTBOX + (kk & 3) * 32) / 16;
-      mma_tf32<64>(pv, ph[kk], vtl + vo, kk > 0);
-      mma_tf32<64>(pv, pl[kk], vth + vo, 1);
-      mma_tf32<64>(pv, ph[kk], vth + vo, 1);
+    for (int kk = 0; kk < WRS / 8; ++kk) {
+      mma_tf32<64>(pv, ph[kk], vtl + kk * 2, kk > 0);
+      mma_tf32<64>(pv, pl[kk], vth + kk * 2, 1);
+      mma_tf32<64>(pv, ph[kk], vth + kk * 2, 1);
     }
     wg_commit();
+  };
+
+  if (!multi) {
+    bar_wait(qbar, 0);
+    split_q();  // seen by tile 0's products after scores' fence and sync
+  }
+  scores(0);
+  wg_wait<0>();
+  hold(sc);
+  publish(0);
+  __syncthreads();  // no warp reads the k stage: it takes tile 1
+  if (tid == 0 && !multi && tiles > 1) load_k(1);
+  __syncwarp();
+  cluster_sync();  // every block has started and written tile 0's partial
+  if (tiles > 1) scores(1);
+  own_pref(0);
+  own_fin(0);
+  wg_wait<0>();
+  hold(sc);
+  if (tiles > 1) publish(1);
+  __syncthreads();
+  if (tid == 0 && !multi && tiles > 2) load_k(2);
+  __syncwarp();
+  cluster_sync();  // P of tile 0 and the partials of tile 1 are seen
+  for (int j = 0; j < tiles; ++j) {
+    // tile j + 1's remote loads are in flight under P V and tile j + 2's
+    // contraction
+    if (j + 1 < tiles) own_pref(j + 1);
+    consume(j);
+    if (j + 2 < tiles) scores(j + 2);
+    if (j + 1 < tiles) own_fin(j + 1);
+    // P V of tile j and S of tile j + 2 have retired: O = O exp(m_old -
+    // m_new) + P V
     wg_wait<0>();
     hold(pv);
     hold(ph);
     hold(pl);
+    hold(sc);
+    if (out) {
 #pragma unroll
-    for (int i = 0; i < 32; ++i) o[i] = o[i] * alpha[(i >> 1) & 1] + pv[i];
+      for (int i = 0; i < 32; ++i) o[i] = o[i] * al[(i >> 1) & 1] + pv[i];
+    }
+    if (j + 2 < tiles) publish(j + 2);
+    __syncthreads();  // the k stage takes tile j + 3, v's of j tile j + 2
+    if (tid == 0) {
+      if (!multi && j + 3 < tiles) load_k(j + 3);
+      if (out && j + 2 < tiles) load_v(j + 2);
+    }
+    __syncwarp();
+    cluster_sync();  // P of tile j + 1 and the partials of tile j + 2 seen
   }
 
-  float sum[2], inv[2];
+  // each row's l and m from its owner (in the partials' place, read by no
+  // block after the last barrier); O / l; rank 0 of the first pass writes
+  // l and m
+  float* lm = reinterpret_cast<float*>(sm + WF_PART);
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    sum[r] = quad_sum(l[r]);
-    inv[r] = 1.f / sum[r];
-  }
+  for (int it = 0; it < IT; ++it)
+    if (lo_u + it * WT < hi_u) {
+      const int u = lo_u + it * WT + ku;
+      const float ls = oct_sum(ol[it]);
+      if (u < hi_u && (u & 7) == 0) {
+        lm[u >> 3] = ls;
+        lm[BQ + (u >> 3)] = om[it];
+      }
+    }
+  cluster_sync();
   const int row = q0 + warp * 16 + g;  // and row + 8
-  if (p.l != nullptr && sub == 0 && c == 0) {
-    const long long i =
-        (static_cast<long long>(b) * gridDim.y + h) * p.n_q + row;
-    p.l[i] = sum[0];
-    p.l[i + 8] = sum[1];
-    p.m[i] = m[0];
-    p.m[i + 8] = m[1];
-  }
-  float* og = static_cast<float*>(p.o) + b * p.o_b + h * p.o_h +
-              row * p.o_n + sub * 64 + 2 * c;
+  float inv[2];
 #pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    *reinterpret_cast<float2*>(og + t * 8) =
-        make_float2(o[4 * t] * inv[0], o[4 * t + 1] * inv[0]);
-    *reinterpret_cast<float2*>(og + 8 * p.o_n + t * 8) =
-        make_float2(o[4 * t + 2] * inv[1], o[4 * t + 3] * inv[1]);
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = 16 * warp + g + 8 * hh, ow = row_owner(r, cs);
+    const float ls = ld_cluster_f(base + WF_PART + 4 * r, ow);
+    inv[hh] = 1.f / ls;
+    if (p.l != nullptr && rank == 0 && pass == 0 && wg == 0 && c == 0) {
+      const long long i =
+          (static_cast<long long>(b) * gridDim.y + h) * p.n_q + row + 8 * hh;
+      p.l[i] = ls;
+      p.m[i] = ld_cluster_f(base + WF_PART + 4 * (BQ + r), ow);
+    }
   }
+  if (out) {
+    float* og = static_cast<float*>(p.o) + b * p.o_b + h * p.o_h +
+                row * p.o_n + WC * gs + 64 * wg + 2 * c;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      *reinterpret_cast<float2*>(og + q * 8) =
+          make_float2(o[4 * q] * inv[0], o[4 * q + 1] * inv[0]);
+      *reinterpret_cast<float2*>(og + 8 * p.o_n + q * 8) =
+          make_float2(o[4 * q + 2] * inv[1], o[4 * q + 3] * inv[1]);
+    }
+  }
+  cluster_sync();  // no block leaves while another reads its shared memory
 }
 
-// Blocks of the bf16 (dtype 0) or fp32 kernel that fit on one SM, as the
-// occupancy API counts them from its registers, threads and shared memory;
-// -1 if refused.
+// Blocks of the kernel `fn` that fit on one SM with `smem` bytes of shared
+// memory and `threads` a block, as the occupancy API counts them from its
+// registers, threads and shared memory; -1 if refused.
 template <typename Fn>
-int occupancy(Fn fn, int smem) {
+int occupancy(Fn fn, int smem, int threads = WG) {
   int n = -1;
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem) != cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, WG, smem) !=
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, threads, smem) !=
           cudaSuccess)
     return -1;
   return n;
@@ -1057,11 +1581,6 @@ template <int D>
 int blocks_per_sm(int dtype) {
   return dtype == 0 ? occupancy(flash_fwd_bf16<D>, smem_bf16<D>())
                     : occupancy(flash_fwd_f32<D>, smem_f32<D>());
-}
-
-int blocks_per_sm_wide(int dtype) {
-  return dtype == 0 ? occupancy(flash_fwd_wide_bf16, smem_wide_bf16())
-                    : occupancy(flash_fwd_wide_f32, smem_wide_f32());
 }
 
 // q, k, v's TMA maps: bf16 boxes of 64 columns, fp32 of 32; q tiles of 64
@@ -1104,23 +1623,42 @@ int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dh a multiple of 128 from 384 up: kv tiles of 64 rows in both dtypes
+// The wide kernel's launch (dtype 0 bf16, 1 fp32) at a shape of n_q query
+// rows: a cluster of cs blocks along Dh for each q tile and pass, one
+// warpgroup a block in bf16 and two in fp32, its shared memory, on stream
+// `st`.
+inline void wide_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& at,
+                        int dtype, int n_q, int B, int H, int D,
+                        cudaStream_t st) {
+  wide_launch_config(cfg, at, n_q / BQ, B, H, D, dtype == 0 ? WG : WT,
+                     dtype == 0 ? smem_wide_bf16() : smem_wide_f32(), st);
+}
+
+using WideFn = void (*)(TmaParams, int);
+
+inline WideFn wide_kernel(int dtype) {
+  return dtype == 0 ? flash_fwd_wide_bf16 : flash_fwd_wide_f32;
+}
+
+// Dh a multiple of 128 from 384 up: kv tiles of 64 rows (bf16) or WRS
+// (fp32), on clusters along Dh
 int launch_wide(int dtype, int B, int H, int D, const Params& p,
                 cudaStream_t st) {
-  if ((dtype != 0 && dtype != 1) || p.n_kv % 64 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 0 && dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int rows = dtype == 0 ? BK : WRS;
   TmaParams tp;
   tp.p = p;
-  if (!maps(tp, D, B, H, dtype == 0 ? 2 : 4, 64))
+  if (p.n_kv % rows != 0 || !maps(tp, D, B, H, dtype == 0 ? 2 : 4, rows))
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(p.n_q / BQ * (D / 64), H, B);
-  const int smem = dtype == 0 ? smem_wide_bf16() : smem_wide_f32();
-  void (*fn)(TmaParams, int) =
-      dtype == 0 ? flash_fwd_wide_bf16 : flash_fwd_wide_f32;
-  const cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute at;
+  wide_config(cfg, at, dtype, p.n_q, B, H, D, st);
+  const WideFn fn = wide_kernel(dtype);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, cfg.dynamicSmemBytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  fn<<<grid, WG, smem, st>>>(tp, D);
+  e = cudaLaunchKernelEx(&cfg, fn, tp, D);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1156,22 +1694,36 @@ extern "C" int flash_attention_launch(
   }
 }
 
-// How the bf16 (dtype 0) or fp32 kernel runs at this shape: plan[0] the
-// blocks it launches, plan[1] its blocks an SM
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused).
+// How the bf16 (dtype 0) or fp32 kernel runs at this shape, four ints:
+// plan[0] the blocks it launches, plan[1] its blocks an SM
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor, -1 if refused), plan[2]
+// its cluster's blocks (1 without a cluster), plan[3] its clusters resident
+// at once (cudaOccupancyMaxActiveClusters, 0 without a cluster, -1 if
+// refused).
 extern "C" int flash_attention_plan(int dtype, int D, int B, int H, int n_q,
                                     int* plan) {
   if (dtype != 0 && dtype != 1) return -1;
-  if (flash::wide(D)) {
-    plan[1] = flash::blocks_per_sm_wide(dtype);
-  } else {
-    switch (D) {
-      case 64: plan[1] = flash::blocks_per_sm<64>(dtype); break;
-      case 128: plan[1] = flash::blocks_per_sm<128>(dtype); break;
-      case 256: plan[1] = flash::blocks_per_sm<256>(dtype); break;
-      default: return -1;
-    }
-  }
   plan[0] = n_q / flash::BQ * (D / 64) * H * B;
+  plan[2] = 1;
+  plan[3] = 0;
+  if (flash::wide(D)) {
+    cudaLaunchConfig_t cfg;
+    cudaLaunchAttribute at;
+    flash::wide_config(cfg, at, dtype, n_q, B, H, D, nullptr);
+    const flash::WideFn fn = flash::wide_kernel(dtype);
+    plan[0] = static_cast<int>(cfg.gridDim.x * cfg.gridDim.y * cfg.gridDim.z);
+    plan[1] = flash::occupancy(fn, static_cast<int>(cfg.dynamicSmemBytes),
+                               static_cast<int>(cfg.blockDim.x));
+    plan[2] = static_cast<int>(at.val.clusterDim.x);
+    if (cudaOccupancyMaxActiveClusters(&plan[3], fn, &cfg) != cudaSuccess)
+      plan[3] = -1;
+    return 0;
+  }
+  switch (D) {
+    case 64: plan[1] = flash::blocks_per_sm<64>(dtype); break;
+    case 128: plan[1] = flash::blocks_per_sm<128>(dtype); break;
+    case 256: plan[1] = flash::blocks_per_sm<256>(dtype); break;
+    default: return -1;
+  }
   return 0;
 }

@@ -1085,8 +1085,6 @@ __global__ void __launch_bounds__(WG, 2)
 // blocks may be resident at once: the plan reports
 // cudaOccupancyMaxActiveClusters beside the grid.
 constexpr int WRS = 32;                // streamed rows a tile
-constexpr int WC = 128;                // columns a slice
-constexpr int WCLUSTER = 8;            // the portable cluster limit
 constexpr int WT = 2 * WG;             // threads a block
 constexpr int WFBOX = ROWS * 128;      // 64 fixed rows x 32 columns
 constexpr int WSBOX = WRS * 128;       // a streamed box
@@ -1108,16 +1106,6 @@ constexpr int WFIXO = 0, WSTG = 2 * WFIX, WLO = WSTG + 2 * WHALF,
 constexpr int smem_wide_f32() { return WBARS + 2 * 8 + 1024; }
 static_assert(2 * 3 * WRS == 3 * ROWS, "the stats hold either layout");
 static_assert(smem_wide_f32() <= 232448, "more than a block's shared memory");
-
-// Slices, rounds (passes) and cluster size of a head dim (above).
-struct WidePlan {
-  int n, rounds, cs;
-};
-
-__host__ __device__ inline WidePlan wide_plan(int D) {
-  const int n = D / WC, rounds = (n + WCLUSTER - 1) / WCLUSTER;
-  return {n, rounds, (n + rounds - 1) / rounds};
-}
 
 // Column n of a streamed slice already split (hi in place, lo beside it,
 // four boxes of WRS rows as TMA lays them), written transposed: row n of
@@ -1449,18 +1437,7 @@ __global__ void __launch_bounds__(WT, 1)
 // warpgroups a block, its shared memory, on stream `st`.
 inline void wide_f32_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& at,
                             int fixed, int B, int H, int D, cudaStream_t st) {
-  const WidePlan w = wide_plan(D);
-  cfg = cudaLaunchConfig_t{};
-  cfg.gridDim = dim3(fixed / ROWS * w.rounds * w.cs, H, B);
-  cfg.blockDim = dim3(WT);
-  cfg.dynamicSmemBytes = smem_wide_f32();
-  cfg.stream = st;
-  at.id = cudaLaunchAttributeClusterDimension;
-  at.val.clusterDim.x = w.cs;
-  at.val.clusterDim.y = 1;
-  at.val.clusterDim.z = 1;
-  cfg.attrs = &at;
-  cfg.numAttrs = 1;
+  wide_launch_config(cfg, at, fixed / ROWS, B, H, D, WT, smem_wide_f32(), st);
 }
 
 // Blocks of the kernel `fn` that fit on one SM with `smem` bytes of shared

@@ -113,16 +113,91 @@ __device__ __forceinline__ void cluster_sync() {
   cluster_wait();
 }
 
-// 8 bytes at the shared-memory address `addr` (this block's layout) of the
-// cluster's block `rank`, through distributed shared memory.
-__device__ __forceinline__ float2 ld_cluster(uint32_t addr, uint32_t rank) {
+// The address in distributed shared memory of the shared-memory address
+// `addr` (this block's layout) of the cluster's block `rank`; an offset
+// added to it steps through that block's shared memory.
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
   uint32_t remote;
-  float2 v;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
                : "=r"(remote) : "r"(addr), "r"(rank));
+  return remote;
+}
+
+// 8 or 4 bytes from, and 16 or 4 bytes to, a `cluster_map` address (stores
+// are seen there after the next cluster barrier).
+__device__ __forceinline__ float2 ld_dsmem(uint32_t remote) {
+  float2 v;
   asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
                : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
   return v;
+}
+
+__device__ __forceinline__ float ld_dsmem_f(uint32_t remote) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v) : "r"(remote) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_dsmem(uint32_t remote, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n"
+               :: "r"(remote), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_dsmem(uint32_t remote, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n"
+               :: "r"(remote), "f"(v) : "memory");
+}
+
+// 8 or 4 bytes at the shared-memory address `addr` (this block's layout) of
+// the cluster's block `rank`.
+__device__ __forceinline__ float2 ld_cluster(uint32_t addr, uint32_t rank) {
+  return ld_dsmem(cluster_map(addr, rank));
+}
+
+__device__ __forceinline__ float ld_cluster_f(uint32_t addr, uint32_t rank) {
+  return ld_dsmem_f(cluster_map(addr, rank));
+}
+
+// The wide kernels' slices and clusters (Dh a multiple of 128 from 384 up,
+// both sources): Dh is cut into n = Dh / WC slices of 128 columns; the
+// blocks of one 64-row tile form a cluster along Dh, one slice a block, of
+// cs = n blocks up to the portable limit of 8, and above it `rounds` =
+// ceil(n / 8) passes of clusters of cs = ceil(n / rounds) blocks.
+constexpr int WC = 128;      // columns a slice
+constexpr int WCLUSTER = 8;  // the portable cluster limit
+
+struct WidePlan {
+  int n, rounds, cs;
+};
+
+__host__ __device__ inline WidePlan wide_plan(int D) {
+  const int n = D / WC, rounds = (n + WCLUSTER - 1) / WCLUSTER;
+  return {n, rounds, (n + rounds - 1) / rounds};
+}
+
+// A wide kernel's launch over `tiles` 64-row tiles of B x H heads at head
+// dim D: a cluster of cs blocks along Dh for each tile and pass (the
+// cluster attribute in `at`), `threads` a block, `smem` bytes of shared
+// memory, on stream `st`; for cudaLaunchKernelEx and
+// cudaOccupancyMaxActiveClusters.
+inline void wide_launch_config(cudaLaunchConfig_t& cfg,
+                               cudaLaunchAttribute& at, int tiles, int B,
+                               int H, int D, int threads, int smem,
+                               cudaStream_t st) {
+  const WidePlan w = wide_plan(D);
+  cfg = cudaLaunchConfig_t{};
+  cfg.gridDim = dim3(tiles * w.rounds * w.cs, H, B);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  at.id = cudaLaunchAttributeClusterDimension;
+  at.val.clusterDim.x = w.cs;
+  at.val.clusterDim.y = 1;
+  at.val.clusterDim.z = 1;
+  cfg.attrs = &at;
+  cfg.numAttrs = 1;
 }
 
 // The named barrier `id` of `count` threads (ids 1 up; 0 is
@@ -324,6 +399,36 @@ __device__ __forceinline__ void mma_tf32<64>(float (&d)[32],
       "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),       \
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),       \
       "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+
+#define FLASH_D64                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "   \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "   \
+  "%58, %59, %60, %61, %62, %63}"
+
+// The descriptor of an MN-major operand 128 wide that lies in two 64-wide
+// 128-byte-swizzled boxes `lbo` bytes apart (each as `desc` reads one): the
+// leading byte offset steps from one 64-wide half to the other, the stride
+// byte offset (1024) from one group of 8 rows of the contraction to the next.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d (64 x 128, fp32) += a b: a (64 x 16, bf16) from registers, b (16 x 128)
+// MN-major in shared memory by `desc_mn` (the streamed tile's rows as they
+// lie).
+__device__ __forceinline__ void mma_rs128(float (&d)[64],
+                                          const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred acc;\nsetp.ne.b32 acc, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " FLASH_D64
+      ", {%64, %65, %66, %67}, %68, acc, 1, 1, 1;\n}\n"
+      : FLASH_ACC64(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
 
 template <>
 __device__ __forceinline__ void mma_tf32<128>(float (&d)[64],

@@ -46,9 +46,10 @@ Tensors are (B, N, H, Dh), the JAX layout; k and v share their N, which
 may differ from q's (cross-attention). The kernels take Dh 64, 128 and
 256 (`HEAD_DIMS`, a template instance each) and every multiple of 128
 from 384 up (one wide kernel a dtype and role, the head dim at run time:
-the forward and the bf16 backward stream the contraction over Dh in chunks
-of 64 columns, the fp32 backward splits it over a thread-block cluster of
-128-column slices and adds the slices' partials once); a head
+the bf16 backward streams the contraction over Dh in chunks of 64
+columns; the forward in both dtypes and the fp32 backward split it over a
+thread-block cluster of 128-column slices and add the slices' partials
+once); a head
 dim of 128 or more that is no multiple of 128 is refused with the TPU
 kernel's NotImplementedError, as `_attend_flash` refuses it. They take q,
 k and v of one dtype (bf16 or fp32), n_q and n_kv multiples of 64, Dh

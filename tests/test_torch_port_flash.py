@@ -16,11 +16,12 @@ Tolerances and what this CPU measured:
   (both round the unnormalised p to bf16 against the same 128-row block
   maxima, and the output to bf16; measured at most 0.43 of the bar);
 - the fp32 kernel's arithmetic (split TF32 on 64- or 32-row kv tiles,
-  O rescaled and divided by l once) against the Pallas kernel: 1e-5
-  absolute on the output, l within 1e-5 relative and m within 1e-5 of its
-  peak (both exact fp32 up to split TF32's 2^-20 and sums in another
-  order; measured at most 6.4e-7, 2.4e-6 and 5.1e-7); one TF32 pass misses
-  the output's bar (measured 2.4e-4 at least);
+  O rescaled and divided by l once; at the wide head dims S summed in
+  128-column slices as the wide backward sums it) against the Pallas
+  kernel: 1e-5 absolute on the output, l within 1e-5 relative and m within
+  1e-5 of its peak (both exact fp32 up to split TF32's 2^-20 and sums in
+  another order; measured at most 1.0e-6, 3.1e-6 and 8.5e-7, at Dh 512);
+  one TF32 pass misses the output's bar (measured 2.4e-4 at least);
 - plain version against the JAX einsum `_attend` in fp32: 5e-3, the bar
   of the JAX TPU test (tests/test_flash_attention.py; measured at most
   6.0e-7);
@@ -148,22 +149,60 @@ def test_plain_matches_pallas_kernel(shape, dtype):
     assert np.abs(got.numpy() - einsum).max() <= 5e-3
 
 
+def _wide_fwd_contract(qf, kf, passes):
+    """S = Q·Kᵀ over Dh as the fp32 wide forward's clusters sum it
+    (csrc/flash_attention.cu): Dh in n slices of 128 columns, a cluster of
+    cs = n blocks up to 8 and above it ceil(n / 8) passes of clusters of cs
+    = ceil(n / passes); block r's two chains (each slice's 32-column boxes
+    0 and 2, and 1 and 3) each run on over its slices r, r + cs, ... in
+    turn, added in fp32 after each slice; its partial is the two chains
+    added, and the cs partials are added in rank order. Up to Dh 1024 (one
+    slice a block) that is the fp32 wide backward's order
+    (`test_torch_port_flash_bwd._contract`)."""
+    n = qf.shape[-1] // 128
+    rounds = -(-n // 8)
+    cs = -(-n // rounds)
+    total = None
+    for r in range(cs):
+        chains = []
+        for boxes in ((0, 2), (1, 3)):
+            chain = None
+            for sl in range(r, n, cs):
+                cols = torch.cat([torch.arange(128 * sl + 32 * x,
+                                               128 * sl + 32 * x + 32)
+                                  for x in boxes])
+                part = mm_split(qf[..., cols], kf[..., cols].transpose(-1, -2),
+                                passes)
+                chain = part if chain is None else chain + part
+            chains.append(chain)
+        part = chains[0] + chains[1]
+        total = part if total is None else total + part
+    return total
+
+
+def _fwd_scores(qf, kf, passes):
+    """S = Q·Kᵀ of one kv tile as the fp32 forward kernels sum it over Dh:
+    in one sum at the template instances' head dims; at the wide head dims
+    as their clusters do (`_wide_fwd_contract`)."""
+    if fa.wide_head_dim(qf.shape[-1]):
+        return _wide_fwd_contract(qf, kf, passes)
+    return mm_split(qf, kf.transpose(-1, -2), passes)
+
+
 def _split_tf32_forward(q, k, v, scale, passes=3):
-    """The fp32 kernel's steps, emulated: kv tiles of 64 rows at Dh 64 and
-    from 384 up (the wide kernel), 32 at Dh 128 and 256, S = Q·Kᵀ and P·V in
-    split TF32 (`mm_split`), then s·scale,
-    the online softmax with O rescaled by exp(m_old - m_new) and one
-    division by l at the end → (out, l, m) as `flash_attention_torch`
-    gives them with `residuals`."""
+    """The fp32 kernel's steps, emulated: kv tiles of 64 rows at Dh 64, 32
+    above (the wide kernel's too), S = Q·Kᵀ (`_fwd_scores`) and P·V in
+    split TF32 (`mm_split`), then s·scale, the online softmax with O
+    rescaled by exp(m_old - m_new) and one division by l at the end →
+    (out, l, m) as `flash_attention_torch` gives them with `residuals`."""
     qf, kf, vf = (t.transpose(1, 2) for t in (q, k, v))  # (B, H, N, D)
     B, H, n_q, D = qf.shape
-    rows = 64 if D == 64 or D >= 384 else 32
+    rows = 64 if D == 64 else 32
     m = torch.full((B, H, n_q, 1), float("-inf"))
     l = torch.zeros((B, H, n_q, 1))
     o = torch.zeros((B, H, n_q, D))
     for k0 in range(0, kf.shape[2], rows):
-        s = mm_split(qf, kf[:, :, k0:k0 + rows].transpose(-1, -2),
-                     passes) * scale
+        s = _fwd_scores(qf, kf[:, :, k0:k0 + rows], passes) * scale
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -175,14 +214,17 @@ def _split_tf32_forward(q, k, v, scale, passes=3):
 
 @pytest.mark.parametrize("shape", [(1, 256, 256, 2, 64),
                                    (1, 256, 512, 1, 128),
-                                   (1, 256, 256, 1, 384)],
+                                   (1, 256, 256, 1, 384),
+                                   (1, 256, 256, 1, 512),
+                                   (1, 128, 256, 1, 1152)],
                          ids=lambda s: "x".join(map(str, s)))
 def test_split_tf32_forward_matches_pallas_kernel(shape):
     """The fp32 forward kernel's arithmetic, emulated on the CPU: its steps
     with both products in split TF32 (three TF32 products summed in fp32)
     hold the JAX package's Pallas forward at the fp32 bar, the output
     within 1e-5 and the residuals l and m too, where one TF32 product
-    alone does not."""
+    alone does not; at the wide head dims in the clusters' order, above
+    Dh 1024 that of their passes."""
     B, nq, nk, H, D = shape
     arrays = _qkv(shape, "float32", seed=sum(shape) + 2)
     scale = D ** -0.5
@@ -201,6 +243,29 @@ def test_split_tf32_forward_matches_pallas_kernel(shape):
     assert float((np.abs(l.numpy() - jl) / jl).max()) <= 1e-5
     assert float(np.abs(m.numpy() - jm).max()) <= 1e-5 * np.abs(jm).max()
     assert np.abs(one.numpy() - want).max() > 1e-5
+
+
+@pytest.mark.parametrize("dh", [384, 512])
+def test_wide_forward_forms_the_backward_scores(dh):
+    """Up to Dh 1024 the fp32 wide forward forms S in the fp32 wide
+    backward's order, so that the p the backward recomputes from m and l
+    is the p the forward summed: the forward's emulation, its own code
+    (`_wide_fwd_contract`, per rank its two chains), tile by tile of 32 kv
+    rows, gives the bits of the backward's emulation
+    (`test_torch_port_flash_bwd._contract`, per slice its two chains) of
+    S·scale over all kv rows, and the forward's m is their row maximum."""
+    from test_torch_port_flash_bwd import _contract
+
+    q, k, v = (torch.from_numpy(a)
+               for a in _qkv((1, 128, 256, 2, dh), "float32", seed=dh))
+    qf, kf = (t.transpose(1, 2) for t in (q, k))
+    scale = dh ** -0.5
+    tiles = torch.cat([_fwd_scores(qf, kf[:, :, k0:k0 + 32], 3)
+                       for k0 in range(0, 256, 32)], -1) * scale
+    bwd = _contract(qf, kf, 3) * scale
+    assert torch.equal(tiles, bwd)
+    _, _, m = _split_tf32_forward(q, k, v, scale)
+    assert torch.equal(m, bwd.amax(-1))
 
 
 def test_plain_follows_the_kernel_steps():
@@ -431,7 +496,7 @@ def test_registry_matches_the_c_entry_points(name):
 def test_plan_entry_points_match_their_ctypes_binding(entry, leading):
     """chip_smoke.py binds each plan entry point with ctypes (the registry
     `FLASH_PLAN_ARGTYPES`): one c_int per int parameter of the C signature,
-    in order, then the int[2] it writes; both plans take the dtype (0
+    in order, then the int[4] it writes; both plans take the dtype (0
     bf16, 1 fp32), the backward's after dkv, as their launches do."""
     import ctypes
     import importlib.util
@@ -467,11 +532,13 @@ def test_flash_source_is_hand_written(name, case):
     FMA loop in the fp32 kernels and no cp.async left; each with one
     template instance per head dim of `HEAD_DIMS` and, for every other
     head dim the wrapper admits (multiples of 128 from 384 up), one wide
-    kernel a dtype that takes the head dim at run time; the fp32 wide
-    backward on thread-block clusters along Dh, each block contracting its
-    own 128-column slice once and the partials of S and dP exchanged
-    through distributed shared memory between cluster barriers; no library
-    on the route and no atomics. A source is read together with the local
+    kernel a dtype that takes the head dim at run time; the wide forward
+    (both dtypes) and the fp32 wide backward on thread-block clusters
+    along Dh, each block contracting its own 128-column slice once a kv
+    tile (no loop over 64-column chunks of Dh) and the partials of S (and
+    dP) exchanged through distributed shared memory between cluster
+    barriers, launched with the cluster attribute; no library on the route
+    and no atomics. A source is read together with the local
     headers it includes, and its own text calls their wgmma, TMA and
     mbarrier helpers."""
     source = cuda_build.KERNELS[name][0]
@@ -501,7 +568,7 @@ def test_flash_source_is_hand_written(name, case):
         assert op in code, op
     stem = "flash_fwd" if name == "flash_attention" else "flash_bwd"
     if name == "flash_attention":  # P·V by wgmma on the transposed V
-        for helper in ("mma_tf32<64>(", "split_vt<RS>(", "split_vt<64>("):
+        for helper in ("mma_tf32<64>(", "split_vt<RS>(", "split_vt<WRS>("):
             assert helper in own, helper
     else:  # the gradients by mma.sync; wgmma from registers above Dh 128
         for helper in ("mma_tf32<RS>(", "mma_tf32_m16n8(", "grad_mma<RS>(",
@@ -524,8 +591,7 @@ def test_flash_source_is_hand_written(name, case):
     assert not re.search(r"\b(atomic|atom\.|red\.)", ops)
     assert tuple(int(d) for d in re.findall(case, code)) == fa.HEAD_DIMS
     # every other head dim: the wide kernels, the head dim at run time, for
-    # the multiples of 128 from 384 up (FLASH_WIDE_FROM), streaming S over
-    # Dh in 64-column chunks
+    # the multiples of 128 from 384 up (FLASH_WIDE_FROM)
     assert re.search(r"if \((flash::)?wide\(D\)\) return "
                      r"(flash::)?launch_wide", own)
     assert ("bool wide(int D) { return D >= FLASH_WIDE_FROM && D % 128 == 0; }"
@@ -535,11 +601,38 @@ def test_flash_source_is_hand_written(name, case):
     for dtype in ("bf16", "f32"):
         assert re.search(rf"{stem}_wide_{dtype}\(const __grid_constant__ "
                          r"TmaParams tp, int D\)", own), dtype
-    # one a wide kernel that streams S over Dh in 64-column chunks: both of
-    # the forward's; of the backward's only the bf16 pair
+    # a wide kernel that streams S over Dh in 64-column chunks: of the
+    # backward's only the bf16 pair; none of the forward's
     assert own.count("const int nc = D / 64;") == (
-        2 if name == "flash_attention" else 1)
-    if name != "flash_attention":
+        0 if name == "flash_attention" else 1)
+    if name == "flash_attention":
+        # the wide forward, both dtypes: a cluster of blocks along Dh, each
+        # contracting its own 128-column slice once a kv tile (one group of
+        # wgmmas, no loop over chunks of Dh), the partials added and the
+        # softmax formed once by the rows' owners through distributed
+        # shared memory between cluster barriers; launched with the
+        # cluster's size
+        for dtype in ("bf16", "f32"):
+            body = re.search(
+                rf"flash_fwd_wide_{dtype}\(const __grid_constant__ "
+                r"TmaParams tp, int D\) \{.*?\n\}\n", own, re.S).group(0)
+            for helper in ("cluster_rank()", "cluster_blocks()",
+                           "cluster_sync();", "own_load<", "own_finish<",
+                           "row_owner("):
+                assert helper in body, (dtype, helper)
+            assert re.search(r"ld_cluster\w*\(", body), dtype
+            assert not re.search(r"D / (32|64)|< nc\b", body), dtype
+        for helper in ("mma_rs128(", "cluster_map(", "ld_dsmem(",
+                       "st_dsmem("):
+            assert helper in own, helper
+        for op in ("wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16",
+                   "barrier.cluster.arrive.release", "barrier.cluster.wait",
+                   "mapa.shared::cluster", "ld.shared::cluster",
+                   "st.shared::cluster",
+                   "cudaLaunchAttributeClusterDimension",
+                   "cudaLaunchKernelEx(", "cudaOccupancyMaxActiveClusters("):
+            assert op in code, op
+    else:
         # the fp32 wide pair: a cluster of blocks along Dh, each contracting
         # its own 128-column slice once a streamed tile (no loop over every
         # chunk of Dh), the partials added through distributed shared
@@ -559,6 +652,30 @@ def test_flash_source_is_hand_written(name, case):
     csrc = cuda_build.KERNELS[name][0].parent
     assert {p.name for p in csrc.glob("*.cu")} == {
         s.name for s, _, _ in cuda_build.KERNELS.values()}
+
+
+def test_wide_forward_probe_applies_to_the_source():
+    """`scripts/probe_wide_forward.py` alters copies of the forward's
+    source by its text: the clocked copy reads the clock around each of the
+    seven steps of both wide kernels' tile loops and adds its reader; the
+    all-read copy replaces the bf16 wide kernel's exchange and leaves the
+    fp32 kernel as it is. So the probe still applies to this source."""
+    from splatt3r_slam_tpu_torch.scripts import probe_wide_forward as probe
+
+    src = cuda_build.KERNELS["flash_attention"][0].read_text()
+    clocked = probe.phases_source(src)
+    for k in range(len(probe.PHASES)):
+        assert clocked.count(f"pc_[{k}] += t_ - pt_;") == 2, k
+    for d in (0, 1):
+        assert clocked.count(f"atomicAdd(&flash_probe[{d}][9]") == 1, d
+    assert 'extern "C" int flash_probe_read(' in clocked
+    allread = probe.allread_source(src)
+    fp32 = "__global__ void __launch_bounds__(WT, 1)\n    flash_fwd_wide_f32"
+    assert allread[allread.index(fp32):] == src[src.index(fp32):]
+    bf16 = allread[:allread.index(fp32)]
+    assert bf16.count("own_finish<false>(") == 0
+    assert src[:src.index(fp32)].count("own_finish<false>(") > 0
+    assert "flash_fwd_wide_bf16(" in bf16
 
 
 # -- the modules with "on" ---------------------------------------------------

@@ -51,6 +51,7 @@ from splatt3r_slam_tpu_torch.scripts import (
     compute_ate,
     convert_lpips,
     make_tum_fixture,
+    probe_wide_forward,
     sweep_accuracy,
 )
 from splatt3r_slam_tpu_torch.scripts import synthetic_pair as tsp
@@ -410,6 +411,7 @@ def test_make_tum_fixture_equals_committed(tmp_path):
     (compute_ate.main, ["gt.txt", "est.txt"]),
     (convert_lpips.main, ["--from-file", "x.pt", "out.npz"]),
     (make_tum_fixture.main, ["--out", "unused"]),
+    (probe_wide_forward.main, []),
 ], ids=lambda x: getattr(x, "__module__", "").rsplit(".", 1)[-1] or None)
 def test_default_device_is_cuda_and_raises_without_gpu(main, argv,
                                                       monkeypatch):
