@@ -13,8 +13,8 @@ Phases, each printing one line of its own; any failure exits non-zero:
              from Dh 384 up at run time, on thread-block clusters along
              Dh; all on the tensor cores, fp32 in split TF32) and
              flash_attention_bwd.cu (the dK/dV and dQ
-             kernels, 12 template instances and 4 wide kernels, the fp32
-             ones on thread-block clusters along Dh), with nvcc
+             kernels, 12 template instances and 4 wide kernels on
+             thread-block clusters along Dh, bf16 and fp32), with nvcc
              (sm_90a), one nvcc a source, started together
              (`cuda_build.build`); print the build seconds, each library's
              kernels (template instances and wide kernels) and what ptxas
@@ -306,10 +306,11 @@ Phases, each printing one line of its own; any failure exits non-zero:
              that the Pallas flash attention's VJP runs): at 7c's shapes
              (the full-finetune step's own B1 shapes among them), at Dh
              128 and 256 in bf16 and fp32 (B1 n_q 256 n_kv 512 H4, Dh 128
-             with v strided), at 7c's rows of the wide kernels and, in
-             fp32, at Dh 1152 (B1 n_q 256 n_kv 512 H1: the clusters' passes
-             above Dh 1024), the fp32 wide pair run twice at each row and
-             its gradients the same bits, the forward's output with its
+             with v strided), at 7c's rows of the wide kernels and at Dh
+             1152 (B1 n_q 256 n_kv 512 H1: the clusters' passes above Dh
+             1024), the wide pair (both dtypes on thread-block clusters)
+             run twice at each row and its gradients the same bits, the
+             forward's output with its
              residuals l and m the same as without, l and m within 1e-5 of
              the plain version's, and both backward kernels against the
              plain backward (`flash_attention_bwd_torch`), each gradient
@@ -366,8 +367,10 @@ holds a `flash_attention_bwd.cu`, it also builds that into a library of its
 own and, after phase 7d, times its dK/dV and dQ kernels in turns with this
 checkout's at every shape of 7d (the wide rows where DIR's source has the
 fp32 wide kernels), median of 7 rounds, with the gradient elements
-where the two builds differ and, for the fp32 wide pair, whether it is
-faster at every row and its sum over the parent's (`[compare-flash-bwd]`);
+where the two builds differ, whether they differ nowhere outside the bf16
+wide pair, whether both bf16 wide kernels are faster at B1 N768 H8 Dh 512
+and, for each bf16 wide row, each kernel's time over the parent's
+(`[compare-flash-bwd]`);
 where it holds a `flash_attention.cu`,
 it builds that too and, after phase 7c, times its forward in turns with
 this checkout's at every bf16 Dh-64 shape, every fp32 shape and every
@@ -2671,7 +2674,7 @@ FLASH_WIDE_SHAPES = tuple(
         ("dh1024 B1 Nq256 Nkv512 H2", 256, 512, 2, 1024)))
 # above Dh 1024 the wide kernels run passes of clusters, each block
 # contracting slices in turn (n = 9 slices: 2 passes of 5 blocks), both
-# dtypes; 7c holds the forward there, 7d the fp32 pair
+# dtypes; 7c holds the forward there, 7d the backward pair
 FLASH_WIDE_PASS_SHAPES = tuple(
     (f"{tag}_dh1152 B1 Nq256 Nkv512 H1", 1, 256, 512, 1, 1152, dt, False)
     for tag, dt in (("bf16", "bfloat16"), ("fp32", "float32")))
@@ -3211,8 +3214,8 @@ FLASH_BWD_SHAPES = (
     + tuple((f"bf16_dh{d} B1 Nq256 Nkv512 H4", 1, 256, 512, 4, d,
              "bfloat16", d == 128) for d in (128, 256))
     + FLASH_FP32_SHAPES[2:] + FLASH_WIDE_SHAPES
-    # the fp32 wide pair's passes of clusters
-    + FLASH_WIDE_PASS_SHAPES[1:])
+    # the wide pair's passes of clusters, both dtypes
+    + FLASH_WIDE_PASS_SHAPES)
 # the kernels against the plain backward, each gradient's largest error over
 # its peak: two bf16 steps in bf16 (both round p, ds and the gradients to
 # bf16, with fp32 sums in another order: at most 0.52 of it on an H100);
@@ -3423,10 +3426,9 @@ def _flash_bwd_held(torch, fl, q, k, v, do, scale, what):
 
     o, l, m, l_err, m_err = _flash_residuals_held(torch, fl, q, k, v,
                                                   scale, what)
-    # the fp32 wide pair sums S and dP across a cluster: run it twice
+    # the wide pair sums S and dP across a cluster: run it twice
     h = _flash_bwd_errors(torch, fl, (q, k, v, o, l, m, do), scale, what,
-                          twice=(q.dtype == torch.float32
-                                 and fl.wide_head_dim(q.shape[3])))
+                          twice=fl.wide_head_dim(q.shape[3]))
     B, n_q, H, D = q.shape
     n_kv = k.shape[1]
     h.update(shape=[B, n_q, n_kv, H, D], dtype=str(q.dtype)[6:],
@@ -4916,14 +4918,20 @@ def main(argv=None) -> int:
     if args.parent and os.path.exists(
             os.path.join(args.parent, "flash_attention_bwd.cu")):
         found = _compare_flash_bwd_with_parent(torch, fl, args.parent)
-        # the fp32 wide pair (redesigned in this checkout's source): faster
-        # at every row?; the pair's sum, this checkout's over the parent's
-        wide32 = {label: f for label, f in found.items()
-                  if f["dtype"] == "float32" and fl.wide_head_dim(f["D"])}
-        faster = all(f[kind][1] < f[kind][0] for f in wide32.values()
-                     for kind in ("dkv", "dq"))
-        ratios = {label: (f["dkv"][1] + f["dq"][1])
-                  / (f["dkv"][0] + f["dq"][0]) for label, f in wide32.items()}
+        # the bf16 wide pair (redesigned in this checkout's source): both
+        # kernels faster at B1 N768 H8 Dh 512?, each kernel's time over the
+        # parent's at every bf16 wide row; every other row the same bits?
+        wide16 = {label: f for label, f in found.items()
+                  if f["dtype"] == "bfloat16" and fl.wide_head_dim(f["D"])}
+        faster = (all(found[FLASH_WIDE_HEAD][kind][1]
+                      < found[FLASH_WIDE_HEAD][kind][0]
+                      for kind in ("dkv", "dq"))
+                  if FLASH_WIDE_HEAD in found else None)
+        same = all(f["differ"] == 0 for label, f in found.items()
+                   if label not in wide16)
+        ratios = {label: tuple(f[kind][1] / f[kind][0]
+                               for kind in ("dkv", "dq"))
+                  for label, f in wide16.items()}
         print("[compare-flash-bwd] device ms, the flash_attention_bwd.cu in "
               "--parent → this checkout's, in turns, median of 7 rounds of "
               "20 launches | " + " | ".join(
@@ -4932,11 +4940,17 @@ def main(argv=None) -> int:
                   f"{f['diff']:.1e} of their peak, in {f['differ']} "
                   f"elements)"
                   for label, f in found.items())
-              + f" | the fp32 wide kernels faster at every wide row: {faster}"
-              ", the pair's sum over the parent's: " + ", ".join(
-                  f"{label.split()[0]} {r:.3f}" for label, r in ratios.items())
+              + f" | 0 differing elements outside the bf16 wide pair: "
+              f"{same} | the bf16 wide kernels faster at "
+              f"{FLASH_WIDE_HEAD.split('_', 1)[1]}: {faster}; each kernel's "
+              "time over the parent's (dK/dV, dQ): " + ", ".join(
+                  f"{label.split()[0]} {r[0]:.3f}, {r[1]:.3f}"
+                  for label, r in ratios.items())
               + f" | {_smi()}")
         results["compare_flash_bwd"] = found
+        results["compare_flash_bwd_summary"] = dict(
+            same_outside_bf16_wide=same, bf16_wide_faster_at_head=faster,
+            bf16_wide_over_parent=ratios)
     if args.wide_from_128:
         found = _compare_wide_with_instances(torch, fl)
         print("[wide-vs-instances] device ms, the template instances → the "
@@ -5181,7 +5195,7 @@ def main(argv=None) -> int:
            for label, h in ft_res["shapes"].items()
            if fl.wide_head_dim(h["shape"][4])
            for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")},
-        # how each wide row ran: the fp32 kernel on clusters along Dh
+        # how each wide row ran: clusters along Dh (both dtypes)
         **{f"plan_{label.split()[0]}": {
             k: h[f"plan_{kind}"][k] for k in (
                 "cluster", "max_active_clusters", "blocks", "blocks_per_sm",

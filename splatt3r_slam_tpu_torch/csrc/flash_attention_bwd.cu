@@ -122,11 +122,10 @@
 // Head dims: those of the forward (flash_attention.cu). Dh 64, 128 and 256
 // are template instances of the kernels above; every multiple of 128 from
 // 384 up runs on one wide kernel a dtype and gradient, Dh at run time
-// ("wide head dims" below): in bf16 S and dP streamed over Dh in 64-column
-// chunks by every block; in fp32 on a thread-block cluster along Dh, each
-// block contracting its own 128 columns and the cluster adding the partials
-// of S and dP through distributed shared memory, so that they are computed
-// once for each pair of tiles.
+// ("wide head dims" below), in both dtypes on a thread-block cluster along
+// Dh: each block contracts its own 128 columns and the cluster adds the
+// partials of S and dP through distributed shared memory, so that they are
+// computed once for each pair of tiles.
 
 #include "flash_common.cuh"  // mbarrier, TMA, wgmma and split-TF32 helpers
 
@@ -795,221 +794,14 @@ __global__ void __launch_bounds__(WG, 1)
 // ------------------------------------------------------ wide head dims ----
 
 // Dh a multiple of 128 from 384 up, the head dim at run time: one kernel a
-// dtype and gradient. No tile spans Dh, whose 64-row tiles outgrow shared
-// memory (at Dh 512 in fp32 q's hi and lo alone would be 256 KiB).
+// dtype and gradient, each on a thread-block cluster along Dh. No tile spans
+// Dh, whose 64-row tiles outgrow shared memory (at Dh 512 in fp32 q's hi and
+// lo alone would be 256 KiB).
 //
-// bf16: the blocks above (64 fixed rows and 64 gradient columns, fixed/64 x
-// Dh/64 blocks a head). S and dP are summed over Dh in chunks of 64
-// columns, each a pair of 64-column boxes (the fixed rows' and the streamed
-// tile's) that TMA brings into a ring of its own, S's chunks then dP's for
-// every streamed tile, so every block of a fixed tile computes S and dP
-// whole, (Dh/64) times the work of one block. The streamed tile's boxes at
-// the block's 64 columns (S1's, and for dK/dV S2's with m, l and di) come
-// into a second ring for the gradient products, which run as above. Each
-// chunk is waited for before the next starts and each stage is refilled
-// once its products have retired: simple, not fast.
-constexpr int WST = 4;   // chunk pairs a ring, bf16
-constexpr int WTST = 2;  // streamed tiles' boxes a ring
-
-// 1024 bytes of alignment slack, the pair ring (fixed box, then streamed
-// box), the tile ring (S1's box, then S2's), for dK/dV m, l and di of each
-// tile stage and their 1/l, the barriers (a pair stage each, then a tile
-// stage each)
-template <bool DKV>
-constexpr int smem_wide_bf16() {
-  return 1024 + (WST + WTST) * 2 * BOX + (DKV ? WTST * 4 * ROWS * 4 : 0) +
-         8 * (WST + WTST);
-}
-
-template <bool DKV>
-__global__ void __launch_bounds__(WG, 2)
-    flash_bwd_wide_bf16(const __grid_constant__ TmaParams tp, int D) {
-  const Params& p = tp.p;
-  extern __shared__ unsigned char smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  const uint32_t base = (raw + 1023) & ~1023u;
-  unsigned char* sm = smem_raw + (base - raw);
-  const uint32_t pairs = base, tring = base + WST * 2 * BOX;
-  float* stats = reinterpret_cast<float*>(sm + (WST + WTST) * 2 * BOX);
-  float* inv = stats + WTST * 3 * ROWS;  // [WTST][64] 1 / l (dK/dV)
-  const uint32_t bars = smem_addr(stats) + (DKV ? WTST * 4 * ROWS * 4 : 0);
-
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int g = (tid & 31) >> 2, c = tid & 3;
-  const int nc = D / 64;  // chunks of the contraction
-  const int sub = blockIdx.x % nc;
-  const int r0 = (blockIdx.x / nc) * ROWS, h = blockIdx.y, b = blockIdx.z;
-  const int tiles = (DKV ? p.n_q : p.n_kv) / ROWS, items = tiles * 2 * nc;
-  const long long sbase =
-      (static_cast<long long>(b) * gridDim.y + h) * p.n_q;  // m, l, di
-
-  // item u: chunk x of S (F1's box x, S1's box x of streamed tile
-  // u / (2 nc)) or, in the second half of the tile's items, of dP (F2, S2)
-  auto load_pair = [&](int u) {
-    const int s = u % WST, t = u % (2 * nc), x = t % nc;
-    const uint32_t bar = bars + 8 * s, dst = pairs + s * 2 * BOX;
-    bar_expect(bar, 2 * BOX);
-    tma_box(dst, t < nc ? &tp.f1 : &tp.f2, 64 * x, r0, h, b, bar);
-    tma_box(dst + BOX, t < nc ? &tp.s1 : &tp.s2, 64 * x,
-            (u / (2 * nc)) * ROWS, h, b, bar);
-  };
-  // streamed tile j at the block's 64 columns, for the gradient products
-  auto load_tile = [&](int j) {
-    const int s = j % WTST;
-    const uint32_t bar = bars + 8 * (WST + s), dst = tring + s * 2 * BOX;
-    bar_expect(bar, DKV ? 2 * BOX + 3 * ROWS * 4 : BOX);
-    tma_box(dst, &tp.s1, 64 * sub, j * ROWS, h, b, bar);
-    if constexpr (DKV) {
-      tma_box(dst + BOX, &tp.s2, 64 * sub, j * ROWS, h, b, bar);
-      const long long i = sbase + static_cast<long long>(j) * ROWS;
-      const uint32_t st = smem_addr(stats + s * 3 * ROWS);
-      bulk_copy(st, p.m + i, ROWS * 4, bar);
-      bulk_copy(st + ROWS * 4, p.l + i, ROWS * 4, bar);
-      bulk_copy(st + 2 * ROWS * 4, p.di + i, ROWS * 4, bar);
-    }
-  };
-
-  if (tid == 0) {
-    for (int s = 0; s < WST + WTST; ++s) bar_init(bars + 8 * s);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  if (tid == 0) {
-    for (int u = 0; u < WST && u < items; ++u) load_pair(u);
-    for (int j = 0; j < WTST && j < tiles; ++j) load_tile(j);
-  }
-  __syncwarp();
-
-  // dQ: m, 1 / l and di of the thread's rows g and g + 8 of its warp's 16
-  float rm[2] = {0.f, 0.f}, rinv[2] = {0.f, 0.f}, rdi[2] = {0.f, 0.f};
-  if constexpr (!DKV) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const long long i = sbase + r0 + warp * 16 + g + 8 * r;
-      rm[r] = p.m[i];
-      rinv[r] = 1.f / p.l[i];
-      rdi[r] = p.di[i];
-    }
-  }
-
-  float acc1[32], acc2[32], sc[32], dp[32];  // dK | dQ, dV, S, dP
-  uint32_t pa[4][4], da[4][4];               // P and dS as A fragments
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc1[i] = acc2[i] = sc[i] = dp[i] = 0.f;
-
-  // item u, chunk x, added to d (S or dP); its stage refilled after
-  auto chunk = [&](float (&d)[32], int u, int x) {
-    const int s = u % WST;
-    const uint32_t st = pairs + s * 2 * BOX;
-    bar_wait(bars + 8 * s, (u / WST) & 1);
-    hold(d);
-    wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_ss(d, desc(st + kk * 32), desc(st + BOX + kk * 32),
-             x > 0 || kk > 0);
-    wg_commit();
-    wg_wait<0>();
-    hold(d);
-    __syncthreads();  // no warp reads the stage any more
-    if (tid == 0 && u + WST < items) load_pair(u + WST);
-    __syncwarp();
-  };
-
-  for (int j = 0; j < tiles; ++j) {
-    for (int x = 0; x < nc; ++x) chunk(sc, j * 2 * nc + x, x);
-    for (int x = 0; x < nc; ++x) chunk(dp, j * 2 * nc + nc + x, x);
-    const int s = j % WTST;
-    const uint32_t t1 = tring + s * 2 * BOX, t2 = t1 + BOX;
-    const float* tm = stats + s * 3 * ROWS;
-    const float* ti = inv + s * ROWS;
-    bar_wait(bars + 8 * (WST + s), (j / WTST) & 1);
-    if constexpr (DKV) {
-      if (tid < ROWS) inv[s * ROWS + tid] = 1.f / tm[ROWS + tid];
-      __syncthreads();
-    }
-
-    // P, in fp32; as A fragments rounded to bf16
-    float pv[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      float mm, iv;
-      if constexpr (DKV) {
-        const int col = 8 * (i >> 2) + 2 * c + (i & 1);
-        mm = tm[col];
-        iv = ti[col];
-      } else {
-        mm = rm[(i >> 1) & 1];
-        iv = rinv[(i >> 1) & 1];
-      }
-      pv[i] = exp_ftz(__fmul_rn(sc[i], p.scale) - mm) * iv;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        pa[kk][r] = pack_bf16(pv[8 * kk + 2 * r], pv[8 * kk + 2 * r + 1]);
-
-    // dS = (dP - di) P scale; acc1 += dS S1[:, sub], dK/dV: acc2 += P S2
-    float dsv[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const float dd = DKV ? tm[2 * ROWS + 8 * (i >> 2) + 2 * c + (i & 1)]
-                           : rdi[(i >> 1) & 1];
-      dsv[i] = (dp[i] - dd) * pv[i] * p.scale;
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-        da[kk][r] = pack_bf16(dsv[8 * kk + 2 * r], dsv[8 * kk + 2 * r + 1]);
-    hold(acc1);
-    if constexpr (DKV) hold(acc2);
-    wg_fence();
-    if constexpr (DKV) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        mma_rs(acc2, pa[kk], desc(t2 + kk * 16 * 128));
-    }
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-      mma_rs(acc1, da[kk], desc(t1 + kk * 16 * 128));
-    wg_commit();
-    wg_wait<0>();
-    hold(acc1);
-    if constexpr (DKV) hold(acc2);
-    __syncthreads();  // no warp reads the tile stage any more
-    if (tid == 0 && j + WTST < tiles) load_tile(j + WTST);
-    __syncwarp();
-  }
-
-  const int row = r0 + warp * 16 + g, col = sub * 64 + 2 * c;
-  __nv_bfloat16* o1 = static_cast<__nv_bfloat16*>(p.g1) + b * p.g1_b +
-                      h * p.g1_h + row * p.g1_n + col;
-#pragma unroll
-  for (int t = 0; t < 8; ++t) {
-    *reinterpret_cast<__nv_bfloat162*>(o1 + t * 8) =
-        __floats2bfloat162_rn(acc1[4 * t], acc1[4 * t + 1]);
-    *reinterpret_cast<__nv_bfloat162*>(o1 + 8 * p.g1_n + t * 8) =
-        __floats2bfloat162_rn(acc1[4 * t + 2], acc1[4 * t + 3]);
-  }
-  if constexpr (DKV) {
-    __nv_bfloat16* o2 = static_cast<__nv_bfloat16*>(p.g2) + b * p.g2_b +
-                        h * p.g2_h + row * p.g2_n + col;
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      *reinterpret_cast<__nv_bfloat162*>(o2 + t * 8) =
-          __floats2bfloat162_rn(acc2[4 * t], acc2[4 * t + 1]);
-      *reinterpret_cast<__nv_bfloat162*>(o2 + 8 * p.g2_n + t * 8) =
-          __floats2bfloat162_rn(acc2[4 * t + 2], acc2[4 * t + 3]);
-    }
-  }
-}
-
 // fp32: split TF32 as above, on a thread-block cluster along Dh, so that S
-// and dP are computed once for each (fixed tile, streamed tile) pair (the
-// bf16 scheme above sums them in each of a fixed tile's Dh/64 blocks: in
-// fp32 at Dh 512, 4.5x and 5.7x the pair's tensor work).
+// and dP are computed once for each (fixed tile, streamed tile) pair (a
+// block for each 64 gradient columns that sums them over all of Dh does
+// Dh/64 times the work: at Dh 512, 4.5x and 5.7x the pair's tensor work).
 //
 // Slices and clusters. Dh is cut into slices of WC = 128 columns, n = Dh /
 // 128 of them. The blocks of one fixed tile (64 rows) form a cluster of cs
@@ -1084,6 +876,18 @@ __global__ void __launch_bounds__(WG, 2)
 // bytes, one block an SM. A cluster's blocks share a GPC, so fewer than 132
 // blocks may be resident at once: the plan reports
 // cudaOccupancyMaxActiveClusters beside the grid.
+// The k-th slice that block `rank` of pass `pass` of a wide kernel's
+// cluster contracts each streamed tile: its rounds in turn from the one
+// after its pass, so that the gradients' slice comes last.
+__device__ __forceinline__ int wide_slice(const WidePlan& w, int rank,
+                                          int pass, int cs, int k) {
+  for (int x = 0, seen = 0; x < w.rounds; ++x) {
+    const int sl = rank + (pass + 1 + x) % w.rounds * cs;
+    if (sl < w.n && seen++ == k) return sl;
+  }
+  return 0;
+}
+
 constexpr int WRS = 32;                // streamed rows a tile
 constexpr int WT = 2 * WG;             // threads a block
 constexpr int WFBOX = ROWS * 128;      // 64 fixed rows x 32 columns
@@ -1167,15 +971,7 @@ __global__ void __launch_bounds__(WT, 1)
   const long long sbase =
       (static_cast<long long>(b) * gridDim.y + h) * p.n_q;  // m, l, di
 
-  // the k-th slice a tile contracts: its rounds in turn from the one after
-  // its pass, so that the gradients' slice comes last
-  auto slice = [&](int k) {
-    for (int x = 0, seen = 0; x < w.rounds; ++x) {
-      const int sl = rank + (pass + 1 + x) % w.rounds * cs;
-      if (sl < w.n && seen++ == k) return sl;
-    }
-    return 0;
-  };
+  auto slice = [&](int k) { return wide_slice(w, rank, pass, cs, k); };
   auto load_fixed = [&](int sl) {
     const uint32_t bar = bars + 8;
     bar_expect(bar, 2 * WFIX);
@@ -1432,12 +1228,454 @@ __global__ void __launch_bounds__(WT, 1)
   }
 }
 
-// The fp32 wide kernel's launch at a shape with `fixed` fixed rows: its
-// grid (a cluster of cs blocks along Dh for each fixed tile and pass), two
-// warpgroups a block, its shared memory, on stream `st`.
-inline void wide_f32_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& at,
-                            int fixed, int B, int H, int D, cudaStream_t st) {
-  wide_launch_config(cfg, at, fixed / ROWS, B, H, D, WT, smem_wide_f32(), st);
+// bf16 on the same clusters, so that S and dP are computed once for each
+// (fixed tile, streamed tile) pair: a block for each 64 gradient columns
+// that sums them over all of Dh in 64-column chunks does Dh/64 times the
+// work (at Dh 512 the dK/dV kernel's 18 products a pair of tiles where 4
+// do, 4.5x, and dQ's 17 where 3 do, 5.7x), and waits for each chunk.
+//
+// Slices and clusters as the fp32 pair's (wide_plan): block r of a fixed
+// tile's cluster holds the fixed rows at slice r (k and v for dK/dV, q and
+// do for dQ: two 64 x 128 slices, 32 KiB, loaded once by TMA) and streams
+// the other side's tiles of 64 rows at the same columns, whose boxes serve
+// both of its products: its partials of S and dP (the contraction over its
+// 128 columns) and its gradients at its 128 columns. Above Dh 1024 block r
+// of pass p writes the gradients of slice r + p cs and contracts its slices
+// r, r + cs, ... in turn each streamed tile, the fixed slices reloaded with
+// each and the gradients' slice last (the fp32 pair's order), so that the
+// stage then holds the streamed tile at the gradients' columns; each pass
+// computes S and dP whole, `rounds` times the least work, which no Dh up to
+// 1024 pays.
+//
+// A block is two warpgroups. Warpgroup 0 forms the block's partial of S
+// (S^T = K Q^T for dK/dV, S = Q K^T for dQ), warpgroup 1 that of dP (dP^T =
+// V dO^T, dP = dO V^T), each by one chain of 8 wgmma m64n64k16 with both
+// operands K-major in shared memory (the fixed slice and the streamed
+// slice as TMA lays them), left in flight.
+//
+// The exchange, one cluster barrier a tile (barrier.cluster.arrive.release
+// / wait.acquire). Each warpgroup writes its partial to the block's shared
+// memory in the accumulator's order. A tile's 64 x 64 elements are 1024
+// "units" of four, n-tile nt (8 columns) of accumulator thread t, both of
+// its row halves; block r owns units 1024 r / cs up to 1024 (r + 1) / cs,
+// one a thread (two turns at cs 3). Once a barrier has shown every block's
+// partials of tile j, the owner of a unit reads the cs partials of its S
+// and dP through distributed shared memory (mapa, ld.shared::cluster; the
+// first four ranks' loads issued a tile ahead, the others before their
+// adds), adds them in rank order, and forms in fp32 once an element p =
+// exp(s scale - m) (1 / l), s scale rounded first (the steps of the bf16
+// wide forward, which forms S from the same partials in the same order at
+// dQ's operands: given its m and l, the p recomputed here is the p it
+// formed), and dS = (dP - di) p scale. It pushes P and dS rounded to bf16
+// into every block (st.shared::cluster) where that block's gradient
+// warpgroup reads its A fragments: dK/dV P and dS as one 16-byte piece, dQ
+// dS alone. Partials are read and fragments written 16 bytes at a time
+// where they can be (a unit's four elements lie together in both). The next
+// barrier shows them to every block, and with them tile j + 2's partials.
+// The partials and the fragments are double-buffered by the tile's parity,
+// so that one barrier a tile orders every read before the write that
+// reuses its buffer. So each element of S and dP is summed once, in one
+// order, every block uses the same bits of P and dS, and the gradients are
+// the same bits from run to run, with no atomics.
+//
+// The gradients by wgmma m64nNk16 with A from registers (the owners'
+// fragments) and the streamed slice read transposed (MN-major, tnspB; its
+// two boxes 8 KiB apart): dK/dV, warpgroup 0 dK += dS^T Q and warpgroup 1
+// dV += P^T dO at all 128 columns of the slice (m64n128k16); dQ, each
+// warpgroup dQ += dS K at its 64 of them (m64n64k16). bf16 wgmma takes a
+// transposed B operand, so no transposed copy of the streamed slice is
+// made (the fp32 pair's transpose_t).
+//
+// Buffers and order. Streamed tiles of 64 rows (the slices of both
+// tensors, 32 KiB a stage, with m, l and di for dK/dV) in a ring of three
+// stages: a tile's stage lives from its contraction to its gradients two
+// tiles later, and the third takes the next copy. Per tile j: tile j + 1's
+// owner loads issued; tile j's gradients issued; tile j + 2's contraction
+// issued; tile j + 1's owners' adds, P and dS, pushed; both groups retired;
+// tile j + 2's partial written; tile j + 3's copies into tile j's stage;
+// the cluster barrier. So the tensor cores run tile j's gradients and tile
+// j + 2's contraction under tile j + 1's owner work. Shared memory: the
+// fixed slices (32 KiB), the ring (96 KiB), the partials (2 x 2 x 16 KiB),
+// the fragments (2 x 2 x 8 KiB) and the stats: 231,712 bytes, one block an
+// SM, no alignment slack, so the kernel declares it 1024-byte aligned and
+// traps if it is not.
+//
+// Rounding: S and dP are one wgmma chain a block (8 k-steps a slice; above
+// Dh 1024 the block's slices in one chain, in its order) and the cs
+// partials are added in fp32 in rank order; P and dS are rounded to bf16
+// for their products, each gradient summed by the tensor cores over the
+// streamed tiles and rounded once to bf16 (the plain backward's steps).
+//
+// What sets its time (scripts/probe_wide_backward.py: cycles a block per
+// tile on an H100 at B1 N768 H8 Dh 512): the exchange with its cluster
+// barrier, over half of a tile's, not the tensor cores, whose four
+// products of 64 x 64 x 128 a block and tile take about a fifth of it.
+// Measured and not kept (the probe's variants, in turns with this kernel
+// at the bf16 wide rows of chip_smoke.py, two runs, the same bits): the
+// exchange in 8-byte pieces (a unit's float2s 1 KiB apart in the
+// partials, P and dS pushed apart), 1.03-1.19x its time; the block's own
+// partials and fragments by plain shared-memory accesses in place of the
+// cluster's, 1.01-1.07x; the next copies issued after the cluster
+// barrier, a copy a warp, with no block barrier before them, 0.96-0.97x
+// at B1 N768 H8 Dh 512 but 0.99-1.03x at the other rows (not worth its
+// extra code); each warpgroup's copies after a barrier of its own warps,
+// 0.98-1.02x. Not
+// built: streamed tiles of 32 rows for two blocks an SM (about 100 KiB
+// each), which would leave 128 registers a thread where dK/dV's gradient
+// alone takes 64 and the exchange's loads 32.
+constexpr int BW_ST = 3;                // streamed tiles a ring
+constexpr int BW_SLICE = 2 * BOX;       // a 64 x 128 slice: two boxes
+constexpr int BW_PM = ROWS * ROWS * 4;  // a 64 x 64 fp32 partial
+constexpr int BW_FM = ROWS * ROWS * 2;  // a 64 x 64 bf16 A-fragment matrix
+constexpr int BW_UNITS = 1024;          // units of four a tile
+// byte offsets: the fixed slices (f1's, then f2's), the ring (stage s: s1's
+// slice, then s2's), the partials (parity: S's, then dP's), the fragments
+// (parity: P's, then dS's), the stats (dK/dV: m, l, di of each stage's
+// rows; dQ: m, 1 / l, di of the fixed rows), the barriers (a stage each,
+// then the fixed slices')
+constexpr int BW_FIX = 0, BW_STG = 2 * BW_SLICE,
+              BW_PART = BW_STG + BW_ST * 2 * BW_SLICE,
+              BW_FRAG = BW_PART + 2 * 2 * BW_PM,
+              BW_STATS = BW_FRAG + 2 * 2 * BW_FM,
+              BW_BARS = BW_STATS + BW_ST * 3 * ROWS * 4;
+constexpr int smem_wide_bf16() { return BW_BARS + 8 * (BW_ST + 1); }
+static_assert(smem_wide_bf16() <= 232448, "more than a block's shared memory");
+
+template <bool DKV>
+__global__ void __launch_bounds__(WT, 1)
+    flash_bwd_wide_bf16(const __grid_constant__ TmaParams tp, int D) {
+  const Params& p = tp.p;
+  extern __shared__ __align__(1024) unsigned char bw_smem[];
+  const uint32_t base = smem_addr(bw_smem);
+  if (base & 1023) __trap();
+  unsigned char* sm = bw_smem;
+  float* stats = reinterpret_cast<float*>(sm + BW_STATS);
+  const uint32_t bars = base + BW_BARS, fbar = bars + 8 * BW_ST;
+
+  const int tid = threadIdx.x, wg = tid >> 7, t = tid & (WG - 1);
+  const int warp = t >> 5, g = (t & 31) >> 2, c = t & 3;
+  const WidePlan w = wide_plan(D);
+  const int rank = static_cast<int>(cluster_rank()),
+            cs = static_cast<int>(cluster_blocks());
+  const int pass = static_cast<int>(blockIdx.x) / cs % w.rounds;
+  const int r0 = static_cast<int>(blockIdx.x) / (cs * w.rounds) * ROWS,
+            h = blockIdx.y, b = blockIdx.z;
+  const int gs = rank + pass * cs;  // the gradients' slice (none past n)
+  const bool out = gs < w.n;
+  const int items = (w.n - rank + cs - 1) / cs;  // slices contracted a tile
+  const bool multi = w.rounds > 1;
+  const int tiles = (DKV ? p.n_q : p.n_kv) / ROWS;
+  const long long sbase =
+      (static_cast<long long>(b) * gridDim.y + h) * p.n_q;  // m, l, di
+
+  auto slice = [&](int k) { return wide_slice(w, rank, pass, cs, k); };
+  // the fixed slices of f1 and f2 at slice sl, by thread 0
+  auto load_fixed = [&](int sl, uint32_t bar) {
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      tma_box(base + BW_FIX + x * BOX, &tp.f1, WC * sl + 64 * x, r0, h, b,
+              bar);
+      tma_box(base + BW_FIX + BW_SLICE + x * BOX, &tp.f2, WC * sl + 64 * x,
+              r0, h, b, bar);
+    }
+  };
+  // item k of streamed tile j into its stage, by thread 0: the slices of s1
+  // and s2 (with passes also those of f1 and f2) at the item's slice and,
+  // for dK/dV with the first item, m, l and di of the tile's rows
+  auto load_item = [&](int j, int k) {
+    const int s = j % BW_ST, sl = slice(k);
+    const uint32_t bar = bars + 8 * s, dst = base + BW_STG + s * 2 * BW_SLICE;
+    bar_expect(bar, (multi ? 4 : 2) * BW_SLICE +
+                        (DKV && k == 0 ? 3 * ROWS * 4 : 0));
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      tma_box(dst + x * BOX, &tp.s1, WC * sl + 64 * x, j * ROWS, h, b, bar);
+      tma_box(dst + BW_SLICE + x * BOX, &tp.s2, WC * sl + 64 * x, j * ROWS,
+              h, b, bar);
+    }
+    if (multi) load_fixed(sl, bar);
+    if (DKV && k == 0) {
+      const long long i = sbase + static_cast<long long>(j) * ROWS;
+      const uint32_t st = smem_addr(stats + s * 3 * ROWS);
+      bulk_copy(st, p.m + i, ROWS * 4, bar);
+      bulk_copy(st + ROWS * 4, p.l + i, ROWS * 4, bar);
+      bulk_copy(st + 2 * ROWS * 4, p.di + i, ROWS * 4, bar);
+    }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s <= BW_ST; ++s) bar_init(bars + 8 * s);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if constexpr (!DKV) {  // m, 1 / l and di of the fixed rows
+    if (tid < ROWS) {
+      const long long i = sbase + r0 + tid;
+      stats[tid] = p.m[i];
+      stats[ROWS + tid] = 1.f / p.l[i];
+      stats[2 * ROWS + tid] = p.di[i];
+    }
+  }
+  __syncthreads();
+  if (tid == 0) {
+    if (!multi) {
+      bar_expect(fbar, 2 * BW_SLICE);
+      load_fixed(rank, fbar);
+    }
+    for (int j = 0; j < (multi ? 1 : BW_ST) && j < tiles; ++j)
+      load_item(j, 0);
+  }
+  __syncwarp();
+
+  // the warpgroup's gradient (wgmma's accumulator layout): dK/dV, all 128
+  // columns of the slice (warpgroup 0 dK, 1 dV); dQ, 64 of them
+  constexpr int GN = DKV ? WC : WC / 2;
+  float acc[GN / 2], sc[32];  // the gradient; the partial of S or dP
+  uint32_t fa[4][4];          // P^T or dS^T (dS) as A fragments
+#pragma unroll
+  for (int i = 0; i < GN / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) fa[i / 4][i % 4] = 0u;
+
+  // the warpgroup's partial of tile j's S (warpgroup 0) or dP (1) into sc:
+  // one chain, issued and left in flight; with passes each item in turn,
+  // each waited for before the next is loaded
+  const uint32_t fix = base + BW_FIX + wg * BW_SLICE;
+  auto contract = [&](int j) {
+    const int s = j % BW_ST;
+    const uint32_t st = base + BW_STG + s * 2 * BW_SLICE + wg * BW_SLICE;
+    for (int k = 0; k < items; ++k) {
+      if (!multi && j == 0) bar_wait(fbar, 0);
+      bar_wait(bars + 8 * s, ((j / BW_ST) * items + k) & 1);
+      hold(sc);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint32_t off = (kk >> 2) * BOX + (kk & 3) * 32;
+        mma_ss(sc, desc(fix + off), desc(st + off), k > 0 || kk > 0);
+      }
+      wg_commit();
+      if (k + 1 < items) {
+        wg_wait<0>();
+        hold(sc);
+        __syncthreads();  // no warp reads the item's slices any more
+        if (tid == 0) load_item(j, k + 1);
+        __syncwarp();
+      }
+    }
+  };
+
+  // tile j's partial (its products retired) into its buffer: the float4
+  // nt 128 + t holds accumulator thread t's elements 4 nt to 4 nt + 3
+  // (n-tile nt: columns 8 nt + 2 c and + 1 of rows 16 warp + g and + 8)
+  auto publish = [&](int j) {
+    float4* pw = reinterpret_cast<float4*>(sm + BW_PART +
+                                           (j & 1) * 2 * BW_PM + wg * BW_PM);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      pw[nt * WG + t] = make_float4(sc[4 * nt], sc[4 * nt + 1],
+                                    sc[4 * nt + 2], sc[4 * nt + 3]);
+  };
+
+  // The exchange. Unit u is n-tile nt = u / 128 of accumulator thread at =
+  // u % 128 (rows 16 (at / 32) + (at % 32) / 4 and + 8, columns 8 nt + 2
+  // (at % 4) and + 1): in every block's partial of S (and of dP) the
+  // float4 nt 128 + at.
+  constexpr int RB = 4;         // ranks loaded before their adds
+  using Loads = float4[RB][2];  // [rank][S, dP]
+  const int lo_u = rank * BW_UNITS / cs, hi_u = (rank + 1) * BW_UNITS / cs;
+  // the unit's S and dP in the partials at byte offset `part` of ranks q0
+  // to q0 + RB - 1 (zeros past cs and with `on` false)
+  auto own_load = [&](Loads& x, int part, int u, bool on, int q0) {
+    const int at = u & (WG - 1), nt = u >> 7;
+#pragma unroll
+    for (int qq = 0; qq < RB; ++qq) {
+      const bool here = on && q0 + qq < cs;
+      const uint32_t a = (here ? cluster_map(base, q0 + qq) : 0) + part +
+                         (nt * WG + at) * 16;
+#pragma unroll
+      for (int mat = 0; mat < 2; ++mat)
+        x[qq][mat] = here ? ld_dsmem4(a + mat * BW_PM)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  // a unit's tile j from the loads of ranks 0 to RB - 1 (the others are
+  // loaded here): the cs partials added in rank order, then P and dS in
+  // fp32, rounded to bf16 and pushed to every block as the A-fragment
+  // registers 2 (nt % 2) and + 1 of k-step nt / 2 of thread at: dK/dV P's
+  // and dS's in one 16-byte piece, dQ dS's in an 8-byte one
+  auto own_finish = [&](const Loads& x, int j, int u) {
+    const int part = BW_PART + (j & 1) * 2 * BW_PM;
+    const int at = u & (WG - 1), nt = u >> 7;
+    float2 a[2][2];  // [S, dP][row half]
+    auto add = [&](const Loads& y, int q0) {
+#pragma unroll
+      for (int qq = 0; qq < RB; ++qq)
+        if (q0 + qq < cs) {
+#pragma unroll
+          for (int mat = 0; mat < 2; ++mat) {
+            const float4 v = y[qq][mat];
+            a[mat][0] = q0 + qq == 0 ? make_float2(v.x, v.y)
+                                     : make_float2(a[mat][0].x + v.x,
+                                                   a[mat][0].y + v.y);
+            a[mat][1] = q0 + qq == 0 ? make_float2(v.z, v.w)
+                                     : make_float2(a[mat][1].x + v.z,
+                                                   a[mat][1].y + v.w);
+          }
+        }
+    };
+    add(x, 0);
+#pragma unroll
+    for (int q0 = RB; q0 < WCLUSTER; q0 += RB)
+      if (q0 < cs) {
+        Loads y;
+        own_load(y, part, u, true, q0);
+        add(y, q0);
+      }
+    // dK/dV: the streamed (q) row of an element is its column; dQ: the
+    // fixed row
+    const float* st = DKV ? stats + (j % BW_ST) * 3 * ROWS : stats;
+    const int col0 = 8 * nt + 2 * (at & 3),
+              row0 = 16 * (at >> 5) + ((at & 31) >> 2);
+    uint32_t pv[2], dv[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float pe[2], de[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = DKV ? col0 + e : row0 + 8 * hh;
+        const float s = e ? a[0][hh].y : a[0][hh].x,
+                    d = e ? a[1][hh].y : a[1][hh].x;
+        const float iv = DKV ? 1.f / st[ROWS + r] : st[ROWS + r];
+        pe[e] = exp_ftz(__fmul_rn(s, p.scale) - st[r]) * iv;
+        de[e] = (d - st[2 * ROWS + r]) * pe[e] * p.scale;
+      }
+      pv[hh] = pack_bf16(pe[0], pe[1]);
+      dv[hh] = pack_bf16(de[0], de[1]);
+    }
+    const uint32_t off = BW_FRAG + (j & 1) * 2 * BW_FM +
+                         (nt * WG + at) * (DKV ? 16 : 8);
+#pragma unroll
+    for (int q = 0; q < WCLUSTER; ++q)
+      if (q < cs) {
+        const uint32_t rb = cluster_map(base, q) + off;
+        if constexpr (DKV)
+          st_dsmem(rb, make_uint4(pv[0], pv[1], dv[0], dv[1]));
+        else
+          st_dsmem(rb, make_uint2(dv[0], dv[1]));
+      }
+  };
+  Loads xo;  // the first turn's loads, issued a tile ahead
+  auto own_pref = [&](int j) {
+    own_load(xo, BW_PART + (j & 1) * 2 * BW_PM, lo_u + tid,
+             lo_u + tid < hi_u, 0);
+  };
+  auto own_fin = [&](int j) {
+    if (lo_u + tid < hi_u) own_finish(xo, j, lo_u + tid);
+    for (int u0 = lo_u + WT; u0 < hi_u; u0 += WT)
+      if (u0 + tid < hi_u) {
+        Loads y;
+        own_load(y, BW_PART + (j & 1) * 2 * BW_PM, u0 + tid, true, 0);
+        own_finish(y, j, u0 + tid);
+      }
+  };
+
+  // tile j's gradient products from the fragments in this block's shared
+  // memory (dK/dV: warpgroup 0 dS, 1 P) and the tile's stage, left in
+  // flight
+  auto consume = [&](int j) {
+    if (!out) return;
+    const unsigned char* fr = sm + BW_FRAG + (j & 1) * 2 * BW_FM +
+                              (DKV && wg == 0 ? 8 : 0);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const uint2 x = *reinterpret_cast<const uint2*>(
+          fr + (nt * WG + t) * (DKV ? 16 : 8));
+      fa[nt >> 1][2 * (nt & 1)] = x.x;
+      fa[nt >> 1][2 * (nt & 1) + 1] = x.y;
+    }
+    const uint32_t st = base + BW_STG + (j % BW_ST) * 2 * BW_SLICE +
+                        (DKV ? wg * BW_SLICE : 0);
+    hold(acc);
+    hold(fa);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (DKV)
+        mma_rs128(acc, fa[kk], desc_mn(st + kk * 16 * 128, BOX));
+      else
+        mma_rs(acc, fa[kk], desc(st + wg * BOX + kk * 16 * 128));
+    }
+    wg_commit();
+  };
+
+  contract(0);
+  wg_wait<0>();
+  hold(sc);
+  publish(0);
+  __syncthreads();
+  if (tid == 0 && multi && tiles > 1) load_item(1, 0);
+  __syncwarp();
+  cluster_sync();  // every block has started and written tile 0's partials
+  if (tiles > 1) contract(1);
+  own_pref(0);
+  own_fin(0);
+  wg_wait<0>();
+  hold(sc);
+  if (tiles > 1) publish(1);
+  __syncthreads();
+  if (tid == 0 && multi && tiles > 2) load_item(2, 0);
+  __syncwarp();
+  cluster_sync();  // P and dS of tile 0 and the partials of tile 1 seen
+  for (int j = 0; j < tiles; ++j) {
+    if (j + 1 < tiles) own_pref(j + 1);
+    consume(j);
+    if (j + 2 < tiles) contract(j + 2);
+    if (j + 1 < tiles) own_fin(j + 1);
+    wg_wait<0>();  // tile j's gradients and tile j + 2's contraction
+    hold(acc);
+    hold(fa);
+    hold(sc);
+    if (j + 2 < tiles) publish(j + 2);
+    __syncthreads();  // tile j's stage takes tile j + 3
+    if (tid == 0 && j + 3 < tiles) load_item(j + 3, 0);
+    __syncwarp();
+    cluster_sync();  // P and dS of tile j + 1, partials of tile j + 2 seen
+  }
+
+  if (out) {  // rows 16 warp + g and + 8, columns 8 q + 2 c and + 1
+    const bool second = DKV && wg == 1;  // dV
+    const long long n_stride = second ? p.g2_n : p.g1_n;
+    __nv_bfloat16* o = (second ? static_cast<__nv_bfloat16*>(p.g2) +
+                                     b * p.g2_b + h * p.g2_h
+                               : static_cast<__nv_bfloat16*>(p.g1) +
+                                     b * p.g1_b + h * p.g1_h) +
+                       (r0 + 16 * warp + g) * n_stride + WC * gs +
+                       (DKV ? 0 : GN * wg) + 2 * c;
+#pragma unroll
+    for (int q = 0; q < GN / 8; ++q)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr)
+        *reinterpret_cast<__nv_bfloat162*>(o + rr * 8 * n_stride + 8 * q) =
+            __floats2bfloat162_rn(acc[4 * q + 2 * rr],
+                                  acc[4 * q + 2 * rr + 1]);
+  }
+}
+
+// The bf16 (dtype 0) or fp32 wide kernel's launch at a shape with `fixed`
+// fixed rows: its grid (a cluster of cs blocks along Dh for each fixed tile
+// and pass), two warpgroups a block, its shared memory, on stream `st`.
+inline void wide_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute& at,
+                        int dtype, int fixed, int B, int H, int D,
+                        cudaStream_t st) {
+  wide_launch_config(cfg, at, fixed / ROWS, B, H, D, WT,
+                     dtype == 0 ? smem_wide_bf16() : smem_wide_f32(), st);
+}
+
+template <bool DKV>
+auto wide_kernel(int dtype) {
+  return dtype == 0 ? flash_bwd_wide_bf16<DKV> : flash_bwd_wide_f32<DKV>;
 }
 
 // Blocks of the kernel `fn` that fit on one SM with `smem` bytes of shared
@@ -1463,9 +1701,8 @@ int blocks_per_sm(int dtype) {
 
 template <bool DKV>
 int blocks_per_sm_wide(int dtype) {
-  return dtype == 0
-             ? occupancy(flash_bwd_wide_bf16<DKV>, smem_wide_bf16<DKV>())
-             : occupancy(flash_bwd_wide_f32<DKV>, smem_wide_f32(), WT);
+  return occupancy(wide_kernel<DKV>(dtype),
+                   dtype == 0 ? smem_wide_bf16() : smem_wide_f32(), WT);
 }
 
 // The four TMA maps: fixed tiles of 64 rows, streamed tiles of `rs` rows,
@@ -1524,9 +1761,8 @@ int launch(int dtype, int B, int H, const Params& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dh a multiple of 128 from 384 up: bf16, streamed tiles of 64 rows and a
-// block for each 64 gradient columns; fp32, streamed tiles of WRS rows on
-// clusters along Dh
+// Dh a multiple of 128 from 384 up, on clusters along Dh: bf16, streamed
+// tiles of 64 rows; fp32, of WRS rows
 template <bool DKV>
 int launch_wide(int dtype, int B, int H, int D, const Params& p,
                 cudaStream_t st) {
@@ -1536,26 +1772,16 @@ int launch_wide(int dtype, int B, int H, int D, const Params& p,
   tp.p = p;
   if (!maps<DKV>(tp, D, B, H, dtype == 0 ? 2 : 4, dtype == 0 ? ROWS : WRS))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int fixed = DKV ? p.n_kv : p.n_q;
-  cudaError_t e;
-  if (dtype == 0) {
-    e = cudaFuncSetAttribute(flash_bwd_wide_bf16<DKV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_wide_bf16<DKV>());
-    if (e != cudaSuccess) return static_cast<int>(e);
-    flash_bwd_wide_bf16<DKV><<<dim3(fixed / ROWS * (D / 64), H, B), WG,
-                               smem_wide_bf16<DKV>(), st>>>(tp, D);
-  } else {
-    e = cudaFuncSetAttribute(flash_bwd_wide_f32<DKV>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             smem_wide_f32());
-    if (e != cudaSuccess) return static_cast<int>(e);
-    cudaLaunchConfig_t cfg;
-    cudaLaunchAttribute at;
-    wide_f32_config(cfg, at, fixed, B, H, D, st);
-    e = cudaLaunchKernelEx(&cfg, flash_bwd_wide_f32<DKV>, tp, D);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
+  const auto fn = wide_kernel<DKV>(dtype);
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dtype == 0 ? smem_wide_bf16() : smem_wide_f32());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute at;
+  wide_config(cfg, at, dtype, DKV ? p.n_kv : p.n_q, B, H, D, st);
+  e = cudaLaunchKernelEx(&cfg, fn, tp, D);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1588,17 +1814,14 @@ int plan_for(int dtype, int D, int B, int H, int n_q, int n_kv, int* plan) {
   plan[3] = 0;
   if (wide(D)) {
     plan[1] = blocks_per_sm_wide<DKV>(dtype);
-    if (dtype == 1) {  // the cluster kernel: its own grid
-      cudaLaunchConfig_t cfg;
-      cudaLaunchAttribute at;
-      wide_f32_config(cfg, at, fixed, B, H, D, nullptr);
-      plan[0] = static_cast<int>(cfg.gridDim.x * cfg.gridDim.y *
-                                 cfg.gridDim.z);
-      plan[2] = static_cast<int>(at.val.clusterDim.x);
-      if (cudaOccupancyMaxActiveClusters(&plan[3], flash_bwd_wide_f32<DKV>,
-                                         &cfg) != cudaSuccess)
-        plan[3] = -1;
-    }
+    cudaLaunchConfig_t cfg;  // the cluster kernels: their own grid
+    cudaLaunchAttribute at;
+    wide_config(cfg, at, dtype, fixed, B, H, D, nullptr);
+    plan[0] = static_cast<int>(cfg.gridDim.x * cfg.gridDim.y * cfg.gridDim.z);
+    plan[2] = static_cast<int>(at.val.clusterDim.x);
+    if (cudaOccupancyMaxActiveClusters(&plan[3], wide_kernel<DKV>(dtype),
+                                       &cfg) != cudaSuccess)
+      plan[3] = -1;
   } else {
     switch (D) {
       case 64: plan[1] = blocks_per_sm<64, DKV>(dtype); break;

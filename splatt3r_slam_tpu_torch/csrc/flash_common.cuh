@@ -123,12 +123,20 @@ __device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
   return remote;
 }
 
-// 8 or 4 bytes from, and 16 or 4 bytes to, a `cluster_map` address (stores
-// are seen there after the next cluster barrier).
+// 8, 16 or 4 bytes from, and 16, 8 or 4 bytes to, a `cluster_map` address
+// (stores are seen there after the next cluster barrier).
 __device__ __forceinline__ float2 ld_dsmem(uint32_t remote) {
   float2 v;
   asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
                : "=f"(v.x), "=f"(v.y) : "r"(remote) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_dsmem4(uint32_t remote) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w) : "r"(remote)
+               : "memory");
   return v;
 }
 
@@ -143,6 +151,11 @@ __device__ __forceinline__ void st_dsmem(uint32_t remote, uint4 v) {
   asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n"
                :: "r"(remote), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
+}
+
+__device__ __forceinline__ void st_dsmem(uint32_t remote, uint2 v) {
+  asm volatile("st.shared::cluster.v2.u32 [%0], {%1, %2};\n"
+               :: "r"(remote), "r"(v.x), "r"(v.y) : "memory");
 }
 
 __device__ __forceinline__ void st_dsmem(uint32_t remote, float v) {

@@ -532,15 +532,14 @@ def test_flash_source_is_hand_written(name, case):
     FMA loop in the fp32 kernels and no cp.async left; each with one
     template instance per head dim of `HEAD_DIMS` and, for every other
     head dim the wrapper admits (multiples of 128 from 384 up), one wide
-    kernel a dtype that takes the head dim at run time; the wide forward
-    (both dtypes) and the fp32 wide backward on thread-block clusters
-    along Dh, each block contracting its own 128-column slice once a kv
-    tile (no loop over 64-column chunks of Dh) and the partials of S (and
-    dP) exchanged through distributed shared memory between cluster
-    barriers, launched with the cluster attribute; no library on the route
-    and no atomics. A source is read together with the local
-    headers it includes, and its own text calls their wgmma, TMA and
-    mbarrier helpers."""
+    kernel a dtype that takes the head dim at run time; the wide kernels
+    (both dtypes, forward and backward) on thread-block clusters along Dh,
+    each block contracting its own 128-column slice once a tile (no loop
+    over 64-column chunks of Dh) and the partials of S (and dP) exchanged
+    through distributed shared memory between cluster barriers, launched
+    with the cluster attribute; no library on the route and no atomics. A
+    source is read together with the local headers it includes, and its
+    own text calls their wgmma, TMA and mbarrier helpers."""
     source = cuda_build.KERNELS[name][0]
     code = source.read_text()
     own = re.sub(r"//[^\n]*", "", code)
@@ -601,10 +600,8 @@ def test_flash_source_is_hand_written(name, case):
     for dtype in ("bf16", "f32"):
         assert re.search(rf"{stem}_wide_{dtype}\(const __grid_constant__ "
                          r"TmaParams tp, int D\)", own), dtype
-    # a wide kernel that streams S over Dh in 64-column chunks: of the
-    # backward's only the bf16 pair; none of the forward's
-    assert own.count("const int nc = D / 64;") == (
-        0 if name == "flash_attention" else 1)
+    # no wide kernel streams S over Dh in 64-column chunks
+    assert "const int nc = D / 64;" not in own
     if name == "flash_attention":
         # the wide forward, both dtypes: a cluster of blocks along Dh, each
         # contracting its own 128-column slice once a kv tile (one group of
@@ -633,17 +630,29 @@ def test_flash_source_is_hand_written(name, case):
                    "cudaLaunchKernelEx(", "cudaOccupancyMaxActiveClusters("):
             assert op in code, op
     else:
-        # the fp32 wide pair: a cluster of blocks along Dh, each contracting
-        # its own 128-column slice once a streamed tile (no loop over every
-        # chunk of Dh), the partials added through distributed shared
-        # memory between cluster barriers, launched with the cluster's size
-        wide32 = re.search(r"flash_bwd_wide_f32\(const __grid_constant__ "
-                           r"TmaParams tp, int D\) \{.*?\n\}\n", own, re.S)
-        body = wide32.group(0)
-        for helper in ("cluster_rank()", "cluster_sync();", "ld_cluster(",
-                       "contract(", "mma_tf32<GN>(", "transpose_t("):
-            assert helper in body, helper
-        assert not re.search(r"D / (32|64)", body)
+        # the wide pair, both dtypes: a cluster of blocks along Dh, each
+        # contracting its own 128-column slice once a streamed tile (no loop
+        # over every chunk of Dh), the partials added through distributed
+        # shared memory between cluster barriers, launched with the
+        # cluster's size; fp32 reads the P and dS of its elements from their
+        # owners, bf16 has them pushed as A fragments into every block
+        # (st.shared::cluster) and reads the streamed slice transposed by
+        # the wgmma itself
+        for dtype, helpers in (
+                ("f32", ("ld_cluster(", "contract(", "mma_tf32<GN>(",
+                         "transpose_t(")),
+                ("bf16", ("own_load(", "own_finish(", "st_dsmem(",
+                          "ld_dsmem4(", "cluster_map(", "mma_rs128(",
+                          "mma_rs(", "mma_ss("))):
+            body = re.search(
+                rf"flash_bwd_wide_{dtype}\(const __grid_constant__ "
+                r"TmaParams tp, int D\) \{.*?\n\}\n", own, re.S).group(0)
+            for helper in ("cluster_rank()", "cluster_sync();") + helpers:
+                assert helper in body, (dtype, helper)
+            assert not re.search(r"D / (32|64)", body), dtype
+        assert "transpose_t(" not in re.search(
+            r"flash_bwd_wide_bf16\(const __grid_constant__ TmaParams tp, "
+            r"int D\) \{.*?\n\}\n", own, re.S).group(0)
         for op in ("barrier.cluster.arrive.release", "barrier.cluster.wait",
                    "mapa.shared::cluster", "ld.shared::cluster",
                    "cudaLaunchAttributeClusterDimension",

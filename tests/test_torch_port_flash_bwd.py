@@ -16,11 +16,16 @@ version).
 Tolerances and what this CPU measured:
 - plain backward (and forward) against the Pallas kernels, fp32: 1e-5 of
   each gradient's peak (both exact fp32 with sums in another order;
-  measured at most 1.9e-7);
+  measured at most 1.9e-7 up to Dh 384, 1.2e-6 at Dh 1152);
 - the same in bf16: 2^-7 of each gradient's peak, two bf16 steps (both
   round p and ds to bf16 and the gradients once at the end; the fp32 sums
   that decide a rounding differ in order; measured at most 0.18 of the
-  bar);
+  bar up to Dh 384, 0.42 at Dh 1152);
+- the bf16 wide kernels' steps emulated (S and dP summed slice by slice as
+  their clusters sum them, `_bf16_wide_backward`) against the Pallas
+  kernels: the same bar, 2^-7 of each gradient's peak; measured at most
+  0.21 of it at Dh 512 and 0.34 at Dh 1152; the emulated order of S the
+  bf16 wide forward's, bit for bit, at Dh 384 and 512;
 - residuals against `_flash_attention_impl(save_residuals=True)`: l within
   1e-5 relative (fp32 sums of n_kv terms in another order; measured at
   most 8.4e-7), m within 1e-6 of its largest value (the same maxima of
@@ -155,7 +160,7 @@ def _rel(got, want):
 # (B, n_q, n_kv, H, Dh, v strided)
 CASES = ((1, 256, 256, 2, 64, False), (1, 256, 512, 2, 64, False),
          (1, 256, 256, 1, 128, False), (1, 256, 256, 2, 64, True),
-         (1, 256, 256, 1, 384, False))
+         (1, 256, 256, 1, 384, False), (1, 256, 256, 1, 1152, False))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -219,6 +224,127 @@ def _split_tf32_backward(q, k, v, o, l, m, do, scale, passes=3):
     dk = mm_split(ds.transpose(-1, -2), qf, passes)
     dq = mm_split(ds, kf, passes)
     return tuple(g.transpose(1, 2) for g in (dq, dk, dv))
+
+
+# -- the bf16 wide kernels' order: slices on thread-block clusters ------------
+
+def _wide_ranks(D, pass_):
+    """The slices each rank of a wide kernel's cluster contracts, in its
+    order (`wide_slice`, csrc/flash_attention_bwd.cu): Dh in n slices of
+    128 columns, a cluster of cs = n blocks up to 8, above it ceil(n / 8)
+    passes of clusters of cs = ceil(n / passes); block r of pass p takes
+    its slices r, r + cs, ... from the one after its pass's, so that its
+    gradients' slice r + p cs comes last → [[slice, ...] for each rank]."""
+    n = D // 128
+    rounds = -(-n // 8)
+    cs = -(-n // rounds)
+    return [[r + (pass_ + 1 + x) % rounds * cs for x in range(rounds)
+             if r + (pass_ + 1 + x) % rounds * cs < n] for r in range(cs)]
+
+
+def _bf16_contract(a, b, pass_=0):
+    """a bᵀ over Dh as the bf16 wide backward's clusters sum S and dP for
+    pass `pass_` (a and b bf16 values in fp32): bf16 products are exact in
+    fp32 and each 128-column slice is one sum; each rank's slices are added
+    in its own order (one chain of wgmmas a block) and the ranks' partials
+    in rank order. Up to Dh 1024 a rank has one slice."""
+    total = None
+    for slices in _wide_ranks(a.shape[-1], pass_):
+        part = None
+        for sl in slices:
+            cols = slice(128 * sl, 128 * sl + 128)
+            s = a[..., cols] @ b[..., cols].transpose(-1, -2)
+            part = s if part is None else part + s
+        total = part if total is None else total + part
+    return total
+
+
+def _bf16_wide_backward(q, k, v, o, l, m, do, scale):
+    """The bf16 wide kernels' steps, emulated in fp32 on bf16 tensors: for
+    each pass of clusters, S and dP summed as the clusters sum them
+    (`_bf16_contract`), p = exp(s scale - m) (1 / l) and ds = (dp - di) p
+    scale in fp32, p and ds rounded to bf16 for dV = pᵀ do, dK = dsᵀ q and
+    dQ = ds k (summed in fp32), each gradient rounded once to bf16; the
+    pass writes the gradients' columns of its slices r + p cs → (dq, dk,
+    dv), bf16."""
+    qf, kf, vf, dof = (t.float().transpose(1, 2) for t in (q, k, v, do))
+    di = fa._di(o, do)[..., None]
+    D = q.shape[-1]
+    n = D // 128
+    rounds = -(-n // 8)
+    cs = -(-n // rounds)
+    grads = [torch.zeros_like(t) for t in (qf, kf, vf)]
+    for pass_ in range(rounds):
+        s = _bf16_contract(qf, kf, pass_) * scale
+        p = torch.exp(s - m[..., None]) * (1 / l)[..., None]
+        dp = _bf16_contract(dof, vf, pass_)
+        ds = ((dp - di) * p * scale).bfloat16().float()
+        pb = p.bfloat16().float()
+        for sl in range(pass_ * cs, min(n, pass_ * cs + cs)):
+            cols = slice(128 * sl, 128 * sl + 128)
+            grads[0][..., cols] = ds @ kf[..., cols]
+            grads[1][..., cols] = ds.transpose(-1, -2) @ qf[..., cols]
+            grads[2][..., cols] = pb.transpose(-1, -2) @ dof[..., cols]
+    return tuple(g.transpose(1, 2).bfloat16() for g in grads)
+
+
+@pytest.mark.parametrize("dh", [512, 1152])
+def test_bf16_wide_backward_matches_pallas_kernels(dh, calls):
+    """The bf16 wide kernels' arithmetic, emulated on the CPU (S and dP
+    summed slice by slice on the clusters, above Dh 1024 pass by pass;
+    `_bf16_wide_backward`), holds the JAX package's Pallas backward at the
+    bf16 bar (2^-7 of each gradient's peak), on bf16 inputs with the plain
+    forward's output and residuals."""
+    shape = (1, 256, 256, 1, dh)
+    arrays = _arrays(shape, seed=sum(shape) + 3)
+    scale = dh ** -0.5
+    want = _jax_vjp(arrays, jnp.bfloat16, scale)
+    assert calls["jax_fwd"] == calls["jax_dkv"] == calls["jax_dq"] == 1
+    assert not JL._FLASH_FALLBACK_LOGGED
+    q, k, v, do = _port(arrays, torch.bfloat16)
+    o, l, m = fa.flash_attention_torch(q, k, v, scale, residuals=True)
+    got = _bf16_wide_backward(q, k, v, o, l, m, do, scale)
+    for name, g, w, t in zip("qkv", got, want[1:], (q, k, v)):
+        assert g.dtype == torch.bfloat16 and g.shape == t.shape
+        assert _rel(g, w) <= BF16_BAR, (name, _rel(g, w))
+
+
+def _bf16_fwd_scores(qf, kf):
+    """S = Q·Kᵀ of one 64-row kv tile as the bf16 wide forward sums it
+    (csrc/flash_attention.cu): each rank's slices r, r + cs, ... in one
+    chain and the ranks' partials added in rank order."""
+    n = qf.shape[-1] // 128
+    rounds = -(-n // 8)
+    cs = -(-n // rounds)
+    total = None
+    for r in range(cs):
+        part = None
+        for sl in range(r, n, cs):
+            cols = slice(128 * sl, 128 * sl + 128)
+            s = qf[..., cols] @ kf[..., cols].transpose(-1, -2)
+            part = s if part is None else part + s
+        total = part if total is None else total + part
+    return total
+
+
+@pytest.mark.parametrize("dh", [384, 512])
+def test_bf16_wide_backward_forms_the_forward_scores(dh):
+    """Up to Dh 1024 the bf16 wide backward forms S in the bf16 wide
+    forward's order, so that the p it recomputes from the forward's m and
+    l is the p the forward formed: tile by tile of 64 kv rows (the dQ
+    kernel's streamed tiles, the forward's kv tiles), the backward's order
+    (`_bf16_contract`) gives the bits of the forward's (`_bf16_fwd_scores`)
+    of S, and so of s·scale and p."""
+    arrays = _arrays((1, 128, 256, 2, dh), seed=dh + 7)
+    q, k, _, _ = (torch.from_numpy(a).bfloat16().float() for a in arrays)
+    qf, kf = (t.transpose(1, 2) for t in (q, k))
+    scale = dh ** -0.5
+    for k0 in range(0, 256, 64):
+        kt = kf[:, :, k0:k0 + 64]
+        bwd, fwd = _bf16_contract(qf, kt), _bf16_fwd_scores(qf, kt)
+        assert torch.equal(bwd, fwd)
+        assert torch.equal(bwd * scale, fwd * scale)
+    assert _wide_ranks(dh, 0) == [[r] for r in range(dh // 128)]
 
 
 def test_tf32_rounding_keeps_ten_mantissa_bits():
@@ -318,6 +444,36 @@ def test_plain_residuals_match_pallas(dtype):
     jl, jm = np.asarray(jl), np.asarray(jm)
     assert float((np.abs(l.numpy() - jl) / jl).max()) <= 1e-5
     assert float(np.abs(m.numpy() - jm).max()) <= 1e-6 * np.abs(jm).max()
+
+
+def test_wide_backward_probe_applies_to_the_source():
+    """`scripts/probe_wide_backward.py` alters copies of the backward's
+    source by its text: the clocked copy reads the clock around each of the
+    eight steps of the bf16 wide kernel's tile loop (one template, both
+    instances) and adds its reader, and leaves every other kernel as it
+    is; each variant changes the bf16 wide kernel alone. So the probe still
+    applies to this source."""
+    from splatt3r_slam_tpu_torch import cuda_build
+    from splatt3r_slam_tpu_torch.scripts import probe_wide_backward as probe
+
+    src = cuda_build.KERNELS["flash_attention_bwd_dkv"][0].read_text()
+    clocked = probe.phases_source(src)
+    for k in range(len(probe.PHASES)):
+        assert clocked.count(f"pc_[{k}] += t_ - pt_;") == 1, k
+    assert clocked.count("atomicAdd(&pr[10]") == 1
+    assert 'extern "C" int flash_probe_read(' in clocked
+    head = src.index(probe._KERNEL)
+    before = src[:head].replace(
+        '#include "flash_common.cuh"', '#include "flash_common.cuh"\n'
+        "__device__ unsigned long long flash_probe[2][11];")
+    assert clocked.startswith(before)
+    after = src[src.index("\n}\n", head) + 3:]
+    assert clocked[clocked.index("\n}\n", len(before)) + 3:].startswith(
+        after)
+    for name in probe.VARIANTS:
+        alt = probe.variant_source(src, name)
+        assert alt != src and alt[:head] == src[:head], name
+        assert alt.endswith(after), name
 
 
 # -- FlashAttention under autograd --------------------------------------------

@@ -51,6 +51,7 @@ from splatt3r_slam_tpu_torch.scripts import (
     compute_ate,
     convert_lpips,
     make_tum_fixture,
+    probe_wide_backward,
     probe_wide_forward,
     sweep_accuracy,
 )
@@ -412,6 +413,7 @@ def test_make_tum_fixture_equals_committed(tmp_path):
     (convert_lpips.main, ["--from-file", "x.pt", "out.npz"]),
     (make_tum_fixture.main, ["--out", "unused"]),
     (probe_wide_forward.main, []),
+    (probe_wide_backward.main, []),
 ], ids=lambda x: getattr(x, "__module__", "").rsplit(".", 1)[-1] or None)
 def test_default_device_is_cuda_and_raises_without_gpu(main, argv,
                                                       monkeypatch):
